@@ -1,0 +1,78 @@
+"""Weights carried across from the JAX package — port of
+``cnn_pde_tpu/compat/torch_import.py`` for the ported family.
+
+The port's module names are the reference's ``state_dict`` names, so a
+reference checkpoint loads as it is.  ``state_dict_from_jax`` turns the JAX
+model's ``(params, state)`` (nested dicts of numpy arrays) into that
+namespace: the flagship's key rewrites, the leaf map (``w``/``scale`` →
+``weight``, ``b`` → ``bias``, ``mean``/``var`` → ``running_*``), the Linear
+transpose (JAX keeps (in, out), torch (out, in)) and zero
+``num_batches_tracked`` counters beside each BatchNorm.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_jax", "load_torch_checkpoint"]
+
+# cifar10_noconv: JAX dotted param path → reference state_dict key
+# (cifar10.py:215-361: SpatialAttention.attention_fc, EnhancedFC.network)
+KEY_REWRITES = [(r"\.fc\.", ".attention_fc."),
+                (r"^classifier\.", "classifier.network.")]
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _torch_key(path, *, is_state):
+    for pat, rep in KEY_REWRITES:
+        new = re.sub(pat, rep, path)
+        if new != path:
+            path = new
+            break
+    head, _, leaf = path.rpartition(".")
+    if is_state:
+        leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
+    else:
+        leaf = {"w": "weight", "b": "bias", "scale": "weight"}.get(leaf, leaf)
+    return f"{head}.{leaf}" if head else leaf
+
+
+def state_dict_from_jax(params, state):
+    """The JAX ``cifar10_noconv`` model's ``(params, state)`` as a
+    reference-layout state_dict of CPU tensors, ready for
+    ``model.load_state_dict(sd, strict=True)``."""
+    sd = {}
+    for path, leaf in _flatten(params).items():
+        v = np.asarray(leaf)
+        if path.rsplit(".", 1)[-1] == "w" and v.ndim == 2:
+            v = v.T
+        sd[_torch_key(path, is_state=False)] = torch.tensor(v)
+    for path, leaf in _flatten(state).items():
+        key = _torch_key(path, is_state=True)
+        sd[key] = torch.tensor(np.asarray(leaf))
+        sd.setdefault(f"{key.rsplit('.', 1)[0]}.num_batches_tracked",
+                      torch.zeros((), dtype=torch.int64))
+    return sd
+
+
+def load_torch_checkpoint(path):
+    """``torch.load`` a reference checkpoint (weights only): a bare
+    state_dict, or one held under 'state_dict' or 'model'."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for k in ("state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(k), dict):
+            return obj[k]
+    return obj

@@ -1,0 +1,34 @@
+"""Model registry of the port.  Only the CIFAR-10 no-conv flagship is ported;
+every other preset of the JAX package raises until its slice lands."""
+
+from __future__ import annotations
+
+import torch
+
+from .attention import SpatialAttention
+from .cifar10_noconv import CIFAR10PDENoConv, EnhancedFC, MultiScaleExtractor
+
+__all__ = ["MODEL_REGISTRY", "build_model", "SpatialAttention",
+           "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor"]
+
+MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv}
+
+# JAX model families still to port, with their ROADMAP.md queue-A items
+NOT_YET_PORTED = {"mnist": "A7", "fashion_mnist": "A7", "svhn": "A8",
+                  "emotion": "A9", "tiny_imagenet": "A10",
+                  "cifar10_hybrid": "A11"}
+
+
+def build_model(name, *, device="cpu", generator=None, **kwargs):
+    """Model ``name`` with the JAX model's init distributions drawn from
+    ``generator`` (a CPU ``torch.Generator``; None uses torch's global one),
+    moved to ``device`` and put in eval mode."""
+    if name in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not yet ported: ROADMAP.md "
+            f"{NOT_YET_PORTED[name]}")
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model {name!r}")
+    model = MODEL_REGISTRY[name](**kwargs)
+    model.reset_parameters(generator)
+    return model.to(device).eval()

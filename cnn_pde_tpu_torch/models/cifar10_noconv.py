@@ -1,0 +1,114 @@
+"""The CIFAR-10 no-convolution flagship — port of
+``cnn_pde_tpu/models/cifar10_noconv.py`` (M5-M7), default branch path.
+
+Attribute names follow the reference's ``state_dict`` namespace, so a
+reference checkpoint loads with ``load_state_dict(strict=True)``.  The
+lockstep, fused-multiscale and branch-sharded modes are later slices
+(ROADMAP.md A14, A15).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..pde import MixedChannelDiffusion
+from .attention import SpatialAttention
+
+__all__ = ["MultiScaleExtractor", "EnhancedFC", "CIFAR10PDENoConv"]
+
+
+class MultiScaleExtractor(nn.Module):
+    """Three Strang PDE branches at different temporal and spatial scales,
+    each gated by SpatialAttention, combined by softmax weights."""
+
+    SCALES = [dict(dt=0.001, num_steps=5, dx=1.0, dy=1.0),
+              dict(dt=0.002, num_steps=8, dx=2.0, dy=2.0),
+              dict(dt=0.005, num_steps=4, dx=1.5, dy=1.5)]
+
+    def __init__(self, input_size=32, channels=3, fused_inference=False,
+                 device=None):
+        super().__init__()
+        for i, scale in enumerate(self.SCALES, start=1):
+            self.add_module(f"pde{i}", MixedChannelDiffusion(
+                input_size, channels, splitting="strang",
+                fused_inference=fused_inference, device=device, **scale))
+            self.add_module(f"attention{i}",
+                            SpatialAttention(channels, input_size, device))
+        self.combine_weights = nn.Parameter(
+            torch.full((3,), 1.0 / 3.0, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        for i in (1, 2, 3):
+            getattr(self, f"pde{i}").reset_parameters(generator)
+        for i in (1, 2, 3):
+            getattr(self, f"attention{i}").reset_parameters(generator)
+        self.combine_weights.fill_(1.0 / 3.0)
+
+    def forward(self, x):
+        feats = [getattr(self, f"attention{i}")(getattr(self, f"pde{i}")(x))
+                 for i in (1, 2, 3)]
+        w = torch.softmax(self.combine_weights, dim=0)
+        return w[0] * feats[0] + w[1] * feats[1] + w[2] * feats[2]
+
+
+class EnhancedFC(nn.Module):
+    """[Linear, BatchNorm1d, ReLU, Dropout] × n + a final Linear, with
+    kaiming-normal weights and zero biases on every Linear."""
+
+    def __init__(self, input_size, hidden_sizes, num_classes,
+                 dropout_rate=0.3, device=None):
+        super().__init__()
+        layers = []
+        prev = input_size
+        for h in hidden_sizes:
+            layers += [nn.Linear(prev, h, device=device),
+                       nn.BatchNorm1d(h, device=device), nn.ReLU(),
+                       nn.Dropout(dropout_rate)]
+            prev = h
+        layers.append(nn.Linear(prev, num_classes, device=device))
+        self.network = nn.Sequential(*layers)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        for m in self.network:
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(2.0) / math.sqrt(m.in_features)
+                m.weight.copy_(torch.randn(m.weight.shape,
+                                           generator=generator) * std)
+                m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+
+    def forward(self, x):
+        return self.network(x)
+
+
+class CIFAR10PDENoConv(nn.Module):
+    """extractor → BatchNorm2d → avg ‖ max 4×4 pools → flatten 96 →
+    EnhancedFC([512, 256, 128, 64] → 10)."""
+
+    def __init__(self, dropout_rate=0.3, fused_inference=False, device=None):
+        super().__init__()
+        self.feature_extractor = MultiScaleExtractor(
+            32, 3, fused_inference=fused_inference, device=device)
+        self.feature_bn = nn.BatchNorm2d(3, device=device)
+        self.classifier = EnhancedFC(96, [512, 256, 128, 64], 10,
+                                     dropout_rate, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.feature_extractor.reset_parameters(generator)
+        self.feature_bn.reset_parameters()
+        self.classifier.reset_parameters(generator)
+
+    def forward(self, x):
+        f = self.feature_bn(self.feature_extractor(x))
+        # on 32×32 both adaptive pools are exact 8×8 windows
+        pooled = torch.cat([F.adaptive_avg_pool2d(f, 4),
+                            F.adaptive_max_pool2d(f, 4)], dim=1)
+        return self.classifier(pooled.reshape(pooled.shape[0], -1))

@@ -1,0 +1,134 @@
+"""MixedChannelDiffusion — port of ``cnn_pde_tpu/pde/diffusion.py`` (P4/P5).
+
+Per step: learnable channel mixing, then implicit ADI sweeps with per-channel
+coefficient fields clamped to [eps, clamp_max] and no smoothing:
+``strang`` runs x(dt/2), y(dt), x(dt/2) and ``lie`` runs x(dt/2), y(dt/2).
+The coefficients are evaluated at t, t+dt/2 and t+dt within each step; t
+advances by dt/2 after substeps 1 and 2 and never after substep 3.
+
+Two eval configurations:
+
+* per-sweep (default): every sweep is one ``tridiag_solve``, i.e. one K1
+  launch on the card — 3 per Strang step;
+* ``fused_inference=True``: in eval, the whole layer is one K2 launch
+  (``ops/fused_channel.py``).  On a CPU tensor both run their plain versions.
+
+The trainable fused kernels, the hoisted-operator grade and remat are later
+slices (ROADMAP.md A5, A6) and raise here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.adi import sweep_x, sweep_y
+from ..ops.fused_channel import fused_channel_diffusion_fwd
+
+__all__ = ["MixedChannelDiffusion"]
+
+
+def _substep_times_np(dt: float, num_steps: int) -> np.ndarray:
+    """(num_steps, 3) coefficient evaluation times, accumulated in float64 as
+    the reference's python-float bookkeeping does."""
+    ts = np.empty((num_steps, 3), np.float64)
+    t = 0.0
+    for s in range(num_steps):
+        ts[s, 0] = t
+        t += dt / 2
+        ts[s, 1] = t
+        t += dt / 2
+        ts[s, 2] = t
+    return ts
+
+
+def _coeff_at(base, time_coeff, t, eps, cmax=None):
+    """α(t) = clamp(α_base + α_time·t, eps, cmax); no upper clamp if cmax is
+    None."""
+    c = base + time_coeff * t
+    return c.clamp(eps, cmax) if cmax is not None else c.clamp_min(eps)
+
+
+def _mix(mixing, u):
+    """mixing @ u over the channel axis as an f32 broadcast multiply-reduce,
+    not a matmul (the reference-parity form of the JAX layer)."""
+    return (mixing[:, :, None, None] * u[:, None]).sum(dim=2)
+
+
+class MixedChannelDiffusion(nn.Module):
+    """forward(u: (B, C, H, W)) -> (B, C, H, W)."""
+
+    def __init__(self, size=32, channels=3, dt=0.001, dx=1.0, dy=1.0,
+                 num_steps=10, splitting="strang", eps=1e-6, clamp_max=10.0,
+                 fused_inference=False, fused=False, hoisted=False,
+                 remat=False, device=None):
+        super().__init__()
+        if splitting not in ("strang", "lie"):
+            raise ValueError(f"splitting must be 'strang' or 'lie': "
+                             f"{splitting!r}")
+        for flag, name, item in ((fused, "fused", "A5 (kernel B3)"),
+                                 (hoisted, "hoisted", "A6"),
+                                 (remat, "remat", "A5")):
+            if flag:
+                raise NotImplementedError(
+                    f"MixedChannelDiffusion({name}=True) is not ported yet: "
+                    f"ROADMAP.md {item}")
+        self.size = size
+        self.channels = channels
+        self.dt = dt
+        self.dx = dx
+        self.dy = dy
+        self.num_steps = num_steps
+        self.splitting = splitting
+        self.eps = eps
+        self.clamp_max = clamp_max
+        self.fused_inference = fused_inference
+        shape = (channels, size, size)
+        self.alpha_base = nn.Parameter(torch.ones(shape, device=device))
+        self.beta_base = nn.Parameter(torch.ones(shape, device=device))
+        self.alpha_time_coeff = nn.Parameter(torch.zeros(shape, device=device))
+        self.beta_time_coeff = nn.Parameter(torch.zeros(shape, device=device))
+        self.channel_mixing = nn.Parameter(
+            torch.eye(channels, device=device))
+        self.register_buffer(
+            "ts", torch.tensor(_substep_times_np(dt, num_steps),
+                               dtype=torch.float32, device=device),
+            persistent=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        """The JAX layer's init: unit bases, zero time coefficients, and
+        mixing = I + 0.01·N(0, 1) drawn from ``generator`` (a CPU one)."""
+        self.alpha_base.fill_(1.0)
+        self.beta_base.fill_(1.0)
+        self.alpha_time_coeff.zero_()
+        self.beta_time_coeff.zero_()
+        C = self.channels
+        noise = torch.randn((C, C), generator=generator) * 0.01
+        self.channel_mixing.copy_(torch.eye(C) + noise)
+
+    def forward(self, u):
+        eps, cmax = self.eps, self.clamp_max
+        if self.fused_inference and not self.training:
+            return fused_channel_diffusion_fwd(
+                u, self.alpha_base, self.alpha_time_coeff, self.beta_base,
+                self.beta_time_coeff, self.channel_mixing, dt=self.dt,
+                dx=self.dx, dy=self.dy, ts=self.ts, splitting=self.splitting,
+                eps=eps, cmax=cmax)
+        strang = self.splitting == "strang"
+        dt_y = self.dt if strang else self.dt / 2
+        ts = self.ts
+        for s in range(self.num_steps):
+            u = _mix(self.channel_mixing, u)
+            alpha = _coeff_at(self.alpha_base, self.alpha_time_coeff,
+                              ts[s, 0], eps, cmax)
+            u = sweep_x(u, alpha, self.dt / 2, self.dx, eps=eps)
+            beta = _coeff_at(self.beta_base, self.beta_time_coeff, ts[s, 1],
+                             eps, cmax)
+            u = sweep_y(u, beta, dt_y, self.dy, eps=eps)
+            if strang:
+                alpha = _coeff_at(self.alpha_base, self.alpha_time_coeff,
+                                  ts[s, 2], eps, cmax)
+                u = sweep_x(u, alpha, self.dt / 2, self.dx, eps=eps)
+        return u

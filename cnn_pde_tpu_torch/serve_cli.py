@@ -1,0 +1,88 @@
+"""Serving CLI of the port — counterpart of ``cnn_pde_tpu/serve_cli.py``.
+
+    python -m cnn_pde_tpu_torch.serve --preset cifar10_noconv \
+        [--torch-checkpoint model.pth] [--input batch.npy] [--device cuda]
+
+Runs on the card unless ``--device cpu`` is given; without CUDA it exits
+non-zero rather than carry on on the CPU.  With no ``--input`` it predicts on
+the JAX CLI's smoke batch and prints the same summary line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="cnn_pde_tpu_torch serving")
+    ap.add_argument("--preset", required=True)
+    ap.add_argument("--torch-checkpoint", default=None, metavar="PTH",
+                    help="serve weights from a reference model.state_dict() "
+                         "checkpoint; omit for a random-init smoke run")
+    ap.add_argument("--input", default=None,
+                    help=".npy batch (NCHW float32) to predict on")
+    ap.add_argument("--output", default="labels",
+                    choices=["labels", "probs", "logits"])
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="smoke batch size when no --input is given")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default), 'cuda:N' or 'cpu'")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from .compat import load_torch_checkpoint
+    from .models import build_model
+    from .presets import SYNTHETIC_SPECS, get_preset
+    from .serve import make_predict_fn
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit("cnn_pde_tpu_torch.serve: no CUDA device is available; "
+                 "pass --device cpu to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        sys.exit(f"cnn_pde_tpu_torch.serve: unsupported device {device}")
+
+    preset = get_preset(args.preset)
+    channels, size, _ = SYNTHETIC_SPECS[preset["dataset"]]
+    model = build_model(preset["model"], device=device,
+                        generator=torch.Generator().manual_seed(0),
+                        **preset["model_kwargs"])
+    restored = False
+    if args.torch_checkpoint:
+        model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint),
+                              strict=True)
+        restored = True
+
+    if args.input:
+        images = np.load(args.input).astype(np.float32)
+    else:
+        images = np.random.default_rng(0).random(
+            (args.batch_size, channels, size, size)).astype(np.float32)
+
+    predict = make_predict_fn(model, output=args.output)
+    out = predict(images).cpu().numpy()
+
+    summary = {
+        "preset": preset["name"],
+        "restored": restored,
+        "batch": int(images.shape[0]),
+        "output": args.output,
+        "amp_cached_layers": 0,
+        "linearized_layers": 0,
+        "linearize_grade": None,
+        "devices": 1,
+    }
+    if args.output == "labels":
+        summary["predictions"] = out.tolist()
+    else:
+        summary["shape"] = list(out.shape)
+        summary["argmax"] = out.argmax(-1).tolist()
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()

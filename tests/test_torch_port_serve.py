@@ -1,0 +1,138 @@
+"""The port's serving path (cnn_pde_tpu_torch.serve) against the JAX package's
+on the CPU: predict outputs with and without shape buckets, the CLI's summary
+line, weights from a reference checkpoint, import hygiene, and the refusal
+to fall back to the CPU when no card is present.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from cnn_pde_tpu import serve_cli as jax_serve_cli
+from cnn_pde_tpu.models import CIFAR10PDENoConv as JaxModel
+from cnn_pde_tpu.serve import make_predict_fn as jax_make_predict_fn
+from cnn_pde_tpu_torch.compat import state_dict_from_jax
+from cnn_pde_tpu_torch.models import build_model
+from cnn_pde_tpu_torch.serve import make_predict_fn
+from cnn_pde_tpu_torch.serve_cli import main as port_cli_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_port_cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "cnn_pde_tpu_torch.serve",
+         "--preset", "cifar10_noconv", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def served():
+    """JAX flagship weights (with non-zero time coefficients) carried into
+    the port, and a ragged request batch of 3."""
+    rng = np.random.default_rng(2)
+    model = JaxModel()
+    params, state = jax.tree_util.tree_map(
+        np.asarray, jax.jit(model.init)(jax.random.PRNGKey(1)))
+    for i in (1, 2, 3):
+        pde = params["feature_extractor"][f"pde{i}"]
+        for k in ("alpha_time_coeff", "beta_time_coeff"):
+            pde[k] = (5.0 * rng.standard_normal(pde[k].shape)).astype(
+                np.float32)
+    port = build_model("cifar10_noconv")
+    port.load_state_dict(state_dict_from_jax(params, state), strict=True)
+    x = rng.random((3, 3, 32, 32)).astype(np.float32)
+    return model, params, state, port, x
+
+
+@pytest.mark.parametrize("output", ["logits", "probs", "labels"])
+def test_predict_fn_matches_jax(served, output):
+    model, params, state, port, x = served
+    ref = np.asarray(jax_make_predict_fn(model, params, state,
+                                         output=output)(x))
+    for buckets in (None, (4, 8)):
+        out = make_predict_fn(port, output=output, buckets=buckets)(x)
+        assert out.shape == ref.shape
+        if output == "labels":
+            np.testing.assert_array_equal(out.numpy(), ref)
+        else:
+            np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
+
+
+def test_predict_fn_buckets_pad_with_last_row(served):
+    _, _, _, port, x = served
+    seen = []
+    hook = port.register_forward_pre_hook(
+        lambda m, args: seen.append(tuple(args[0].shape)))
+    try:
+        fn = make_predict_fn(port, buckets=(8, 4))
+        out = fn(x)
+        big = fn(np.concatenate([x] * 3))  # 9 rows: above every bucket
+    finally:
+        hook.remove()
+    assert seen == [(4, 3, 32, 32), (9, 3, 32, 32)]
+    np.testing.assert_allclose(out.numpy(), make_predict_fn(port)(x).numpy(),
+                               rtol=0, atol=1e-6)
+    assert big.shape == (9, 10)
+
+
+def test_cli_summary_keys_match_jax_cli(capsys, monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["serve", "--preset", "mnist",
+                                      "--batch-size", "2"])
+    jax_serve_cli.main()
+    jax_summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out = _run_port_cli("--device", "cpu", "--batch-size", "2")
+    assert out.returncode == 0, out.stderr[-2000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert list(summary) == list(jax_summary)
+    assert summary["preset"] == "cifar10_noconv"
+    assert summary["batch"] == 2 and len(summary["predictions"]) == 2
+    assert summary["restored"] is False
+
+
+def test_cli_serves_reference_checkpoint(served, tmp_path, capsys):
+    _, _, _, port, x = served
+    ckpt = tmp_path / "best_model.pth"
+    torch.save(port.state_dict(), ckpt)
+    np.save(tmp_path / "batch.npy", x)
+    port_cli_main(["--preset", "cifar10_noconv", "--device", "cpu",
+                   "--torch-checkpoint", str(ckpt),
+                   "--input", str(tmp_path / "batch.npy"), "--output", "probs"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["restored"] is True and summary["shape"] == [3, 10]
+    ref = make_predict_fn(port, output="labels")(x).tolist()
+    assert summary["argmax"] == ref
+
+
+def test_cli_refuses_cpu_without_device_flag():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    with pytest.raises(SystemExit) as exit_info:
+        port_cli_main(["--preset", "cifar10_noconv", "--batch-size", "1"])
+    assert exit_info.value.code not in (0, None)
+    assert "--device cpu" in str(exit_info.value.code)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from cnn_pde_tpu_torch.models import build_model\n"
+        "from cnn_pde_tpu_torch.serve import make_predict_fn\n"
+        "import cnn_pde_tpu_torch.compat, cnn_pde_tpu_torch.serve_cli\n"
+        "m = build_model('cifar10_noconv', fused_inference=True)\n"
+        "x = np.random.default_rng(0).random((2, 3, 32, 32), np.float32)\n"
+        "assert make_predict_fn(m, output='labels')(x).shape == (2,)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'cnn_pde_tpu' or k.startswith('cnn_pde_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
