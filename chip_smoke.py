@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and hold its kernels
-against their plain versions.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and
+hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
-2. build: K1 (csrc/thomas.cu) and K2 (csrc/fused_channel.cu) with nvcc;
+2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu)
+   and K5 (csrc/fused_channel_vjp.cu) with nvcc, one process a source;
 3. each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes (K1: x- and y-sweeps of the three branch scales at
+   flagship's shapes (K1, K3: x- and y-sweeps of the three branch scales at
    B in {1, 7, 512}, plus lines of 1, 2 and 3; K2: the three branches,
-   Strang and Lie, at B in {1, 7, 512});
-4. the slice: ``make_predict_fn`` on the CIFAR-10 flagship (weights from a
+   Strang and Lie, at B in {1, 7, 512}; K4 and K5: the three branches,
+   Strang and Lie, at B in {1, 7, 64, 512}, with fields that straddle both
+   clamp bounds);
+4. serving: ``make_predict_fn`` on the CIFAR-10 flagship (weights from a
    seed) in the per-sweep and the fused configuration at B in {1, 64, 1024},
    logits held against the same model on its plain versions, launch counts
    read around that run, then images/s; then the serve CLI on cuda;
 5. the device's busy share of a served forward (torch.profiler);
-6. times at B = 512: each kernel and its plain version (CUDA events, median
-   of 20 groups), beside the least time the card could take;
-7. the ``kernels`` JSON line, then the contract line.
+6. training: the flagship train step (``make_train_step``, the preset's
+   augmentation, dropout and grouped AdamW) per-sweep and fused at B = 64
+   and 256: launch counts read around one step, the loss and every
+   gradient held against the same step on the plain versions, 50 steps on
+   synthetic CIFAR-10 with a falling loss, images/s by CUDA events, the
+   device's busy share of a step; then the train CLI on cuda;
+7. times of each kernel and its plain version (CUDA events, median of 20
+   groups) at B = 512 (K1, K2) and at B = 64 and 512 (K3-K5), beside the
+   least time the card could take;
+8. the ``kernels`` JSON line, then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -36,21 +46,38 @@ import time
 import numpy as np
 import torch
 
+from cnn_pde_tpu_torch.data.synthetic import make_synthetic
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
 from cnn_pde_tpu_torch.ops import kernels
 from cnn_pde_tpu_torch.ops.adi import _neumann_b
 from cnn_pde_tpu_torch.ops.fused_channel import (
     fused_channel_diffusion_fwd, fused_channel_diffusion_plain)
-from cnn_pde_tpu_torch.ops.tridiag import tridiag_solve, tridiag_solve_plain
+from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
+    fused_channel_bwd, fused_channel_bwd_plain, fused_channel_fwd_res,
+    fused_channel_fwd_res_plain)
+from cnn_pde_tpu_torch.ops.tridiag import (tridiag_adjoint,
+                                           tridiag_adjoint_plain,
+                                           tridiag_solve, tridiag_solve_plain)
 from cnn_pde_tpu_torch.pde.diffusion import _coeff_at, _substep_times_np
+from cnn_pde_tpu_torch.presets import PRESETS
 from cnn_pde_tpu_torch.serve import make_predict_fn
+from cnn_pde_tpu_torch.train import (cross_entropy, make_train_step,
+                                     train_steps)
 
 SEED = 0
 EPS = 1e-6
 CMAX = 10.0
-KERNEL_TOL = 1e-5   # same recurrence (K1) or same system (K2), fma order
+KERNEL_TOL = 1e-5   # same recurrence (K1, K3) or same system (K2, K4), fma
 LOGIT_TOL = 1e-4    # the JAX package's full-model bound
+GRAD_TOL = 1e-4     # relative to a tensor's largest entry: sums reordered
+TRAIN = PRESETS["cifar10_noconv"]["train"]
+# gradients that are zero in exact arithmetic (a bias feeding a train-mode
+# BatchNorm; the feature BN's bias, summed to zero over the batch by the
+# BN1d head): there both paths must give |g| <= GRAD_TOL
+ZERO_IN_EXACT_ARITHMETIC = {"feature_bn.bias"} | {
+    f"classifier.network.{i}.bias" for i in (0, 4, 8, 12)}
+USED_DEVICES = set()  # every device a model or kernel input was placed on
 SCALES = MultiScaleExtractor.SCALES
 # (memory bytes/s, f32 non-tensor FLOP/s) from NVIDIA's data sheets
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12)}
@@ -78,18 +105,52 @@ def check(label, err, tol):
     return err
 
 
-def fields(rng, device, C=3, S=32):
+def rel_err(x, y):
+    """max |x - y| over the largest |y|: a gradient's error against its
+    own scale."""
+    y = y.double()
+    return float((x.double() - y).abs().max()
+                 / y.abs().max().clamp_min(1e-30))
+
+
+def check_rel(label, err, tol):
+    log(f"  {label}: max err {err:.3e} of its largest entry "
+        f"(tolerance {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"{label}: {err} > {tol}")
+    return err
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fields(rng, device, C=3, S=32, straddle=False):
     """Trained-looking coefficient fields: bases 1 ± 0.5, time coefficients
-    5·N(0, 1), mixing I + 0.05·N(0, 1)."""
+    5·N(0, 1), mixing I + 0.05·N(0, 1).  ``straddle``: bases uniform on
+    [-0.5, CMAX + 0.5], so raw coefficients fall on both sides of both
+    clamp bounds."""
+    USED_DEVICES.add(torch.device(device))
+
     def t(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
+
+    def base():
+        if straddle:
+            return t(rng.uniform(-0.5, CMAX + 0.5, (C, S, S)))
+        return t(1.0 + 0.5 * rng.standard_normal((C, S, S)))
     return {
-        "alpha_base": t(1.0 + 0.5 * rng.standard_normal((C, S, S))),
+        "alpha_base": base(),
         "alpha_time_coeff": t(5.0 * rng.standard_normal((C, S, S))),
-        "beta_base": t(1.0 + 0.5 * rng.standard_normal((C, S, S))),
+        "beta_base": base(),
         "beta_time_coeff": t(5.0 * rng.standard_normal((C, S, S))),
         "channel_mixing": t(np.eye(C) + 0.05 * rng.standard_normal((C, C))),
     }
+
+
+FIELD_KEYS = ("alpha_base", "alpha_time_coeff", "beta_base",
+              "beta_time_coeff", "channel_mixing")
 
 
 def sweep_bands(field, dt, dh, dim):
@@ -123,9 +184,18 @@ def time_ms(fn, groups=20, per_group=10):
     return statistics.median(times)
 
 
+WRAPPERS = {"K1": tridiag_solve, "K2": fused_channel_diffusion_fwd,
+            "K3": tridiag_adjoint, "K4": fused_channel_fwd_res,
+            "K5": fused_channel_bwd}
+
+
 def reset_counts():
-    tridiag_solve.launches = 0
-    fused_channel_diffusion_fwd.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in WRAPPERS.items()}
 
 
 def phase_device():
@@ -205,16 +275,91 @@ def phase_kernels(device):
                 k2_err = max(k2_err, check(
                     f"steps={scale['num_steps']} dx={scale['dx']} "
                     f"{splitting} B={B}", max_err(out, ref), KERNEL_TOL))
-    return k1_err, k2_err
+
+    log("[kernels] K3 tridiag_adjoint against tridiag_adjoint_plain "
+        "(λ abs, band gradients relative)")
+    k3_abs, k3_rel = 0.0, 0.0
+
+    def k3_case(label, bands, shape, dim, B):
+        nonlocal k3_abs, k3_rel
+        x = tridiag_solve_plain(*bands, torch.rand((B, *shape),
+                                                   device=device),
+                                dim).contiguous()
+        g = torch.randn((B, *shape), device=device)
+        out = tridiag_adjoint(*bands, g, x, dim)
+        torch.cuda.synchronize()
+        ref = tridiag_adjoint_plain(*bands, g, x, dim)
+        k3_abs = max(k3_abs, check(f"{label} λ", max_err(out[0], ref[0]),
+                                   KERNEL_TOL))
+        for name, o, r in zip(("a", "b", "c"), out[1:], ref[1:]):
+            k3_rel = max(k3_rel, check_rel(f"{label} grad_{name}",
+                                           rel_err(o, r), GRAD_TOL))
+            k3_abs = max(k3_abs, max_err(o, r))
+
+    for scale in SCALES:
+        f = fields(rng, device)
+        ts = _substep_times_np(scale["dt"], scale["num_steps"])
+        alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"],
+                          float(ts[-1, 2]), EPS, CMAX)
+        beta = _coeff_at(f["beta_base"], f["beta_time_coeff"],
+                         float(ts[-1, 1]), EPS, CMAX)
+        for B in (1, 7, 512):
+            for dim, field, dt in ((-1, alpha, scale["dt"] / 2),
+                                   (-2, beta, scale["dt"])):
+                k3_case(f"dt={scale['dt']} dx={scale['dx']} B={B} "
+                        f"{'x' if dim == -1 else 'y'}-sweep",
+                        sweep_bands(field, dt, scale["dx"], dim),
+                        (3, 32, 32), dim, B)
+    for n in (1, 2, 3):
+        for dim, shape in ((-1, (3, 5, n)), (-2, (3, n, 5))):
+            r = torch.rand(shape, device=device) * 2.0
+            k3_case(f"N={n} dim={dim}",
+                    (-r, (_neumann_b(r, dim) + EPS).contiguous(), -r),
+                    shape, dim, 7)
+
+    log("[kernels] K4 fused_channel_fwd_res and K5 fused_channel_bwd "
+        "against their plain versions (fields straddle both clamps)")
+    k4_err, k5_abs, k5_rel = 0.0, 0.0, 0.0
+    for scale in SCALES:
+        f = fields(rng, device, straddle=True)
+        args = [f[k] for k in FIELD_KEYS]
+        ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
+                          dtype=torch.float32, device=device)
+        for splitting in ("strang", "lie"):
+            kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
+                      splitting=splitting, eps=EPS, cmax=CMAX)
+            for B in (1, 7, 64, 512):
+                label = (f"steps={scale['num_steps']} dx={scale['dx']} "
+                         f"{splitting} B={B}")
+                u = torch.rand((B, 3, 32, 32), device=device)
+                out, res = fused_channel_fwd_res(u, *args, **kw)
+                torch.cuda.synchronize()
+                ref_out, ref_res = fused_channel_fwd_res_plain(u, *args, **kw)
+                k4_err = max(k4_err, check(f"K4 {label} output",
+                                           max_err(out, ref_out), KERNEL_TOL),
+                             check(f"K4 {label} residuals",
+                                   max_err(res, ref_res), KERNEL_TOL))
+                g = torch.randn_like(u)
+                grads = fused_channel_bwd(g, res, out, *args, **kw)
+                torch.cuda.synchronize()
+                ref = fused_channel_bwd_plain(g, res, out, *args, **kw)
+                for name, o, r in zip(("u",) + FIELD_KEYS, grads, ref):
+                    k5_rel = max(k5_rel, check_rel(f"K5 {label} grad {name}",
+                                                   rel_err(o, r), GRAD_TOL))
+                    k5_abs = max(k5_abs, max_err(o, r))
+    return {"K1": k1_err, "K2": k2_err, "K3": (k3_abs, k3_rel),
+            "K4": k4_err, "K5": (k5_abs, k5_rel)}
 
 
-def flagship(device, fused):
+def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3):
     """The flagship with init from a seeded generator and its PDE fields
     replaced by seeded trained-looking ones, so the clamps and the time
     bookkeeping are exercised."""
     model = build_model("cifar10_noconv", device=device,
                         generator=torch.Generator().manual_seed(SEED),
-                        fused_inference=fused)
+                        fused_inference=fused, fused_pde=fused_pde,
+                        dropout_rate=dropout_rate)
+    USED_DEVICES.add(next(model.parameters()).device)
     rng = np.random.default_rng(SEED + 1)
     with torch.no_grad():
         for i in (1, 2, 3):
@@ -222,6 +367,44 @@ def flagship(device, fused):
             for key, value in fields(rng, device).items():
                 getattr(pde, key).copy_(value)
     return model
+
+
+def device_busy(fn, reps, device):
+    """(busy share, host-clock µs a call, top kernels by device time, top
+    host ops by self CPU time) of ``reps`` calls of ``fn``: the time of the
+    device's own events (kernels and copies, not the PyTorch ops that
+    launched them) summed by torch.profiler over the wall time; None when
+    the profiler recorded no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync(device)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        # the device's own kernels and copies; a user annotation (such as
+        # the optimizer's step range) spans kernels already counted
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+    device_us = sum(by_name.values())
+    if device_us <= 0:
+        return None
+    top = sorted(by_name.items(), key=lambda r: -r[1])[:3]
+    host = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
+    return (device_us / wall_us, wall_us / reps,
+            "; ".join(f"{k[:48]} {100 * t / device_us:.0f}%" for k, t in top),
+            "; ".join(f"{r.key[:40]} x{r.count // reps} "
+                      f"{r.self_cpu_time_total / reps / 1e3:.2f} ms"
+                      for r in host[:6]))
 
 
 def phase_slice(device):
@@ -237,13 +420,13 @@ def phase_slice(device):
         reset_counts()
         logits = {B: predict(images[B]) for B in batches}
         torch.cuda.synchronize()
-        counts = (tridiag_solve.launches, fused_channel_diffusion_fwd.launches)
-        log(f"[slice] {config}: K1 launches {counts[0]}, K2 launches "
-            f"{counts[1]} over {len(batches)} forwards")
-        if counts != (k1_per * len(batches), k2_per * len(batches)):
+        got = counts()
+        log(f"[slice] {config}: launches {got} over {len(batches)} forwards")
+        if (got["K1"], got["K2"]) != (k1_per * len(batches),
+                                      k2_per * len(batches)):
             raise AssertionError(f"{config}: expected {k1_per} K1 and "
                                  f"{k2_per} K2 launches a forward")
-        launches[config] = counts
+        launches[config] = (got["K1"], got["K2"])
         with kernels.plain_versions():
             plain = {B: predict(images[B]) for B in batches}
         for B in batches:
@@ -280,42 +463,170 @@ def phase_slice(device):
 
 
 def phase_profile(device):
-    """Device busy share of a served forward: the time of the device's own
-    events (kernels and copies, not the PyTorch ops that launched them),
-    summed by torch.profiler over the host-clock wall time of 5 requests."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device busy share of a served forward (``device_busy`` over 5
+    requests)."""
     rng = np.random.default_rng(SEED + 4)
     for config in ("per_sweep", "fused"):
         predict = make_predict_fn(flagship(device, config == "fused"))
         for B in (1, 1024):
             x = torch.from_numpy(
                 rng.random((B, 3, 32, 32)).astype(np.float32)).to(device)
-            predict(x)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    predict(x)
-                torch.cuda.synchronize()
-                wall_us = 1e6 * (time.perf_counter() - t0)
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    by_name[e.name] = (by_name.get(e.name, 0.0)
-                                       + e.time_range.elapsed_us())
-            device_us = sum(by_name.values())
-            if device_us <= 0:
+            busy = device_busy(lambda: predict(x), 5, device)
+            if busy is None:
                 log(f"[profile] {config} B={B}: device time not measured "
                     "(the profiler recorded no kernel)")
                 continue
-            top = sorted(by_name.items(), key=lambda r: -r[1])[:3]
-            log(f"[profile] {config} B={B}: device busy "
-                f"{100 * device_us / wall_us:.1f}% of {wall_us / 5:.0f} us "
-                "a request (profiler on); top kernels: " + "; ".join(
-                    f"{k[:48]} {100 * t / device_us:.0f}%" for k, t in top))
+            log(f"[profile] {config} B={B}: device busy {100 * busy[0]:.1f}% "
+                f"of {busy[1]:.0f} us a request (profiler on); top kernels: "
+                f"{busy[2]}")
+
+
+def spiked_images(rng, B):
+    """Images in [0, 0.5) with one pixel at 1 in every 8x8 max-pool window
+    of every channel, so that each window's maximum stands clear of the
+    rest after the short diffusion: at a near tie, a rounding difference of
+    1e-7 between two paths moves the pool's argmax and every gradient
+    upstream with it."""
+    x = 0.5 * rng.random((B, 3, 32, 32))
+    oy = rng.integers(0, 8, (B, 3, 4, 4)) + 8 * np.arange(4)[:, None]
+    ox = rng.integers(0, 8, (B, 3, 4, 4)) + 8 * np.arange(4)[None, :]
+    b, c = np.meshgrid(np.arange(B), np.arange(3), indexing="ij")
+    x[b[..., None, None], c[..., None, None], oy, ox] = 1.0
+    return x.astype(np.float32)
+
+
+def train_grads(model, x, y, relu_masks=None):
+    """Loss and gradients of one train-mode forward and backward.  Every
+    ReLU's mask (output > 0) is recorded into ``relu_masks`` when it is an
+    empty dict, and replayed from it otherwise: a pre-activation within
+    rounding of 0 would flip between two runs and move whole gradient rows,
+    so the reference run takes the kernel run's ReLU decisions."""
+    hooks = []
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.ReLU):
+            if relu_masks is not None and name in relu_masks:
+                hooks.append(m.register_forward_hook(
+                    lambda mod, inp, out, k=name: inp[0] * relu_masks[k]))
+            elif relu_masks is not None:
+                hooks.append(m.register_forward_hook(
+                    lambda mod, inp, out, k=name: relu_masks.__setitem__(
+                        k, (out > 0).to(out.dtype))))
+    model.train()
+    model.zero_grad(set_to_none=True)
+    try:
+        loss = cross_entropy(model(x), y, TRAIN["label_smoothing"])
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def phase_train(device):
+    """The flagship training step, per-sweep and fused."""
+    rng = np.random.default_rng(SEED + 5)
+    images, labels, _, _ = make_synthetic("cifar10")
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+    expected = {"per_sweep": {"K1": 51, "K2": 0, "K3": 51, "K4": 0, "K5": 0},
+                "fused": {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 3}}
+    launches, rates, losses = {}, {}, {}
+    for config, want in expected.items():
+        fused = config == "fused"
+        # one step of the preset's train step, counted
+        model = flagship(device, fused_pde=fused)
+        step = make_train_step(model, TRAIN, 3,
+                               torch.Generator(device).manual_seed(SEED))
+        x = data[0][:64]
+        y = data[1][:64]
+        step(x, y)
+        sync(device)
+        reset_counts()
+        loss, _ = step(x, y)
+        sync(device)
+        got = counts()
+        log(f"[train] {config}: launches in one train step at B=64: {got}")
+        if got != want:
+            raise AssertionError(f"{config}: expected {want} a step")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{config}: loss {loss}")
+        launches[config] = got
+
+        # loss and every gradient against the plain versions
+        for B in (64, 256):
+            xs = torch.from_numpy(spiked_images(rng, B)).to(device)
+            ys = torch.from_numpy(rng.integers(0, 10, B)).to(device)
+            masks = {}
+            loss_k, grads_k = train_grads(
+                flagship(device, fused_pde=fused, dropout_rate=0.0), xs, ys,
+                masks)
+            with kernels.plain_versions():
+                loss_p, grads_p = train_grads(
+                    flagship(device, fused_pde=fused, dropout_rate=0.0), xs,
+                    ys, masks)
+            sync(device)
+            worst, where = rel_err(loss_k, loss_p), "loss"
+            for name, g in grads_k.items():
+                if name in ZERO_IN_EXACT_ARITHMETIC:
+                    size = max(g.abs().max().item(),
+                               grads_p[name].abs().max().item())
+                    if not size <= GRAD_TOL:
+                        raise AssertionError(f"{config} B={B} {name}: {size}")
+                    continue
+                err = rel_err(g, grads_p[name])
+                if err > worst:
+                    worst, where = err, name
+            check_rel(f"{config} B={B} loss and every gradient vs plain "
+                      f"versions (worst: {where})", worst, GRAD_TOL)
+
+        # 50 steps on synthetic CIFAR-10
+        model = flagship(device, fused_pde=fused)
+        step = make_train_step(model, TRAIN, images.shape[0] // 64,
+                               torch.Generator(device).manual_seed(SEED))
+        run = train_steps(step, data, 50, 64, seed=SEED)
+        losses[config] = (run[0], run[-1])
+        log(f"[train] {config}: 50 steps at B=64, loss {run[0]:.4f} -> "
+            f"{run[-1]:.4f} (means of the first and last 5: "
+            f"{np.mean(run[:5]):.4f} -> {np.mean(run[-5:]):.4f})")
+        if not (all(np.isfinite(run))
+                and np.mean(run[-5:]) < np.mean(run[:5])):
+            raise AssertionError(f"{config}: loss did not fall: {run}")
+
+        # images/s and the device's busy share of a step
+        for B in (64, 256):
+            model = flagship(device, fused_pde=fused)
+            step = make_train_step(model, TRAIN, 3,
+                                   torch.Generator(device).manual_seed(SEED))
+            idx = torch.from_numpy(rng.integers(0, images.shape[0], B))
+            xb, yb = data[0][idx.to(device)], data[1][idx.to(device)]
+            reps = 20
+            ms = time_ms(lambda: step(xb, yb), groups=3, per_group=reps)
+            rates[f"{config}_B{B}"] = 1e3 * B / ms
+            log(f"[train] {config} B={B}: {1e3 * B / ms:.1f} images/s "
+                f"({ms:.3f} ms a step, CUDA events, median of 3 groups of "
+                f"{reps} steps after warm-up)")
+            busy = device_busy(lambda: step(xb, yb), 5, device)
+            if busy is None:
+                log(f"[train] {config} B={B}: device busy share not measured "
+                    "(the profiler recorded no kernel)")
+            else:
+                log(f"[train] {config} B={B}: device busy "
+                    f"{100 * busy[0]:.1f}% of {busy[1]:.0f} us a step "
+                    f"(profiler on); top kernels: {busy[2]}; top host ops "
+                    f"a step (calls, self CPU time): {busy[3]}")
+
+    cli = subprocess.run(
+        [sys.executable, "-m", "cnn_pde_tpu_torch.train", "--preset",
+         "cifar10_noconv", "--synthetic", "--steps", "5"],
+        capture_output=True, text=True, timeout=300, check=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    summary = json.loads(cli.stdout.strip().splitlines()[-1])
+    if summary["steps"] != 5 or not summary["device"].startswith("cuda") \
+            or not np.isfinite(summary["last_loss"]):
+        raise AssertionError(f"train CLI on cuda: {summary}")
+    log(f"[train] python -m cnn_pde_tpu_torch.train (default device cuda): "
+        f"{summary}")
+    return launches, rates, losses
 
 
 def phase_times(device, peak_bytes, peak_flops):
@@ -367,11 +678,114 @@ def phase_times(device, peak_bytes, peak_flops):
     log(f"[times] K2 8-step Strang branch B={B}: kernel {k2_ms:.4f} ms, "
         f"plain {k2_plain:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}); "
         "library: none (no PyTorch call computes the layer)")
-    return {
-        "k1": (times["x"][0], times["x"][1], k1_bound, k1_by,
-               times["y"][0]),
-        "k2": (k2_ms, k2_plain, k2_bound, k2_by),
+    result = {
+        "K1": dict(ms=times["x"][0], plain_ms=times["x"][1],
+                   bound_ms=k1_bound, bound_by=k1_by,
+                   at="x-sweep B=512 (3,32,32)", y_sweep_ms=times["y"][0]),
+        "K2": dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
+                   bound_by=k2_by, at="8-step Strang branch B=512 (3,32,32)"),
     }
+    result.update(times_training(f, peak_bytes, peak_flops))
+    return result
+
+
+def times_training(f, peak_bytes, peak_flops):
+    """K3 (x- and y-sweep adjoints of the 5-step branch) and K4, K5 (the
+    8-step Strang branch) at B = 64 and 512, each beside its plain version
+    and its bound.  Returns the B = 512 figures, with those at B = 64 under
+    ``at_B64``."""
+    C, H, W = 3, 32, 32
+    band = C * H * W
+    device = f["alpha_base"].device
+    args = [f[k] for k in FIELD_KEYS]
+    out = {}
+    for B in (64, 512):
+        elems = B * band
+        u = torch.rand((B, C, H, W), device=device)
+        g = torch.randn((B, C, H, W), device=device)
+
+        scale = SCALES[0]
+        alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"], 0.0, EPS,
+                          CMAX)
+        k3 = {}
+        for dim, label in ((-1, "x"), (-2, "y")):
+            bands = sweep_bands(alpha, scale["dt"] / 2, scale["dx"], dim)
+            x = tridiag_solve(*bands, u, dim)
+            k3[label] = (
+                time_ms(lambda: tridiag_adjoint(*bands, g, x, dim)),
+                time_ms(lambda: tridiag_adjoint_plain(*bands, g, x, dim),
+                        groups=20, per_group=2))
+        # Reads g and x and writes λ once, reads the three bands and writes
+        # the three band gradients once.  Per element: the adjoint
+        # recurrence (5) and the three band products summed over the batch
+        # (6); per band element, once: the c* chain (3).
+        k3_bound = bound(4 * (3 * elems + 6 * band), 11 * elems + 3 * band,
+                         peak_bytes, peak_flops)
+
+        scale = SCALES[1]  # the 8-step branch, the longest
+        S = scale["num_steps"]
+        ts = torch.tensor(_substep_times_np(scale["dt"], S),
+                          dtype=torch.float32, device=device)
+        kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
+                  splitting="strang", eps=EPS, cmax=CMAX)
+        k4 = (time_ms(lambda: fused_channel_fwd_res(u, *args, **kw)),
+              time_ms(lambda: fused_channel_fwd_res_plain(u, *args, **kw),
+                      groups=20, per_group=1))
+        # K2's work, and the S residual states written once more.
+        k4_bound = bound(
+            4 * ((2 + S) * elems + 4 * band + C * C + 3 * S),
+            elems * S * (2 * C + 5 * 3) + band * S * 3 * 10,
+            peak_bytes, peak_flops)
+        y, res = fused_channel_fwd_res(u, *args, **kw)
+        k5 = (time_ms(lambda: fused_channel_bwd(g, res, y, *args, **kw)),
+              time_ms(lambda: fused_channel_bwd_plain(g, res, y, *args,
+                                                      **kw),
+                      groups=10, per_group=1))
+        # Reads g, the output and the S residuals, writes grad u; reads the
+        # four fields and the mixing, writes their gradients.  Per element,
+        # step and image: the recompute (mixing 2C, two sweeps 5 each), three
+        # adjoint sweeps (solve 5, grad_r and its batch sum 7), the mixing
+        # adjoint (2C for grad_mix, 2C for mixᵀ·cot): 6C + 46.  Once per
+        # (c, h, w) and step: coefficient, bands and c* for the five solves
+        # (10 each) and the clamp gate and accumulation of three (5 each).
+        k5_bound = bound(
+            4 * ((3 + S) * elems + 8 * band + 2 * C * C + 3 * S),
+            elems * S * (6 * C + 46) + band * S * 65,
+            peak_bytes, peak_flops)
+        for name, (ms, plain_ms), (b_ms, b_by), at in (
+                ("K3", k3["x"], k3_bound, f"x-sweep adjoint B={B} (3,32,32)"),
+                ("K4", k4, k4_bound, f"8-step Strang branch B={B} (3,32,32)"),
+                ("K5", k5, k5_bound, f"8-step Strang branch B={B} (3,32,32)")):
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, at=at)
+            if name == "K3":
+                entry["y_sweep_ms"] = k3["y"][0]
+                entry["y_sweep_plain_ms"] = k3["y"][1]
+            log(f"[times] {name} {at}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
+                "none (no PyTorch call computes it)"
+                + (f"; y-sweep adjoint kernel {k3['y'][0]:.4f} ms, plain "
+                   f"{k3['y'][1]:.4f} ms" if name == "K3" else ""))
+            if B == 512:
+                out.setdefault(name, {}).update(entry)
+            else:
+                out.setdefault(name, {})["at_B64"] = entry
+    return out
+
+
+KERNELS = [
+    ("K1", "tridiag_solve", "cnn_pde_tpu_torch/csrc/thomas.cu",
+     "cnn_pde_tpu/ops/pallas_thomas.py:70"),
+    ("K2", "fused_channel_diffusion_fwd",
+     "cnn_pde_tpu_torch/csrc/fused_channel.cu",
+     "cnn_pde_tpu/ops/pallas_fused_channel.py:102"),
+    ("K3", "tridiag_adjoint", "cnn_pde_tpu_torch/csrc/thomas.cu",
+     "cnn_pde_tpu/ops/pallas_thomas.py:109"),
+    ("K4", "fused_channel_fwd_res", "cnn_pde_tpu_torch/csrc/fused_channel.cu",
+     "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:195"),
+    ("K5", "fused_channel_bwd", "cnn_pde_tpu_torch/csrc/fused_channel_vjp.cu",
+     "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:233"),
+]
 
 
 def main():
@@ -380,35 +794,46 @@ def main():
     peak_bytes, peak_flops = card_peaks(name)
     device = torch.device("cuda", 0)
     phase_build()
-    k1_err, k2_err = phase_kernels(device)
-    launches, rates = phase_slice(device)
+    errs = phase_kernels(device)
+    serve_launches, serve_rates = phase_slice(device)
     phase_profile(device)
-    t = phase_times(device, peak_bytes, peak_flops)
-    k1_ms, k1_plain, k1_bound, k1_by, k1_y_ms = t["k1"]
-    k2_ms, k2_plain, k2_bound, k2_by = t["k2"]
+    train_launches, train_rates, losses = phase_train(device)
+    times = phase_times(device, peak_bytes, peak_flops)
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         " MiB")
-    result = {"kernels": [
-        {"name": "tridiag_solve (K1)", "route": "cuda",
-         "source": "cnn_pde_tpu_torch/csrc/thomas.cu",
-         "replaces": "cnn_pde_tpu/ops/pallas_thomas.py:70",
-         "launches": launches["per_sweep"][0], "launches_per_forward": 51,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "at": "x-sweep B=512 (3,32,32)", "y_sweep_ms": k1_y_ms},
-        {"name": "fused_channel_diffusion_fwd (K2)", "route": "cuda",
-         "source": "cnn_pde_tpu_torch/csrc/fused_channel.cu",
-         "replaces": "cnn_pde_tpu/ops/pallas_fused_channel.py:102",
-         "launches": launches["fused"][1], "launches_per_forward": 3,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-         "at": "8-step Strang branch B=512 (3,32,32)"},
-    ], "images_per_s": rates}
+    # launches: K1 and K2 over the serving run (3 forwards a configuration),
+    # K3-K5 over one train step; the per-forward and per-step counts beside
+    launches = {"K1": serve_launches["per_sweep"][0],
+                "K2": serve_launches["fused"][1],
+                "K3": train_launches["per_sweep"]["K3"],
+                "K4": train_launches["fused"]["K4"],
+                "K5": train_launches["fused"]["K5"]}
+    per = {"K1": {"launches_per_forward": 51,
+                  "launches_per_train_step": train_launches["per_sweep"]["K1"]},
+           "K2": {"launches_per_forward": 3},
+           "K3": {"launches_per_train_step": 51},
+           "K4": {"launches_per_train_step": 3},
+           "K5": {"launches_per_train_step": 3}}
+    rows = []
+    for key, fn, source, replaces in KERNELS:
+        err = errs[key]
+        row = {"name": f"{fn} ({key})", "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[key],
+               "max_abs_err": err[0] if isinstance(err, tuple) else err}
+        if isinstance(err, tuple):
+            row["max_rel_err_grads"] = err[1]
+        row.update(times[key])
+        row["library_ms"] = None
+        row.update(per[key])
+        rows.append(row)
+    result = {"kernels": rows, "serve_images_per_s": serve_rates,
+              "train_images_per_s": train_rates,
+              "train_loss_50_steps": losses}
     log(f"card: {card}")
     log(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": len(USED_DEVICES)}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of cnn_pde_tpu for an NVIDIA H100 (Hopper, sm_90a).
 
-Slice 1: the CIFAR-10 no-conv flagship's eval forward and serving, with two
+Slices 1-2: the CIFAR-10 no-conv flagship's serving and training, with five
 hand-written CUDA kernels (``csrc/``): K1, the batched Thomas solve under
-every ADI sweep, and K2, a whole MixedChannelDiffusion layer in one launch.
-The port imports torch and numpy, never jax and nothing of cnn_pde_tpu.
+every ADI sweep, and K3, its adjoint; K2, a whole MixedChannelDiffusion layer
+in one launch (eval), and K4 and K5, the trainable whole layer forward and
+backward.  The port imports torch and numpy, never jax and nothing of
+cnn_pde_tpu.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,0 +1,87 @@
+// Device helpers shared by the fused channel-diffusion kernels
+// (fused_channel.cu: K2 and K4; fused_channel_vjp.cu: K5).
+//
+// One implicit sweep line solves the Neumann system of the port's
+// ops/fused_channel.py::_abc_nosmooth: a = c = -r, b = 1 + 2r (1 + r on the
+// two edge rows) + eps, with r = clamp(base + time_coeff * t, eps, cmax) * dtf
+// read from the raw coefficient field and clamped on the fly.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace channel_sweep {
+
+constexpr int kMaxN = 64;
+constexpr int kMaxC = 8;
+constexpr int kMaxDevices = 64;
+
+struct Field {
+  const float* base;
+  const float* tc;
+};
+
+// Solve one line of n elements at `line` (element stride `stride`) in place:
+// T x = d, or T^T x = d when kT (sub'[i] = c[i-1] = -r[i-1], super'[i] =
+// a[i+1] = -r[i+1]; the diagonal is the same).  The coefficient of element i
+// sits at coef + i * cstride.
+template <bool kT>
+__device__ void solve_line(float* line, int stride, int n, Field f,
+                           long long coef, int cstride, float t, float dtf,
+                           float eps, float cmax) {
+  float cs[kMaxN];
+  auto r_at = [&](int i) {
+    const long long k = coef + (long long)i * cstride;
+    float v = __ldg(f.base + k) + __ldg(f.tc + k) * t;
+    v = fminf(fmaxf(v, eps), cmax);
+    return v * dtf;
+  };
+  float r = r_at(0);                               // r[i]
+  float rn = (kT && n > 1) ? r_at(1) : 0.0f;       // r[i + 1], kT only
+  float bi = 1.0f + r + eps;  // row 0 is an edge row, also when n == 1
+  cs[0] = (n == 1 ? 0.0f : -(kT ? rn : r)) / bi;
+  float dprev = line[0] / bi;
+  line[0] = dprev;
+  for (int i = 1; i < n; ++i) {
+    const float rp = r;                            // r[i - 1]
+    if (kT) {
+      r = rn;
+      rn = (i + 1 < n) ? r_at(i + 1) : 0.0f;
+    } else {
+      r = r_at(i);
+    }
+    const float ai = kT ? -rp : -r;
+    const float ci = (i == n - 1) ? 0.0f : (kT ? -rn : -r);
+    bi = ((i == n - 1) ? 1.0f + r : 1.0f + 2.0f * r) + eps;
+    const float denom = bi - ai * cs[i - 1];
+    cs[i] = ci / denom;
+    dprev = (line[i * stride] - ai * dprev) / denom;
+    line[i * stride] = dprev;
+  }
+  float xnext = dprev;
+  for (int i = n - 2; i >= 0; --i) {
+    xnext = line[i * stride] - cs[i] * xnext;
+    line[i * stride] = xnext;
+  }
+}
+
+// Opt `kernel` into `smem` bytes of dynamic shared memory on the current
+// device when that is above the 48 KB default, once per device for the
+// largest size asked so far (`allowed` is the caller's static record).
+inline cudaError_t allow_shared_memory(const void* kernel, size_t smem,
+                                       size_t* allowed) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > allowed[device]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed[device] = smem;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace channel_sweep

@@ -1,8 +1,16 @@
-// A whole MixedChannelDiffusion eval forward in one launch, for Hopper (sm_90a).
+// A whole MixedChannelDiffusion forward in one launch, for Hopper (sm_90a).
 //
-// Replaces: cnn_pde_tpu/ops/pallas_fused_channel.py::fused_channel_diffusion_fwd
-// (the Pallas kernel built by _make_kernel, with _abc_nosmooth,
-// _sweep_nosmooth and pallas_fused_adi.py::_pcr_rows).
+// K2 (res == nullptr): the eval forward.  Replaces
+// cnn_pde_tpu/ops/pallas_fused_channel.py::fused_channel_diffusion_fwd (the
+// Pallas kernel built by _make_kernel, with _abc_nosmooth, _sweep_nosmooth
+// and pallas_fused_adi.py::_pcr_rows).
+//
+// K4 (res != nullptr): the trainable forward, the same kernel with one more
+// output.  Before each step's mixing the block writes its images' state to
+// res[step] of a (num_steps, B, C, H, W) tensor: the residuals that K5
+// (fused_channel_vjp.cu) recomputes the step from.  Replaces
+// cnn_pde_tpu/ops/pallas_fused_channel_vjp.py::_fwd_call (_make_fwd_kernel).
+// The residual stores add S state-sized writes to the bytes K2 moves.
 //
 // Per step, for each image of the block's tile:
 //   u[c] <- sum_k mix[c, k] * u[k]                      (channel mixing)
@@ -36,58 +44,22 @@
 
 #include <cuda_runtime.h>
 
+#include "channel_sweep.cuh"
+
 namespace {
 
-constexpr int kMaxN = 64;
-constexpr int kMaxC = 8;
-constexpr int kMaxDevices = 64;
-
-struct Field {
-  const float* base;
-  const float* tc;
-};
-
-// Solve one line of n elements at `line` (element stride `stride`) in place.
-// The coefficient of element i sits at coef[i * cstride].
-__device__ void solve_line(float* line, int stride, int n, Field f,
-                           long long coef, int cstride, float t, float dtf,
-                           float eps, float cmax) {
-  float cs[kMaxN];
-  auto r_at = [&](int i) {
-    const long long k = coef + (long long)i * cstride;
-    float v = __ldg(f.base + k) + __ldg(f.tc + k) * t;
-    v = fminf(fmaxf(v, eps), cmax);
-    return v * dtf;
-  };
-  float r = r_at(0);
-  float bi = 1.0f + r + eps;  // row 0 is an edge row, also when n == 1
-  cs[0] = (n == 1 ? 0.0f : -r) / bi;
-  float dprev = line[0] / bi;
-  line[0] = dprev;
-  for (int i = 1; i < n; ++i) {
-    r = r_at(i);
-    const float ai = -r;
-    const float ci = (i == n - 1) ? 0.0f : -r;
-    bi = ((i == n - 1) ? 1.0f + r : 1.0f + 2.0f * r) + eps;
-    const float denom = bi - ai * cs[i - 1];
-    cs[i] = ci / denom;
-    dprev = (line[i * stride] - ai * dprev) / denom;
-    line[i * stride] = dprev;
-  }
-  float xnext = dprev;
-  for (int i = n - 2; i >= 0; --i) {
-    xnext = line[i * stride] - cs[i] * xnext;
-    line[i * stride] = xnext;
-  }
-}
+using channel_sweep::Field;
+using channel_sweep::kMaxC;
+using channel_sweep::solve_line;
 
 __global__ void fused_channel_kernel(
     const float* __restrict__ u, float* __restrict__ out,
     const float* __restrict__ alpha_base, const float* __restrict__ alpha_tc,
     const float* __restrict__ beta_base, const float* __restrict__ beta_tc,
-    const float* __restrict__ mix, const float* __restrict__ ts, int B,
-    int C, int H, int W, int tile_b, int num_steps, int strang, float dtf_x,
-    float dtf_y, float eps, float cmax) {
+    const float* __restrict__ mix, const float* __restrict__ ts,
+    float* __restrict__ res, int B, int C, int H, int W, int tile_b,
+    int num_steps, int strang, float dtf_x, float dtf_y, float eps,
+    float cmax) {
   extern __shared__ float s[];  // (tile_b, C, H, W + 1)
   const int ld = W + 1;
   const int img0 = blockIdx.x * tile_b;
@@ -110,6 +82,13 @@ __global__ void fused_channel_kernel(
   const int y_lines = nimg * C * W;
 
   for (int step = 0; step < num_steps; ++step) {
+    if (res != nullptr) {  // K4: the step's input state, before mixing
+      float* dst = res + ((long long)step * B + img0) * chw;
+      for (int k = tid; k < nimg * chw; k += nthreads) {
+        dst[k] = s[(k / W) * ld + k % W];
+      }
+      __syncthreads();  // the mixing below rewrites s in place
+    }
     // channel mixing, one thread per pixel
     for (int p = tid; p < nimg * hw; p += nthreads) {
       const int img = p / hw;
@@ -135,13 +114,15 @@ __global__ void fused_channel_kernel(
         if (tid < y_lines) {
           const int w = tid % W;
           const int ic = tid / W;  // img * C + c
-          solve_line(s + ic * H * ld + w, ld, H, beta,
-                     (long long)(ic % C) * hw + w, W, t, dtf_y, eps, cmax);
+          solve_line<false>(s + ic * H * ld + w, ld, H, beta,
+                            (long long)(ic % C) * hw + w, W, t, dtf_y, eps,
+                            cmax);
         }
       } else if (tid < x_lines) {
         // one thread per (image, c, h) row; tid = (img * C + c) * H + h
-        solve_line(s + tid * ld, 1, W, alpha, (long long)(tid % (C * H)) * W,
-                   1, t, dtf_x, eps, cmax);
+        solve_line<false>(s + tid * ld, 1, W, alpha,
+                          (long long)(tid % (C * H)) * W, 1, t, dtf_x, eps,
+                          cmax);
       }
       __syncthreads();
     }
@@ -156,34 +137,25 @@ __global__ void fused_channel_kernel(
 }  // namespace
 
 // Returns cudaGetLastError() after the launch; the caller raises if it is
-// not 0.  The wrapper checks C <= 8, H, W <= 64 and the thread count.
+// not 0.  The wrapper checks C <= 8, H, W <= 64 and the thread count.  res
+// is null for K2 and the (num_steps, B, C, H, W) residuals for K4.
 extern "C" int fused_channel_diffusion(
     const float* u, float* out, const float* alpha_base,
     const float* alpha_tc, const float* beta_base, const float* beta_tc,
-    const float* mix, const float* ts, int B, int C, int H, int W, int tile_b,
-    int num_steps, int strang, float dtf_x, float dtf_y, float eps,
-    float cmax, void* stream) {
-  // Shared memory above the 48 KB default is opted into once per device, for
-  // the largest size asked so far.
-  static size_t smem_allowed[kMaxDevices];
+    const float* mix, const float* ts, float* res, int B, int C, int H,
+    int W, int tile_b, int num_steps, int strang, float dtf_x, float dtf_y,
+    float eps, float cmax, void* stream) {
+  static size_t smem_allowed[channel_sweep::kMaxDevices];
   const size_t smem = sizeof(float) * (size_t)tile_b * C * H * (W + 1);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = channel_sweep::allow_shared_memory(
+      (const void*)fused_channel_kernel, smem, smem_allowed);
   if (err != cudaSuccess) return (int)err;
-  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > smem_allowed[device]) {
-    err = cudaFuncSetAttribute(fused_channel_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed[device] = smem;
-  }
   const int longest = H > W ? H : W;
   const int threads = tile_b * C * longest;
   const unsigned blocks = (unsigned)((B + tile_b - 1) / tile_b);
   fused_channel_kernel<<<blocks, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      u, out, alpha_base, alpha_tc, beta_base, beta_tc, mix, ts, B, C, H, W,
-      tile_b, num_steps, strang, dtf_x, dtf_y, eps, cmax);
+      u, out, alpha_base, alpha_tc, beta_base, beta_tc, mix, ts, res, B, C,
+      H, W, tile_b, num_steps, strang, dtf_x, dtf_y, eps, cmax);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,7 @@
+"""Data of the port: the synthetic CIFAR-10 stand-in (``synthetic``) and
+on-device augmentation (``augment``)."""
+
+from .augment import AugmentSpec
+from .synthetic import make_synthetic
+
+__all__ = ["AugmentSpec", "make_synthetic"]

@@ -1,0 +1,224 @@
+"""On-device batch augmentation for the CIFAR spec — port of
+``cnn_pde_tpu/data/augment.py`` (crop-pad, hflip, rotation, colour jitter,
+normalisation, random erasing after normalisation).
+
+Each op is split into a draw and an apply.  ``draw`` takes every random
+number of a batch from one ``torch.Generator``; the ``apply_*`` functions
+take those draws as tensors, so a test can hand them the JAX package's own
+draws.  Images are NCHW float32 in [0, 1] before normalisation.  Everything
+here is plain PyTorch on the images' device: no kernel of the JAX package
+computes augmentation either.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["AugmentSpec", "draw", "apply", "augment", "apply_crop_pad",
+           "apply_hflip", "apply_rotation", "apply_color_jitter",
+           "apply_normalize", "apply_erasing"]
+
+ERASE_SCALE = (0.02, 0.33)
+ERASE_RATIO = (0.3, 3.3)
+
+
+@dataclass(frozen=True)
+class AugmentSpec:
+    """The torchvision chain of a preset (the JAX ``AugmentSpec`` fields the
+    CIFAR presets use)."""
+
+    crop_padding: int = 0
+    hflip: float = 0.0
+    rotation: float = 0.0
+    brightness: float = 0.0
+    contrast: float = 0.0
+    saturation: float = 0.0
+    hue: float = 0.0
+    erasing_p: float = 0.0
+    mean: Optional[Sequence[float]] = None
+    std: Optional[Sequence[float]] = None
+
+
+def draw(spec: AugmentSpec, shape, generator: torch.Generator,
+         device) -> dict:
+    """Every random number the augmentation of a batch of ``shape``
+    (B, C, H, W) needs, one per image, from ``generator`` (which must live
+    on ``device``)."""
+    batch, _, height, width = shape
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(batch, generator=generator,
+                                           device=device)
+
+    def randint(hi):
+        return torch.randint(0, hi, (batch,), generator=generator,
+                             device=device)
+
+    d = {}
+    if spec.crop_padding:
+        d["crop_oy"] = randint(2 * spec.crop_padding + 1)
+        d["crop_ox"] = randint(2 * spec.crop_padding + 1)
+    if spec.hflip:
+        d["flip"] = uniform(0.0, 1.0) < spec.hflip
+    if spec.rotation:
+        d["angle"] = uniform(-spec.rotation, spec.rotation)
+    for key in ("brightness", "contrast", "saturation"):
+        amount = getattr(spec, key)
+        if amount:
+            d[key] = uniform(1.0 - amount, 1.0 + amount)
+    if spec.hue:
+        d["hue"] = uniform(-spec.hue, spec.hue)
+    if spec.erasing_p:
+        d["erase"] = uniform(0.0, 1.0) < spec.erasing_p
+        d["erase_area"] = uniform(*ERASE_SCALE)
+        d["erase_log_ratio"] = uniform(math.log(ERASE_RATIO[0]),
+                                       math.log(ERASE_RATIO[1]))
+        d["erase_oy"] = randint(height)
+        d["erase_ox"] = randint(width)
+    return d
+
+
+def apply_crop_pad(images, oy, ox, padding):
+    """RandomCrop(size, padding): zero-pad by ``padding`` and crop at the
+    integer offsets (oy, ox) ∈ [0, 2·padding] of each image."""
+    B, C, H, W = images.shape
+    padded = F.pad(images, (padding,) * 4)
+    rows = oy[:, None] + torch.arange(H, device=images.device)
+    cols = ox[:, None] + torch.arange(W, device=images.device)
+    b = torch.arange(B, device=images.device)[:, None, None, None]
+    c = torch.arange(C, device=images.device)[None, :, None, None]
+    return padded[b, c, rows[:, None, :, None], cols[:, None, None, :]]
+
+
+def apply_hflip(images, flip):
+    return torch.where(flip[:, None, None, None], images.flip(-1), images)
+
+
+def apply_rotation(images, angle):
+    """Rotate by ``angle`` degrees about the image centre: bilinear, zero
+    fill, centred coordinates (the JAX ``_rotate``/``_affine_warp``)."""
+    B, C, H, W = images.shape
+    rad = angle * math.pi / 180.0
+    cos, sin = torch.cos(rad)[:, None, None], torch.sin(rad)[:, None, None]
+    ys = torch.arange(H, dtype=images.dtype, device=images.device) \
+        - (H - 1) / 2.0
+    xs = torch.arange(W, dtype=images.dtype, device=images.device) \
+        - (W - 1) / 2.0
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    src_x = cos * xx + sin * yy
+    src_y = -sin * xx + cos * yy
+    # align_corners=True: pixel k of N sits at 2k/(N-1) - 1
+    grid = torch.stack([src_x / ((W - 1) / 2.0), src_y / ((H - 1) / 2.0)],
+                       dim=-1)
+    return F.grid_sample(images, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)
+
+
+def _luminance(images):
+    return (0.299 * images[:, 0] + 0.587 * images[:, 1]
+            + 0.114 * images[:, 2])
+
+
+def _rgb_to_hsv(img):
+    r, g, b = img[:, 0], img[:, 1], img[:, 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / maxc.clamp_min(1e-12),
+                    torch.zeros_like(maxc))
+    safe = delta.clamp_min(1e-12)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta == 0, torch.zeros_like(h),
+                    torch.remainder(h / 6.0, 1.0))
+    return h, s, maxc
+
+
+def _hsv_to_rgb(h, s, v):
+    """Branch-free: channel(n) = v − v·s·clamp(min(k, 4−k), 0, 1) with
+    k = (n + 6h) mod 6."""
+    def channel(n):
+        k = torch.remainder(n + h * 6.0, 6.0)
+        return v - v * s * torch.minimum(k, 4.0 - k).clamp(0.0, 1.0)
+
+    return torch.stack([channel(5.0), channel(3.0), channel(1.0)], dim=1)
+
+
+def apply_color_jitter(images, brightness=None, contrast=None,
+                       saturation=None, hue=None):
+    """ColorJitter with per-image factors, in torchvision's order:
+    brightness, contrast pivoting on the luminance mean, saturation, then
+    hue through the arithmetic HSV round trip.  A None factor skips its
+    op."""
+    x = images
+    if brightness is not None:
+        x = (x * brightness[:, None, None, None]).clamp(0.0, 1.0)
+    if contrast is not None:
+        pivot = _luminance(x).mean(dim=(1, 2))[:, None, None, None]
+        x = ((x - pivot) * contrast[:, None, None, None] + pivot).clamp(0.0,
+                                                                       1.0)
+    if saturation is not None:
+        gray = _luminance(x)[:, None]
+        x = (gray + (x - gray) * saturation[:, None, None, None]).clamp(0.0,
+                                                                       1.0)
+    if hue is not None:
+        h, s, v = _rgb_to_hsv(x)
+        h = torch.remainder(h + hue[:, None, None], 1.0)
+        x = _hsv_to_rgb(h, s, v).clamp(0.0, 1.0)
+    return x
+
+
+def apply_normalize(images, mean, std):
+    mean = torch.tensor(mean, dtype=images.dtype, device=images.device)
+    std = torch.tensor(std, dtype=images.dtype, device=images.device)
+    return (images - mean[:, None, None]) / std[:, None, None]
+
+
+def apply_erasing(images, erase, area, log_ratio, oy, ox):
+    """RandomErasing (one clamped attempt, value 0): a box of
+    H·W·``area`` pixels and aspect exp(``log_ratio``) at (oy, ox), on the
+    images where ``erase`` is set."""
+    B, C, H, W = images.shape
+    area = H * W * area
+    r = torch.exp(log_ratio)
+    h = torch.round(torch.sqrt(area * r)).clamp(1, H).long()
+    w = torch.round(torch.sqrt(area / r)).clamp(1, W).long()
+    yy = torch.arange(H, device=images.device)[None, :, None]
+    xx = torch.arange(W, device=images.device)[None, None, :]
+    oy, ox = oy[:, None, None], ox[:, None, None]
+    box = ((yy >= oy) & (yy < oy + h[:, None, None]) & (xx >= ox)
+           & (xx < ox + w[:, None, None]))
+    mask = box & erase[:, None, None]
+    return torch.where(mask[:, None], torch.zeros_like(images), images)
+
+
+def apply(spec: AugmentSpec, images, d: dict):
+    """The spec's chain on ``images`` with the draws ``d``."""
+    x = images
+    if spec.crop_padding:
+        x = apply_crop_pad(x, d["crop_oy"], d["crop_ox"], spec.crop_padding)
+    if spec.hflip:
+        x = apply_hflip(x, d["flip"])
+    if spec.rotation:
+        x = apply_rotation(x, d["angle"])
+    if spec.brightness or spec.contrast or spec.saturation or spec.hue:
+        x = apply_color_jitter(x, d.get("brightness"), d.get("contrast"),
+                               d.get("saturation"), d.get("hue"))
+    if spec.mean is not None:
+        x = apply_normalize(x, spec.mean, spec.std)
+    if spec.erasing_p:
+        x = apply_erasing(x, d["erase"], d["erase_area"],
+                          d["erase_log_ratio"], d["erase_oy"], d["erase_ox"])
+    return x
+
+
+def augment(spec: AugmentSpec, images, generator: torch.Generator):
+    """Draw from ``generator`` and apply: the train step's augmentation."""
+    return apply(spec, images, draw(spec, images.shape, generator,
+                                    images.device))

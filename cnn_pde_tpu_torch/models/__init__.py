@@ -6,10 +6,12 @@ from __future__ import annotations
 import torch
 
 from .attention import SpatialAttention
-from .cifar10_noconv import CIFAR10PDENoConv, EnhancedFC, MultiScaleExtractor
+from .cifar10_noconv import (CIFAR10PDENoConv, EnhancedFC,
+                             MultiScaleExtractor, set_dropout_generator)
 
 __all__ = ["MODEL_REGISTRY", "build_model", "SpatialAttention",
-           "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor"]
+           "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor",
+           "set_dropout_generator"]
 
 MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv}
 
@@ -19,16 +21,22 @@ NOT_YET_PORTED = {"mnist": "A7", "fashion_mnist": "A7", "svhn": "A8",
                   "cifar10_hybrid": "A11"}
 
 
-def build_model(name, *, device="cpu", generator=None, **kwargs):
+def build_model(name, *, device="cuda", generator=None, **kwargs):
     """Model ``name`` with the JAX model's init distributions drawn from
     ``generator`` (a CPU ``torch.Generator``; None uses torch's global one),
-    moved to ``device`` and put in eval mode."""
+    moved to ``device`` and put in eval mode.  It runs on the card unless
+    the caller passes ``device="cpu"``; without CUDA it raises rather than
+    carry on on the CPU."""
     if name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not yet ported: ROADMAP.md "
             f"{NOT_YET_PORTED[name]}")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
     model = MODEL_REGISTRY[name](**kwargs)
     model.reset_parameters(generator)
     return model.to(device).eval()

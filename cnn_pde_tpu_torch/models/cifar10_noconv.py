@@ -2,9 +2,15 @@
 ``cnn_pde_tpu/models/cifar10_noconv.py`` (M5-M7), default branch path.
 
 Attribute names follow the reference's ``state_dict`` namespace, so a
-reference checkpoint loads with ``load_state_dict(strict=True)``.  The
-lockstep, fused-multiscale and branch-sharded modes are later slices
-(ROADMAP.md A14, A15).
+reference checkpoint loads with ``load_state_dict(strict=True)``.
+``fused_pde=True`` runs each branch as one trainable fused call (K4 forward,
+K5 backward on the card); ``fused_inference=True`` runs each branch as one K2
+launch in eval.  The lockstep, fused-multiscale and branch-sharded modes are
+later slices (ROADMAP.md A14, A15).
+
+Dropout draws its mask from an explicit ``torch.Generator`` on the
+activations' device (``set_dropout_generator``); without one it uses
+torch's default generator, as ``build_model`` does for the init.
 """
 
 from __future__ import annotations
@@ -18,7 +24,37 @@ from torch import nn
 from ..pde import MixedChannelDiffusion
 from .attention import SpatialAttention
 
-__all__ = ["MultiScaleExtractor", "EnhancedFC", "CIFAR10PDENoConv"]
+__all__ = ["MultiScaleExtractor", "EnhancedFC", "CIFAR10PDENoConv",
+           "Dropout", "set_dropout_generator"]
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, as the JAX layer: in training keep each activation
+    with probability 1 − p and scale it by 1/(1 − p), with the mask drawn
+    from ``self.generator``."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        draw = torch.rand(x.shape, generator=self.generator, device=x.device,
+                          dtype=x.dtype)
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+def set_dropout_generator(model, generator):
+    """Draw every Dropout mask of ``model`` from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class MultiScaleExtractor(nn.Module):
@@ -30,12 +66,13 @@ class MultiScaleExtractor(nn.Module):
               dict(dt=0.005, num_steps=4, dx=1.5, dy=1.5)]
 
     def __init__(self, input_size=32, channels=3, fused_inference=False,
-                 device=None):
+                 fused_pde=False, device=None):
         super().__init__()
         for i, scale in enumerate(self.SCALES, start=1):
             self.add_module(f"pde{i}", MixedChannelDiffusion(
                 input_size, channels, splitting="strang",
-                fused_inference=fused_inference, device=device, **scale))
+                fused_inference=fused_inference, fused=fused_pde,
+                device=device, **scale))
             self.add_module(f"attention{i}",
                             SpatialAttention(channels, input_size, device))
         self.combine_weights = nn.Parameter(
@@ -68,7 +105,7 @@ class EnhancedFC(nn.Module):
         for h in hidden_sizes:
             layers += [nn.Linear(prev, h, device=device),
                        nn.BatchNorm1d(h, device=device), nn.ReLU(),
-                       nn.Dropout(dropout_rate)]
+                       Dropout(dropout_rate)]
             prev = h
         layers.append(nn.Linear(prev, num_classes, device=device))
         self.network = nn.Sequential(*layers)
@@ -92,10 +129,12 @@ class CIFAR10PDENoConv(nn.Module):
     """extractor → BatchNorm2d → avg ‖ max 4×4 pools → flatten 96 →
     EnhancedFC([512, 256, 128, 64] → 10)."""
 
-    def __init__(self, dropout_rate=0.3, fused_inference=False, device=None):
+    def __init__(self, dropout_rate=0.3, fused_inference=False,
+                 fused_pde=False, device=None):
         super().__init__()
         self.feature_extractor = MultiScaleExtractor(
-            32, 3, fused_inference=fused_inference, device=device)
+            32, 3, fused_inference=fused_inference, fused_pde=fused_pde,
+            device=device)
         self.feature_bn = nn.BatchNorm2d(3, device=device)
         self.classifier = EnhancedFC(96, [512, 256, 128, 64], 10,
                                      dropout_rate, device=device)

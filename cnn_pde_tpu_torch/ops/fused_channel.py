@@ -1,5 +1,6 @@
 """K2: a whole MixedChannelDiffusion eval forward in one launch, and its plain
-version.
+version.  The same kernel with a residual output is K4, the trainable
+forward (``ops/fused_channel_vjp.py``).
 
 Counterpart of ``cnn_pde_tpu/ops/pallas_fused_channel.py::
 fused_channel_diffusion_fwd``.  The kernel is ``csrc/fused_channel.cu``: one
@@ -18,7 +19,7 @@ import ctypes
 import torch
 
 from . import kernels
-from .tridiag import _check_grad, tridiag_solve_pcr
+from .tridiag import tridiag_solve_pcr
 
 __all__ = ["fused_channel_diffusion_fwd", "fused_channel_diffusion_plain"]
 
@@ -26,7 +27,7 @@ TILE_B = 4              # images a block: 384 threads, 50.7 KB at 3×32×32
 MAX_C = 8               # per-pixel mixing registers (csrc/fused_channel.cu)
 MAX_N = 64              # per-thread c* array
 MAX_SMEM = 232_448      # bytes a block may use on Hopper
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 
 
@@ -52,58 +53,69 @@ def _dt_factors(dt, dx, dy, splitting):
     return dt / 2 / (dx * dx), dtf_y / (dy * dy)
 
 
+def _sweep_y_nosmooth(u, field, dtfac, eps):
+    return _sweep_nosmooth(u.transpose(-1, -2), field.transpose(-1, -2),
+                           dtfac, eps).transpose(-1, -2)
+
+
 def fused_channel_diffusion_plain(u, alpha_base, alpha_tc, beta_base,
                                   beta_tc, mixing, *, dt, dx, dy, ts,
-                                  splitting="strang", eps=1e-6, cmax=10.0):
+                                  splitting="strang", eps=1e-6, cmax=10.0,
+                                  residuals=None):
     """Plain PyTorch version of K2: u (B, C, H, W), fields (C, H, W),
-    mixing (C, C), ts (num_steps, 3) float32."""
+    mixing (C, C), ts (num_steps, 3) float32.  With a list as
+    ``residuals`` (K4's plain version) each step's input state is appended
+    to it."""
     from ..pde.diffusion import _coeff_at, _mix
 
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, splitting)
     for s in range(ts.shape[0]):
+        if residuals is not None:
+            residuals.append(u)
         u = _mix(mixing, u)
         alpha = _coeff_at(alpha_base, alpha_tc, ts[s, 0], eps, cmax)
         u = _sweep_nosmooth(u, alpha, dtf_x, eps)
         beta = _coeff_at(beta_base, beta_tc, ts[s, 1], eps, cmax)
-        u = _sweep_nosmooth(u.transpose(-1, -2), beta.transpose(-1, -2),
-                            dtf_y, eps).transpose(-1, -2)
+        u = _sweep_y_nosmooth(u, beta, dtf_y, eps)
         if splitting == "strang":
             alpha = _coeff_at(alpha_base, alpha_tc, ts[s, 2], eps, cmax)
             u = _sweep_nosmooth(u, alpha, dtf_x, eps)
     return u
 
 
-def fused_channel_diffusion_fwd(u, alpha_base, alpha_tc, beta_base, beta_tc,
-                                mixing, *, dt, dx, dy, ts,
-                                splitting="strang", eps=1e-6, cmax=10.0):
-    """K2 on a CUDA tensor; the plain version on a CPU tensor."""
-    _check_grad("fused_channel_diffusion_fwd", u, alpha_base, alpha_tc,
-                beta_base, beta_tc, mixing)
+def check_layer_args(name, u, alpha_base, alpha_tc, beta_base, beta_tc,
+                     mixing, ts, splitting):
+    """Raise on anything the fused kernels (K2, K4, K5) do not take."""
     if splitting not in ("strang", "lie"):
         raise ValueError(f"splitting must be 'strang' or 'lie': {splitting!r}")
-    if not kernels.use_kernel(u):
-        return fused_channel_diffusion_plain(
-            u, alpha_base, alpha_tc, beta_base, beta_tc, mixing, dt=dt,
-            dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps, cmax=cmax)
     if u.ndim != 4:
-        raise ValueError(f"u must be (B, C, H, W), got {tuple(u.shape)}")
-    B, C, H, W = u.shape
+        raise ValueError(f"{name}: u must be (B, C, H, W), got "
+                         f"{tuple(u.shape)}")
+    _, C, H, W = u.shape
     for key, t in (("alpha_base", alpha_base), ("alpha_tc", alpha_tc),
                    ("beta_base", beta_base), ("beta_tc", beta_tc)):
         if tuple(t.shape) != (C, H, W):
-            raise ValueError(f"{key} must be {(C, H, W)}, got "
+            raise ValueError(f"{name}: {key} must be {(C, H, W)}, got "
                              f"{tuple(t.shape)}")
     if tuple(mixing.shape) != (C, C):
-        raise ValueError(f"mixing must be {(C, C)}, got {tuple(mixing.shape)}")
+        raise ValueError(f"{name}: mixing must be {(C, C)}, got "
+                         f"{tuple(mixing.shape)}")
     if ts.ndim != 2 or ts.shape[1] != 3:
-        raise ValueError(f"ts must be (num_steps, 3), got {tuple(ts.shape)}")
-    kernels.check_float32("fused_channel_diffusion_fwd", u.device, u=u,
-                          alpha_base=alpha_base, alpha_tc=alpha_tc,
-                          beta_base=beta_base, beta_tc=beta_tc,
-                          mixing=mixing, ts=ts)
+        raise ValueError(f"{name}: ts must be (num_steps, 3), got "
+                         f"{tuple(ts.shape)}")
+    kernels.check_float32(name, u.device, u=u, alpha_base=alpha_base,
+                          alpha_tc=alpha_tc, beta_base=beta_base,
+                          beta_tc=beta_tc, mixing=mixing, ts=ts)
     if C > MAX_C or not (1 <= H <= MAX_N and 1 <= W <= MAX_N):
-        raise ValueError(f"C <= {MAX_C} and H, W in [1, {MAX_N}] required, "
-                         f"got C={C}, H={H}, W={W}")
+        raise ValueError(f"{name}: C <= {MAX_C} and H, W in [1, {MAX_N}] "
+                         f"required, got C={C}, H={H}, W={W}")
+
+
+def launch_forward(u, alpha_base, alpha_tc, beta_base, beta_tc, mixing, *,
+                   dt, dx, dy, ts, splitting, eps, cmax, res=None):
+    """Launch csrc/fused_channel.cu on checked CUDA tensors: K2, or K4 when
+    ``res`` is a (num_steps, B, C, H, W) tensor to hold the residuals."""
+    B, C, H, W = u.shape
     threads = TILE_B * C * max(H, W)
     smem = 4 * TILE_B * C * H * (W + 1)
     if threads > 1024 or smem > MAX_SMEM:
@@ -120,10 +132,37 @@ def fused_channel_diffusion_fwd(u, alpha_base, alpha_tc, beta_base, beta_tc,
         code = fn(u.data_ptr(), out.data_ptr(), alpha_base.data_ptr(),
                   alpha_tc.data_ptr(), beta_base.data_ptr(),
                   beta_tc.data_ptr(), mixing.data_ptr(), ts.data_ptr(),
+                  None if res is None else res.data_ptr(),
                   B, C, H, W, TILE_B, ts.shape[0],
                   int(splitting == "strang"), dtf_x, dtf_y, eps, cmax,
                   kernels.stream_handle(u.device))
-    kernels.raise_on_error("fused_channel_diffusion_fwd", code)
+    kernels.raise_on_error(
+        "fused_channel_diffusion" + ("_fwd" if res is None else "_res"), code)
+    return out
+
+
+def fused_channel_diffusion_fwd(u, alpha_base, alpha_tc, beta_base, beta_tc,
+                                mixing, *, dt, dx, dy, ts,
+                                splitting="strang", eps=1e-6, cmax=10.0):
+    """K2 on a CUDA tensor; the plain version on a CPU tensor.  Forward
+    only: the trainable layer is ``fused_channel_vjp.fused_channel_diffusion``
+    (``MixedChannelDiffusion(fused=True)``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, alpha_base, alpha_tc, beta_base,
+                                      beta_tc, mixing)):
+        raise NotImplementedError(
+            "fused_channel_diffusion_fwd (K2) is the eval forward and has no "
+            "gradient: use ops.fused_channel_vjp.fused_channel_diffusion")
+    if splitting not in ("strang", "lie"):
+        raise ValueError(f"splitting must be 'strang' or 'lie': {splitting!r}")
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
+              cmax=cmax)
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
+    if not kernels.use_kernel(u):
+        return fused_channel_diffusion_plain(u, *fields, **kw)
+    check_layer_args("fused_channel_diffusion_fwd", u, *fields, ts,
+                     splitting)
+    out = launch_forward(u, *fields, **kw)
     fused_channel_diffusion_fwd.launches += 1
     return out
 

@@ -1,9 +1,10 @@
 """Building, loading and dispatching the hand-written CUDA kernels.
 
-Each kernel is a ``csrc/<name>.cu`` file with a plain C entry point.  It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
-checkout's ``build/kernels/`` at first use (the file name carries a hash of
-the source, so an edited source is rebuilt) and bound with ``ctypes``.
+Each kernel is a ``csrc/<name>.cu`` file with plain C entry points (helpers
+shared between files sit in ``csrc/*.cuh``).  It is compiled with ``nvcc``
+for ``sm_90a`` into a shared library under the checkout's ``build/kernels/``
+at first use (the file name carries a hash of the source and the headers, so
+an edited source is rebuilt) and bound with ``ctypes``.
 Nothing is compiled or loaded when a module is imported.
 
 Dispatch rule, shared by every wrapper: a tensor on the CPU takes the
@@ -31,7 +32,7 @@ __all__ = ["build", "function", "plain_versions", "use_kernel",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("thomas", "fused_channel")
+KERNEL_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -49,7 +50,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

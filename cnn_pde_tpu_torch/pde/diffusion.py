@@ -6,15 +6,19 @@ coefficient fields clamped to [eps, clamp_max] and no smoothing:
 The coefficients are evaluated at t, t+dt/2 and t+dt within each step; t
 advances by dt/2 after substeps 1 and 2 and never after substep 3.
 
-Two eval configurations:
+Configurations:
 
 * per-sweep (default): every sweep is one ``tridiag_solve``, i.e. one K1
-  launch on the card — 3 per Strang step;
+  launch on the card — 3 per Strang step — and in training one K3 launch
+  (the adjoint) per sweep in the backward;
+* ``fused=True``: in training and in eval the whole layer is one
+  ``fused_channel_diffusion`` call (``ops/fused_channel_vjp.py``): one K4
+  launch forward and one K5 launch backward;
 * ``fused_inference=True``: in eval, the whole layer is one K2 launch
-  (``ops/fused_channel.py``).  On a CPU tensor both run their plain versions.
+  (``ops/fused_channel.py``); it takes precedence over ``fused`` in eval.
 
-The trainable fused kernels, the hoisted-operator grade and remat are later
-slices (ROADMAP.md A5, A6) and raise here.
+On a CPU tensor every configuration runs its plain versions.  The
+hoisted-operator grade (ROADMAP.md A6) and remat (A12) raise here.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from torch import nn
 
 from ..ops.adi import sweep_x, sweep_y
 from ..ops.fused_channel import fused_channel_diffusion_fwd
+from ..ops.fused_channel_vjp import fused_channel_diffusion
 
 __all__ = ["MixedChannelDiffusion"]
 
@@ -67,9 +72,8 @@ class MixedChannelDiffusion(nn.Module):
         if splitting not in ("strang", "lie"):
             raise ValueError(f"splitting must be 'strang' or 'lie': "
                              f"{splitting!r}")
-        for flag, name, item in ((fused, "fused", "A5 (kernel B3)"),
-                                 (hoisted, "hoisted", "A6"),
-                                 (remat, "remat", "A5")):
+        for flag, name, item in ((hoisted, "hoisted", "A6"),
+                                 (remat, "remat", "A12")):
             if flag:
                 raise NotImplementedError(
                     f"MixedChannelDiffusion({name}=True) is not ported yet: "
@@ -84,6 +88,7 @@ class MixedChannelDiffusion(nn.Module):
         self.eps = eps
         self.clamp_max = clamp_max
         self.fused_inference = fused_inference
+        self.fused = fused
         shape = (channels, size, size)
         self.alpha_base = nn.Parameter(torch.ones(shape, device=device))
         self.beta_base = nn.Parameter(torch.ones(shape, device=device))
@@ -110,12 +115,14 @@ class MixedChannelDiffusion(nn.Module):
 
     def forward(self, u):
         eps, cmax = self.eps, self.clamp_max
+        params = (self.alpha_base, self.alpha_time_coeff, self.beta_base,
+                  self.beta_time_coeff, self.channel_mixing)
+        kw = dict(dt=self.dt, dx=self.dx, dy=self.dy, ts=self.ts,
+                  splitting=self.splitting, eps=eps, cmax=cmax)
         if self.fused_inference and not self.training:
-            return fused_channel_diffusion_fwd(
-                u, self.alpha_base, self.alpha_time_coeff, self.beta_base,
-                self.beta_time_coeff, self.channel_mixing, dt=self.dt,
-                dx=self.dx, dy=self.dy, ts=self.ts, splitting=self.splitting,
-                eps=eps, cmax=cmax)
+            return fused_channel_diffusion_fwd(u, *params, **kw)
+        if self.fused:
+            return fused_channel_diffusion(u, *params, **kw)
         strang = self.splitting == "strang"
         dt_y = self.dt if strang else self.dt / 2
         ts = self.ts

@@ -1,0 +1,11 @@
+"""Training of the port: loss, grouped AdamW with global-norm clipping, the
+per-epoch cosine schedule and the flagship train step."""
+
+from .losses import cross_entropy
+from .optim import ParamGroup, build_optimizer, clip_by_global_norm_
+from .schedules import constant, cosine_annealing
+from .step import make_train_step, train_steps
+
+__all__ = ["cross_entropy", "ParamGroup", "build_optimizer",
+           "clip_by_global_norm_", "constant", "cosine_annealing",
+           "make_train_step", "train_steps"]

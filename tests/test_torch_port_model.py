@@ -76,8 +76,8 @@ def test_mixed_channel_diffusion_matches_jax(layer_case, branch, config):
 
 
 def test_unported_options_raise():
-    for kw in ({"fused": True}, {"hoisted": True}, {"remat": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for kw, item in (({"hoisted": True}, "A6"), ({"remat": True}, "A12")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             MixedChannelDiffusion(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         build_model("mnist")
@@ -114,7 +114,7 @@ def test_state_dict_from_jax_equals_export(flagship):
     for k, v in ref.items():
         assert sd[k].numpy().dtype == np.asarray(v).dtype, k
         np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
-    model = build_model("cifar10_noconv")
+    model = build_model("cifar10_noconv", device="cpu")
     model.load_state_dict(sd, strict=True)
     assert set(model.state_dict()) == set(sd)
 
@@ -122,7 +122,7 @@ def test_state_dict_from_jax_equals_export(flagship):
 @pytest.mark.parametrize("config", CONFIGS)
 def test_flagship_logits_match_jax(flagship, config):
     params, state, x, ref = flagship
-    model = build_model("cifar10_noconv",
+    model = build_model("cifar10_noconv", device="cpu",
                         fused_inference=config == "fused_inference")
     model.load_state_dict(state_dict_from_jax(params, state), strict=True)
     with torch.inference_mode():
@@ -135,9 +135,9 @@ def test_build_model_init_is_seeded():
     """The init draws come from the explicit generator: same seed, same
     weights; the JAX model's distributions (unit PDE bases, zero time
     coefficients, zero Linear biases in the head)."""
-    a = build_model("cifar10_noconv",
+    a = build_model("cifar10_noconv", device="cpu",
                     generator=torch.Generator().manual_seed(3)).state_dict()
-    b = build_model("cifar10_noconv",
+    b = build_model("cifar10_noconv", device="cpu",
                     generator=torch.Generator().manual_seed(3)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.all(a["feature_extractor.pde2.alpha_base"] == 1.0)
@@ -145,3 +145,12 @@ def test_build_model_init_is_seeded():
     assert torch.all(a["classifier.network.4.bias"] == 0.0)
     w = a["classifier.network.0.weight"]
     assert abs(float(w.std()) - (2.0 / 96) ** 0.5) < 0.01
+
+
+def test_build_model_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model("cifar10_noconv")
+    assert build_model("cifar10_noconv", device="cpu").classifier \
+        .network[0].weight.device.type == "cpu"

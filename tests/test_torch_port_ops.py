@@ -74,13 +74,24 @@ def test_pcr_and_column_solve_match_thomas(n):
 
 
 def test_solve_refuses_gradients():
+    """K2's wrapper is the eval forward and refuses a gradient request,
+    naming the trainable path; ``tridiag_solve`` is differentiable now."""
     rng = np.random.default_rng(0)
     a, b, c, d = map(torch.from_numpy, _system(rng, 2, 4, 1))
     a.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        tridiag_solve(a, b, c, d)
+    tridiag_solve(a, b, c, d).sum().backward()
+    assert a.grad is not None and torch.all(a.grad[..., 0] == 0)
+    C, S = 2, 4
+    u = torch.rand((1, C, S, S))
+    fields = [torch.ones((C, S, S), requires_grad=True)] + [
+        torch.zeros((C, S, S))] * 3
+    kw = dict(dt=0.01, dx=1.0, dy=1.0,
+              ts=torch.tensor(_substep_times_np(0.01, 1),
+                              dtype=torch.float32))
+    with pytest.raises(NotImplementedError, match="fused_channel_vjp"):
+        port_fused_fwd(u, *fields, torch.eye(C), **kw)
     with torch.no_grad():
-        tridiag_solve(a, b, c, d)
+        port_fused_fwd(u, *fields, torch.eye(C), **kw)
 
 
 @pytest.mark.parametrize("shape", [(3, 32, 32), (2, 5, 1), (1, 3, 2)])

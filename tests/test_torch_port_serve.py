@@ -45,7 +45,7 @@ def served():
         for k in ("alpha_time_coeff", "beta_time_coeff"):
             pde[k] = (5.0 * rng.standard_normal(pde[k].shape)).astype(
                 np.float32)
-    port = build_model("cifar10_noconv")
+    port = build_model("cifar10_noconv", device="cpu")
     port.load_state_dict(state_dict_from_jax(params, state), strict=True)
     x = rng.random((3, 3, 32, 32)).astype(np.float32)
     return model, params, state, port, x
@@ -125,9 +125,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from cnn_pde_tpu_torch.models import build_model\n"
         "from cnn_pde_tpu_torch.serve import make_predict_fn\n"
         "import cnn_pde_tpu_torch.compat, cnn_pde_tpu_torch.serve_cli\n"
-        "m = build_model('cifar10_noconv', fused_inference=True)\n"
+        "m = build_model('cifar10_noconv', device='cpu', "
+        "fused_inference=True)\n"
         "x = np.random.default_rng(0).random((2, 3, 32, 32), np.float32)\n"
         "assert make_predict_fn(m, output='labels')(x).shape == (2,)\n"
+        "import cnn_pde_tpu_torch.train.__main__\n"
+        "from cnn_pde_tpu_torch.presets import PRESETS\n"
+        "from cnn_pde_tpu_torch.train import make_train_step\n"
+        "t = build_model('cifar10_noconv', device='cpu', fused_pde=True)\n"
+        "step = make_train_step(t, PRESETS['cifar10_noconv']['train'], 1,\n"
+        "                       torch.Generator())\n"
+        "loss, _ = step(x, np.array([1, 2]))\n"
+        "assert bool(torch.isfinite(loss))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'cnn_pde_tpu' or k.startswith('cnn_pde_tpu.')]\n"
         "assert not bad, bad\n"
