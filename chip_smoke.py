@@ -7,29 +7,43 @@ hold its kernels against their plain versions.
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
-2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu)
-   and K5 (csrc/fused_channel_vjp.cu) with nvcc, one process a source;
+2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu),
+   K5 (csrc/fused_channel_vjp.cu), K6 and K7 (csrc/fused_grayscale.cu) and
+   K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
+   started together;
 3. each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes (K1, K3: x- and y-sweeps of the three branch scales at
-   B in {1, 7, 512}, plus lines of 1, 2 and 3; K2: the three branches,
-   Strang and Lie, at B in {1, 7, 512}; K4 and K5: the three branches,
-   Strang and Lie, at B in {1, 7, 64, 512}, with fields that straddle both
-   clamp bounds);
-4. serving: ``make_predict_fn`` on the CIFAR-10 flagship (weights from a
-   seed) in the per-sweep and the fused configuration at B in {1, 64, 1024},
+   shapes of the two model families' main paths (K1, K3: x- and y-sweeps of
+   the flagship's three branch scales at B in {1, 7, 512}, plus lines of
+   1, 2 and 3, plus the grayscale layer's smoothed sweeps at B = 1024; K2:
+   the three branches, Strang and Lie, at B in {1, 7, 512}; K4 and K5: the
+   three branches, Strang and Lie, at B in {1, 7, 64, 512}, with fields that
+   straddle both clamp bounds; K6, K7 and K8: the mnist (10 steps) and
+   fashion_mnist (4 steps) layers at B in {1, 7, 128, 1024}, with fields
+   that straddle eps);
+4. serving the CIFAR-10 flagship: ``make_predict_fn`` (weights from a seed)
+   in the per-sweep and the fused configuration at B in {1, 64, 1024},
    logits held against the same model on its plain versions, launch counts
    read around that run, then images/s; then the serve CLI on cuda;
-5. the device's busy share of a served forward (torch.profiler);
-6. training: the flagship train step (``make_train_step``, the preset's
+5. the device's busy share of a served flagship forward (torch.profiler);
+6. training the flagship: the train step (``make_train_step``, the preset's
    augmentation, dropout and grouped AdamW) per-sweep and fused at B = 64
    and 256: launch counts read around one step, the loss and every
    gradient held against the same step on the plain versions, 50 steps on
    synthetic CIFAR-10 with a falling loss, images/s by CUDA events, the
    device's busy share of a step; then the train CLI on cuda;
-7. times of each kernel and its plain version (CUDA events, median of 20
-   groups) at B = 512 (K1, K2) and at B = 64 and 512 (K3-K5), beside the
-   least time the card could take;
-8. the ``kernels`` JSON line, then the contract line.
+7. the grayscale family (mnist): serving per-sweep (30 K1 a forward) and
+   fused (1 K6) at B in {1, 128, 1024} against the plain versions, with
+   images/s and the busy share; training per-sweep (30 K1 + 30 K3 a step)
+   and fused (1 K7 + 1 K8) at B = 128: launch counts, the loss and every
+   gradient against the plain versions, 50 steps on synthetic MNIST with a
+   falling loss, images/s and the busy share; both CLIs with
+   ``--preset mnist`` on cuda; then fashion_mnist the same way, served at
+   B in {1, 128} (12 K1 or 1 K6 a forward) and trained at B = 128 (12 K1 +
+   12 K3, or 1 K7 + 1 K8 a step), without its CLIs;
+8. times of each kernel and its plain version (CUDA events, median of
+   groups) at B = 512 (K1, K2), at B = 64 and 512 (K3-K5) and at B = 128
+   and 1024 (K6-K8), beside the least time the card could take;
+9. the ``kernels`` JSON line, then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -56,6 +70,12 @@ from cnn_pde_tpu_torch.ops.fused_channel import (
 from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
     fused_channel_bwd, fused_channel_bwd_plain, fused_channel_fwd_res,
     fused_channel_fwd_res_plain)
+from cnn_pde_tpu_torch.ops.fused_grayscale import (
+    fused_grayscale_diffusion_fwd, fused_grayscale_diffusion_plain)
+from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import (
+    fused_grayscale_bwd, fused_grayscale_bwd_plain, fused_grayscale_fwd_res,
+    fused_grayscale_fwd_res_plain)
+from cnn_pde_tpu_torch.ops.smoothing import smooth3
 from cnn_pde_tpu_torch.ops.tridiag import (tridiag_adjoint,
                                            tridiag_adjoint_plain,
                                            tridiag_solve, tridiag_solve_plain)
@@ -72,6 +92,12 @@ KERNEL_TOL = 1e-5   # same recurrence (K1, K3) or same system (K2, K4), fma
 LOGIT_TOL = 1e-4    # the JAX package's full-model bound
 GRAD_TOL = 1e-4     # relative to a tensor's largest entry: sums reordered
 TRAIN = PRESETS["cifar10_noconv"]["train"]
+GRAY_TRAIN = PRESETS["mnist"]["train"]
+# the grayscale layers of the two presets (models/mlp_models.py):
+# (dt, num_steps, init_value), all at 28 x 28 with dx = dy = 1
+GRAY_LAYERS = {"mnist": (0.001, 10, 2.0), "fashion_mnist": (0.3, 4, 1.8)}
+GRAY_KEYS = ("alpha_base", "alpha_time_coeff", "beta_base",
+             "beta_time_coeff")
 # gradients that are zero in exact arithmetic (a bias feeding a train-mode
 # BatchNorm; the feature BN's bias, summed to zero over the batch by the
 # BN1d head): there both paths must give |g| <= GRAD_TOL
@@ -186,7 +212,8 @@ def time_ms(fn, groups=20, per_group=10):
 
 WRAPPERS = {"K1": tridiag_solve, "K2": fused_channel_diffusion_fwd,
             "K3": tridiag_adjoint, "K4": fused_channel_fwd_res,
-            "K5": fused_channel_bwd}
+            "K5": fused_channel_bwd, "K6": fused_grayscale_diffusion_fwd,
+            "K7": fused_grayscale_fwd_res, "K8": fused_grayscale_bwd}
 
 
 def reset_counts():
@@ -196,6 +223,11 @@ def reset_counts():
 
 def counts():
     return {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def only(**launches):
+    """The counts of a run that launched ``launches`` and nothing else."""
+    return {k: launches.get(k, 0) for k in WRAPPERS}
 
 
 def phase_device():
@@ -407,26 +439,29 @@ def device_busy(fn, reps, device):
                       for r in host[:6]))
 
 
-def phase_slice(device):
-    rng = np.random.default_rng(SEED + 2)
-    batches = (1, 64, 1024)
-    images = {B: rng.random((B, 3, 32, 32)).astype(np.float32)
+def serve_family(tag, device, make_model, shape, batches, expected, reps,
+                 seed):
+    """``make_predict_fn`` on ``make_model(config)`` for each configuration
+    of ``expected`` ({config: {kernel: launches a forward}}), over one
+    request of each batch in ``batches`` of seeded images of ``shape``: the
+    launch counts of that run, logits within LOGIT_TOL of the same model on
+    its plain versions with equal labels, then images/s (host clock,
+    ``reps[B]`` requests after one warm-up).  Returns (counts a config,
+    rates)."""
+    rng = np.random.default_rng(seed)
+    images = {B: rng.random((B, *shape)).astype(np.float32)
               for B in batches}
-    expected = {"per_sweep": (51, 0), "fused": (0, 3)}
     launches, rates = {}, {}
-    for config, (k1_per, k2_per) in expected.items():
-        predict = make_predict_fn(flagship(device, config == "fused"),
-                                  output="logits")
+    for config, per in expected.items():
+        predict = make_predict_fn(make_model(config), output="logits")
         reset_counts()
         logits = {B: predict(images[B]) for B in batches}
         torch.cuda.synchronize()
         got = counts()
-        log(f"[slice] {config}: launches {got} over {len(batches)} forwards")
-        if (got["K1"], got["K2"]) != (k1_per * len(batches),
-                                      k2_per * len(batches)):
-            raise AssertionError(f"{config}: expected {k1_per} K1 and "
-                                 f"{k2_per} K2 launches a forward")
-        launches[config] = (got["K1"], got["K2"])
+        log(f"[{tag}] {config}: launches {got} over {len(batches)} forwards")
+        if got != only(**{k: n * len(batches) for k, n in per.items()}):
+            raise AssertionError(f"{config}: expected {per} a forward")
+        launches[config] = got
         with kernels.plain_versions():
             plain = {B: predict(images[B]) for B in batches}
         for B in batches:
@@ -439,27 +474,52 @@ def phase_slice(device):
                 raise AssertionError(f"{config} B={B}: labels differ")
         for B in batches:
             x = torch.from_numpy(images[B]).to(device)
-            reps = {1: 30, 64: 20, 1024: 5}[B]
             predict(x)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(reps):
+            for _ in range(reps[B]):
                 predict(x)
             torch.cuda.synchronize()
-            rate = B * reps / (time.perf_counter() - t0)
+            rate = B * reps[B] / (time.perf_counter() - t0)
             rates[f"{config}_B{B}"] = rate
-            log(f"[slice] {config} B={B}: {rate:.1f} images/s "
-                f"(host clock, {reps} requests after one warm-up)")
+            log(f"[{tag}] {config} B={B}: {rate:.1f} images/s "
+                f"(host clock, {reps[B]} requests after one warm-up)")
+    return launches, rates
+
+
+def run_cli(module, preset, *args):
+    """``python -m module --preset preset args`` on the default device
+    (cuda); its summary line."""
     cli = subprocess.run(
-        [sys.executable, "-m", "cnn_pde_tpu_torch.serve", "--preset",
-         "cifar10_noconv"], capture_output=True, text=True, timeout=300,
-        check=True, cwd=os.path.dirname(os.path.abspath(__file__)))
-    summary = json.loads(cli.stdout.strip().splitlines()[-1])
+        [sys.executable, "-m", module, "--preset", preset, *args],
+        capture_output=True, text=True, timeout=300, check=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return json.loads(cli.stdout.strip().splitlines()[-1])
+
+
+def phase_slice(device):
+    launches, rates = serve_family(
+        "slice", device, lambda config: flagship(device, config == "fused"),
+        (3, 32, 32), (1, 64, 1024),
+        {"per_sweep": {"K1": 51}, "fused": {"K2": 3}},
+        {1: 30, 64: 20, 1024: 5}, SEED + 2)
+    summary = run_cli("cnn_pde_tpu_torch.serve", "cifar10_noconv")
     if len(summary["predictions"]) != 8:
         raise AssertionError(f"serve CLI on cuda: {summary}")
     log(f"[slice] python -m cnn_pde_tpu_torch.serve (default device cuda): "
         f"{summary}")
     return launches, rates
+
+
+def log_busy(tag, label, busy, what):
+    if busy is None:
+        log(f"[{tag}] {label}: device busy share not measured (the profiler "
+            "recorded no kernel)")
+    else:
+        log(f"[{tag}] {label}: device busy {100 * busy[0]:.1f}% of "
+            f"{busy[1]:.0f} us a {what} (profiler on); top kernels: "
+            f"{busy[2]}; top host ops a {what} (calls, self CPU time): "
+            f"{busy[3]}")
 
 
 def phase_profile(device):
@@ -471,14 +531,8 @@ def phase_profile(device):
         for B in (1, 1024):
             x = torch.from_numpy(
                 rng.random((B, 3, 32, 32)).astype(np.float32)).to(device)
-            busy = device_busy(lambda: predict(x), 5, device)
-            if busy is None:
-                log(f"[profile] {config} B={B}: device time not measured "
-                    "(the profiler recorded no kernel)")
-                continue
-            log(f"[profile] {config} B={B}: device busy {100 * busy[0]:.1f}% "
-                f"of {busy[1]:.0f} us a request (profiler on); top kernels: "
-                f"{busy[2]}")
+            log_busy("profile", f"{config} B={B}",
+                     device_busy(lambda: predict(x), 5, device), "request")
 
 
 def spiked_images(rng, B):
@@ -495,7 +549,7 @@ def spiked_images(rng, B):
     return x.astype(np.float32)
 
 
-def train_grads(model, x, y, relu_masks=None):
+def train_grads(model, x, y, smoothing, relu_masks=None):
     """Loss and gradients of one train-mode forward and backward.  Every
     ReLU's mask (output > 0) is recorded into ``relu_masks`` when it is an
     empty dict, and replayed from it otherwise: a pre-activation within
@@ -514,7 +568,7 @@ def train_grads(model, x, y, relu_masks=None):
     model.train()
     model.zero_grad(set_to_none=True)
     try:
-        loss = cross_entropy(model(x), y, TRAIN["label_smoothing"])
+        loss = cross_entropy(model(x), y, smoothing)
         loss.backward()
     finally:
         for h in hooks:
@@ -522,52 +576,55 @@ def train_grads(model, x, y, relu_masks=None):
     return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
 
 
-def phase_train(device):
-    """The flagship training step, per-sweep and fused."""
-    rng = np.random.default_rng(SEED + 5)
-    images, labels, _, _ = make_synthetic("cifar10")
-    data = (torch.from_numpy(images).to(device),
-            torch.from_numpy(labels).to(device))
-    expected = {"per_sweep": {"K1": 51, "K2": 0, "K3": 51, "K4": 0, "K5": 0},
-                "fused": {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 3}}
+def train_family(tag, make_model, values, data, expected, batch, inputs,
+                 grad_batches, rate_batches, rng, zero_names=()):
+    """For each configuration of ``expected`` ({config: {kernel: launches a
+    step}}), with ``make_model(config, dropout_rate)`` (None: the model's
+    own rate): the launch counts of one ``make_train_step`` step at
+    ``batch``; the loss and every gradient within GRAD_TOL of the same
+    train-mode step on the plain versions at each B of ``grad_batches``
+    (``inputs(B)`` gives the images and labels; dropout off; the kernel
+    run's ReLU masks replayed; ``zero_names``: gradients that are zero in
+    exact arithmetic, where both paths must give |g| <= GRAD_TOL); 50
+    steps at ``batch`` on ``data`` with a falling loss; then images/s (CUDA
+    events) and the device's busy share of a step at each B of
+    ``rate_batches``.  Returns (counts, rates, first and last loss) by
+    configuration."""
+    device = data[0].device
+    steps_per_epoch = max(data[0].shape[0] // batch, 1)
     launches, rates, losses = {}, {}, {}
-    for config, want in expected.items():
-        fused = config == "fused"
-        # one step of the preset's train step, counted
-        model = flagship(device, fused_pde=fused)
-        step = make_train_step(model, TRAIN, 3,
+    for config, per in expected.items():
+        model = make_model(config, None)
+        step = make_train_step(model, values, steps_per_epoch,
                                torch.Generator(device).manual_seed(SEED))
-        x = data[0][:64]
-        y = data[1][:64]
+        x, y = data[0][:batch], data[1][:batch]
         step(x, y)
         sync(device)
         reset_counts()
         loss, _ = step(x, y)
         sync(device)
         got = counts()
-        log(f"[train] {config}: launches in one train step at B=64: {got}")
-        if got != want:
-            raise AssertionError(f"{config}: expected {want} a step")
+        log(f"[{tag}] {config}: launches in one train step at B={batch}: "
+            f"{got}")
+        if got != only(**per):
+            raise AssertionError(f"{config}: expected {per} a step")
         if not torch.isfinite(loss):
             raise AssertionError(f"{config}: loss {loss}")
         launches[config] = got
 
-        # loss and every gradient against the plain versions
-        for B in (64, 256):
-            xs = torch.from_numpy(spiked_images(rng, B)).to(device)
-            ys = torch.from_numpy(rng.integers(0, 10, B)).to(device)
+        for B in grad_batches:
+            xs, ys = inputs(B)
             masks = {}
-            loss_k, grads_k = train_grads(
-                flagship(device, fused_pde=fused, dropout_rate=0.0), xs, ys,
-                masks)
+            loss_k, grads_k = train_grads(make_model(config, 0.0), xs, ys,
+                                          values["label_smoothing"], masks)
             with kernels.plain_versions():
-                loss_p, grads_p = train_grads(
-                    flagship(device, fused_pde=fused, dropout_rate=0.0), xs,
-                    ys, masks)
+                loss_p, grads_p = train_grads(make_model(config, 0.0), xs,
+                                              ys, values["label_smoothing"],
+                                              masks)
             sync(device)
             worst, where = rel_err(loss_k, loss_p), "loss"
             for name, g in grads_k.items():
-                if name in ZERO_IN_EXACT_ARITHMETIC:
+                if name in zero_names:
                     size = max(g.abs().max().item(),
                                grads_p[name].abs().max().item())
                     if not size <= GRAD_TOL:
@@ -579,54 +636,243 @@ def phase_train(device):
             check_rel(f"{config} B={B} loss and every gradient vs plain "
                       f"versions (worst: {where})", worst, GRAD_TOL)
 
-        # 50 steps on synthetic CIFAR-10
-        model = flagship(device, fused_pde=fused)
-        step = make_train_step(model, TRAIN, images.shape[0] // 64,
+        model = make_model(config, None)
+        step = make_train_step(model, values, steps_per_epoch,
                                torch.Generator(device).manual_seed(SEED))
-        run = train_steps(step, data, 50, 64, seed=SEED)
+        run = train_steps(step, data, 50, batch, seed=SEED)
         losses[config] = (run[0], run[-1])
-        log(f"[train] {config}: 50 steps at B=64, loss {run[0]:.4f} -> "
+        log(f"[{tag}] {config}: 50 steps at B={batch}, loss {run[0]:.4f} -> "
             f"{run[-1]:.4f} (means of the first and last 5: "
             f"{np.mean(run[:5]):.4f} -> {np.mean(run[-5:]):.4f})")
         if not (all(np.isfinite(run))
                 and np.mean(run[-5:]) < np.mean(run[:5])):
             raise AssertionError(f"{config}: loss did not fall: {run}")
 
-        # images/s and the device's busy share of a step
-        for B in (64, 256):
-            model = flagship(device, fused_pde=fused)
-            step = make_train_step(model, TRAIN, 3,
+        for B in rate_batches:
+            model = make_model(config, None)
+            step = make_train_step(model, values, steps_per_epoch,
                                    torch.Generator(device).manual_seed(SEED))
-            idx = torch.from_numpy(rng.integers(0, images.shape[0], B))
+            idx = torch.from_numpy(rng.integers(0, data[0].shape[0], B))
             xb, yb = data[0][idx.to(device)], data[1][idx.to(device)]
             reps = 20
             ms = time_ms(lambda: step(xb, yb), groups=3, per_group=reps)
             rates[f"{config}_B{B}"] = 1e3 * B / ms
-            log(f"[train] {config} B={B}: {1e3 * B / ms:.1f} images/s "
+            log(f"[{tag}] {config} B={B}: {1e3 * B / ms:.1f} images/s "
                 f"({ms:.3f} ms a step, CUDA events, median of 3 groups of "
                 f"{reps} steps after warm-up)")
-            busy = device_busy(lambda: step(xb, yb), 5, device)
-            if busy is None:
-                log(f"[train] {config} B={B}: device busy share not measured "
-                    "(the profiler recorded no kernel)")
-            else:
-                log(f"[train] {config} B={B}: device busy "
-                    f"{100 * busy[0]:.1f}% of {busy[1]:.0f} us a step "
-                    f"(profiler on); top kernels: {busy[2]}; top host ops "
-                    f"a step (calls, self CPU time): {busy[3]}")
+            log_busy(tag, f"{config} B={B}",
+                     device_busy(lambda: step(xb, yb), 5, device), "step")
+    return launches, rates, losses
 
-    cli = subprocess.run(
-        [sys.executable, "-m", "cnn_pde_tpu_torch.train", "--preset",
-         "cifar10_noconv", "--synthetic", "--steps", "5"],
-        capture_output=True, text=True, timeout=300, check=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    summary = json.loads(cli.stdout.strip().splitlines()[-1])
+
+def check_train_cli(tag, preset):
+    summary = run_cli("cnn_pde_tpu_torch.train", preset, "--synthetic",
+                      "--steps", "5")
     if summary["steps"] != 5 or not summary["device"].startswith("cuda") \
             or not np.isfinite(summary["last_loss"]):
         raise AssertionError(f"train CLI on cuda: {summary}")
-    log(f"[train] python -m cnn_pde_tpu_torch.train (default device cuda): "
-        f"{summary}")
-    return launches, rates, losses
+    log(f"[{tag}] python -m cnn_pde_tpu_torch.train --preset {preset} "
+        f"(default device cuda): {summary}")
+
+
+def phase_train(device):
+    """The flagship training step, per-sweep and fused."""
+    rng = np.random.default_rng(SEED + 5)
+    images, labels, _, _ = make_synthetic("cifar10")
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+    def inputs(B):
+        return (torch.from_numpy(spiked_images(rng, B)).to(device),
+                torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    result = train_family(
+        "train", lambda config, rate: flagship(
+            device, fused_pde=config == "fused",
+            **({} if rate is None else {"dropout_rate": rate})),
+        TRAIN, data, {"per_sweep": {"K1": 51, "K3": 51},
+                      "fused": {"K4": 3, "K5": 3}},
+        64, inputs, (64, 256), (64, 256), rng,
+        zero_names=ZERO_IN_EXACT_ARITHMETIC)
+    check_train_cli("train", "cifar10_noconv")
+    return result
+
+
+def gray_fields(rng, device, preset, straddle=False, S=28):
+    """Coefficient fields for the grayscale layer of ``preset``: bases
+    init ± 0.5 (``straddle``: uniform on [-0.5, 2·init], so that raw values
+    fall on both sides of eps), time coefficients N(0, 1) over the layer's
+    horizon, so that they move each coefficient by about 1 over it."""
+    USED_DEVICES.add(torch.device(device))
+    dt, steps, init = GRAY_LAYERS[preset]
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    def base():
+        if straddle:
+            return t(rng.uniform(-0.5, 2.0 * init, (S, S)))
+        return t(init + 0.5 * rng.standard_normal((S, S)))
+
+    def tc():
+        return t(rng.standard_normal((S, S)) / (dt * steps))
+    return {"alpha_base": base(), "alpha_time_coeff": tc(),
+            "beta_base": base(), "beta_time_coeff": tc()}
+
+
+def gray_kwargs(preset, device):
+    dt, steps, _ = GRAY_LAYERS[preset]
+    ts = torch.tensor(_substep_times_np(dt, steps), dtype=torch.float32,
+                      device=device)
+    return dict(dt=dt, dx=1.0, dy=1.0, ts=ts, eps=EPS)
+
+
+def phase_gray_kernels(device):
+    """K6, K7 and K8 against their plain versions; K1 and K3 on the
+    grayscale per-sweep path's smoothed bands."""
+    rng = np.random.default_rng(SEED + 6)
+    log("[kernels] K6 fused_grayscale_diffusion_fwd, K7 "
+        "fused_grayscale_fwd_res and K8 fused_grayscale_bwd against their "
+        "plain versions (fields straddle eps)")
+    k6, k7, k8_abs, k8_rel = 0.0, 0.0, 0.0, 0.0
+    for preset in GRAY_LAYERS:
+        f = gray_fields(rng, device, preset, straddle=True)
+        args = [f[k] for k in GRAY_KEYS]
+        kw = gray_kwargs(preset, device)
+        for B in (1, 7, 128, 1024):
+            label = f"{preset} ({kw['ts'].shape[0]} steps) B={B}"
+            u = torch.rand((B, 28, 28), device=device)
+            out = fused_grayscale_diffusion_fwd(u, *args, **kw)
+            torch.cuda.synchronize()
+            k6 = max(k6, check(f"K6 {label}", max_err(
+                out, fused_grayscale_diffusion_plain(u, *args, **kw)),
+                KERNEL_TOL))
+            out, res = fused_grayscale_fwd_res(u, *args, **kw)
+            torch.cuda.synchronize()
+            ref_out, ref_res = fused_grayscale_fwd_res_plain(u, *args, **kw)
+            k7 = max(k7, check(f"K7 {label} output", max_err(out, ref_out),
+                               KERNEL_TOL),
+                     check(f"K7 {label} residuals", max_err(res, ref_res),
+                           KERNEL_TOL))
+            g = torch.randn_like(u)
+            grads = fused_grayscale_bwd(g, res, out, *args, **kw)
+            torch.cuda.synchronize()
+            ref = fused_grayscale_bwd_plain(g, res, out, *args, **kw)
+            for name, o, r in zip(("u",) + GRAY_KEYS, grads, ref):
+                k8_rel = max(k8_rel, check_rel(f"K8 {label} grad {name}",
+                                               rel_err(o, r), GRAD_TOL))
+                k8_abs = max(k8_abs, max_err(o, r))
+
+    log("[kernels] K1 and K3 on the grayscale layer's smoothed sweeps "
+        "(mnist, B=1024, 28x28)")
+    k1, k3_abs, k3_rel = 0.0, 0.0, 0.0
+    f = gray_fields(rng, device, "mnist")
+    dt, steps, _ = GRAY_LAYERS["mnist"]
+    t_last = float(_substep_times_np(dt, steps)[-1, 2])
+    u = torch.rand((1024, 28, 28), device=device)
+    g = torch.randn_like(u)
+    for dim, key, dtf in ((-1, "alpha", dt / 2), (-2, "beta", dt)):
+        field = _coeff_at(f[f"{key}_base"], f[f"{key}_time_coeff"], t_last,
+                          EPS)
+        bands = sweep_bands(smooth3(field, dim), dtf, 1.0, dim)
+        label = f"{'x' if dim == -1 else 'y'}-sweep"
+        x = tridiag_solve(*bands, u, dim)
+        torch.cuda.synchronize()
+        k1 = max(k1, check(f"K1 {label}",
+                           max_err(x, tridiag_solve_plain(*bands, u, dim)),
+                           KERNEL_TOL))
+        out = tridiag_adjoint(*bands, g, x, dim)
+        torch.cuda.synchronize()
+        ref = tridiag_adjoint_plain(*bands, g, x, dim)
+        k3_abs = max(k3_abs, check(f"K3 {label} λ", max_err(out[0], ref[0]),
+                                   KERNEL_TOL))
+        for name, o, r in zip(("a", "b", "c"), out[1:], ref[1:]):
+            k3_rel = max(k3_rel, check_rel(f"K3 {label} grad_{name}",
+                                           rel_err(o, r), GRAD_TOL))
+            k3_abs = max(k3_abs, max_err(o, r))
+    return {"K1": k1, "K3": (k3_abs, k3_rel), "K6": k6, "K7": k7,
+            "K8": (k8_abs, k8_rel)}
+
+
+def grayscale_model(device, preset="mnist", fused_inference=False,
+                    fused=False, dropout_rate=None):
+    """The preset's classifier with init from a seeded generator and its PDE
+    fields replaced by seeded trained-looking ones, so that the time
+    bookkeeping is exercised."""
+    model = build_model(preset, device=device,
+                        generator=torch.Generator().manual_seed(SEED),
+                        fused_inference=fused_inference, fused=fused,
+                        **({} if dropout_rate is None
+                           else {"dropout_rate": dropout_rate}))
+    USED_DEVICES.add(next(model.parameters()).device)
+    rng = np.random.default_rng(SEED + 7)
+    with torch.no_grad():
+        for key, value in gray_fields(rng, device, preset).items():
+            getattr(model.diff, key).copy_(value)
+    return model
+
+
+def phase_grayscale(device):
+    """The grayscale family: mnist served and trained in both
+    configurations, and both CLIs; then fashion_mnist (4 steps, a BN head)
+    served at B in {1, 128} and trained at B = 128 the same way."""
+    launches, rates = serve_family(
+        "gray-serve", device, lambda config: grayscale_model(
+            device, fused_inference=config == "fused"),
+        (1, 28, 28), (1, 128, 1024),
+        {"per_sweep": {"K1": 30}, "fused": {"K6": 1}},
+        {1: 30, 128: 20, 1024: 10}, SEED + 8)
+    rng = np.random.default_rng(SEED + 9)
+    for config in ("per_sweep", "fused"):
+        predict = make_predict_fn(grayscale_model(
+            device, fused_inference=config == "fused"))
+        for B in (1, 1024):
+            x = torch.from_numpy(
+                rng.random((B, 1, 28, 28)).astype(np.float32)).to(device)
+            log_busy("gray-serve", f"{config} B={B}",
+                     device_busy(lambda: predict(x), 5, device), "request")
+    summary = run_cli("cnn_pde_tpu_torch.serve", "mnist")
+    if len(summary["predictions"]) != 8:
+        raise AssertionError(f"serve CLI --preset mnist on cuda: {summary}")
+    log(f"[gray-serve] python -m cnn_pde_tpu_torch.serve --preset mnist "
+        f"(default device cuda): {summary}")
+
+    # 640 synthetic images: 5 batches of 128 an epoch
+    images, labels, _, _ = make_synthetic("mnist", train_per_class=64)
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+    def inputs(B):
+        return (torch.from_numpy(rng.random((B, 1, 28, 28)).astype(
+                    np.float32)).to(device),
+                torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    train = train_family(
+        "gray-train", lambda config, rate: grayscale_model(
+            device, fused=config == "fused", dropout_rate=rate),
+        GRAY_TRAIN, data, {"per_sweep": {"K1": 30, "K3": 30},
+                           "fused": {"K7": 1, "K8": 1}},
+        128, inputs, (128,), (128,), rng)
+    check_train_cli("gray-train", "mnist")
+
+    fashion_serve = serve_family(
+        "fashion-serve", device, lambda config: grayscale_model(
+            device, "fashion_mnist", fused_inference=config == "fused"),
+        (1, 28, 28), (1, 128), {"per_sweep": {"K1": 12}, "fused": {"K6": 1}},
+        {1: 30, 128: 20}, SEED + 11)
+    images, labels, _, _ = make_synthetic("fashion_mnist", train_per_class=64)
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+    fashion_train = train_family(
+        "fashion-train", lambda config, rate: grayscale_model(
+            device, "fashion_mnist", fused=config == "fused",
+            dropout_rate=rate),
+        PRESETS["fashion_mnist"]["train"], data,
+        {"per_sweep": {"K1": 12, "K3": 12}, "fused": {"K7": 1, "K8": 1}},
+        128, inputs, (128,), (128,), rng,
+        # biases that feed a train-mode BatchNorm
+        zero_names={"fc1.bias", "fc2.bias"})
+    return (launches, rates), train, fashion_serve, fashion_train
 
 
 def phase_times(device, peak_bytes, peak_flops):
@@ -773,6 +1019,70 @@ def times_training(f, peak_bytes, peak_flops):
     return out
 
 
+def times_grayscale(device, peak_bytes, peak_flops):
+    """K6, K7 and K8 on the mnist layer (10 Strang steps, 28 x 28) at
+    B = 128 and 1024, each beside its plain version and its bound.  Returns
+    the B = 1024 figures, with those at B = 128 under ``at_B128``."""
+    rng = np.random.default_rng(SEED + 10)
+    f = gray_fields(rng, device, "mnist")
+    args = [f[k] for k in GRAY_KEYS]
+    kw = gray_kwargs("mnist", device)
+    S = kw["ts"].shape[0]
+    field = 28 * 28
+    out = {}
+    for B in (128, 1024):
+        elems = B * field
+        u = torch.rand((B, 28, 28), device=device)
+        g = torch.randn_like(u)
+        k6 = (time_ms(lambda: fused_grayscale_diffusion_fwd(u, *args, **kw)),
+              time_ms(lambda: fused_grayscale_diffusion_plain(u, *args, **kw),
+                      groups=10, per_group=1))
+        k7 = (time_ms(lambda: fused_grayscale_fwd_res(u, *args, **kw)),
+              time_ms(lambda: fused_grayscale_fwd_res_plain(u, *args, **kw),
+                      groups=10, per_group=1))
+        y, res = fused_grayscale_fwd_res(u, *args, **kw)
+        k8 = (time_ms(lambda: fused_grayscale_bwd(g, res, y, *args, **kw)),
+              time_ms(lambda: fused_grayscale_bwd_plain(g, res, y, *args,
+                                                        **kw),
+                      groups=5, per_group=1))
+        # K6 reads u, the four fields and ts and writes the output once.
+        # Per element, step and image: three sweeps of elimination and
+        # back-substitution, 5 each.  Once per (h, w), step and sweep, the
+        # same for every image: the coefficient (fma, max: 2), its 3-tap
+        # smoothing (5), ·dtf (1), b (2) and the c* chain (3): 13.
+        k6_bound = bound(4 * (2 * elems + 4 * field + 3 * S),
+                         elems * S * 15 + field * S * 3 * 13,
+                         peak_bytes, peak_flops)
+        # K7: K6's work and the S residual states written once more.
+        k7_bound = bound(4 * ((2 + S) * elems + 4 * field + 3 * S),
+                         elems * S * 15 + field * S * 3 * 13,
+                         peak_bytes, peak_flops)
+        # K8 reads g, the output and the S residuals and writes grad u,
+        # reads the four fields and writes their gradients.  Per element,
+        # step and image: two recompute sweeps (5 each), three adjoint
+        # solves (5 each) and three grad_r folds with their batch sum (7
+        # each): 46.  Once per (h, w) and step: the bands of the five solves
+        # (13 each) and, for the three adjoints, ·dtf, the smooth3 adjoint,
+        # the gate and the two accumulations (10 each): 95.
+        k8_bound = bound(4 * ((3 + S) * elems + 8 * field + 3 * S),
+                         elems * S * 46 + field * S * 95,
+                         peak_bytes, peak_flops)
+        at = f"mnist layer, 10 steps, B={B} (28,28)"
+        for name, (ms, plain_ms), (b_ms, b_by) in (
+                ("K6", k6, k6_bound), ("K7", k7, k7_bound),
+                ("K8", k8, k8_bound)):
+            log(f"[times] {name} {at}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
+                "none (no PyTorch call computes the layer)")
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, at=at)
+            if B == 1024:
+                out.setdefault(name, {}).update(entry)
+            else:
+                out.setdefault(name, {})["at_B128"] = entry
+    return out
+
+
 KERNELS = [
     ("K1", "tridiag_solve", "cnn_pde_tpu_torch/csrc/thomas.cu",
      "cnn_pde_tpu/ops/pallas_thomas.py:70"),
@@ -785,6 +1095,15 @@ KERNELS = [
      "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:195"),
     ("K5", "fused_channel_bwd", "cnn_pde_tpu_torch/csrc/fused_channel_vjp.cu",
      "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:233"),
+    ("K6", "fused_grayscale_diffusion_fwd",
+     "cnn_pde_tpu_torch/csrc/fused_grayscale.cu",
+     "cnn_pde_tpu/ops/pallas_fused_adi.py:119"),
+    ("K7", "fused_grayscale_fwd_res",
+     "cnn_pde_tpu_torch/csrc/fused_grayscale.cu",
+     "cnn_pde_tpu/ops/pallas_fused_adi_vjp.py:196"),
+    ("K8", "fused_grayscale_bwd",
+     "cnn_pde_tpu_torch/csrc/fused_grayscale_vjp.cu",
+     "cnn_pde_tpu/ops/pallas_fused_adi_vjp.py:228"),
 ]
 
 
@@ -795,25 +1114,47 @@ def main():
     device = torch.device("cuda", 0)
     phase_build()
     errs = phase_kernels(device)
+    gray_errs = phase_gray_kernels(device)
+    errs["K1"] = max(errs["K1"], gray_errs.pop("K1"))
+    k3 = gray_errs.pop("K3")
+    errs["K3"] = (max(errs["K3"][0], k3[0]), max(errs["K3"][1], k3[1]))
+    errs.update(gray_errs)
     serve_launches, serve_rates = phase_slice(device)
     phase_profile(device)
     train_launches, train_rates, losses = phase_train(device)
+    ((gray_serve, gray_serve_rates), (gray_train, gray_train_rates,
+                                      gray_losses), fashion_serve,
+     fashion_train) = phase_grayscale(device)
     times = phase_times(device, peak_bytes, peak_flops)
+    times.update(times_grayscale(device, peak_bytes, peak_flops))
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         " MiB")
-    # launches: K1 and K2 over the serving run (3 forwards a configuration),
-    # K3-K5 over one train step; the per-forward and per-step counts beside
-    launches = {"K1": serve_launches["per_sweep"][0],
-                "K2": serve_launches["fused"][1],
+    # launches: K1 and K2 over the flagship's serving run (3 forwards a
+    # configuration), K3-K5 over one flagship train step, K6 over the mnist
+    # serving run (3 forwards), K7 and K8 over one mnist train step; the
+    # per-forward and per-step counts of both families beside
+    launches = {"K1": serve_launches["per_sweep"]["K1"],
+                "K2": serve_launches["fused"]["K2"],
                 "K3": train_launches["per_sweep"]["K3"],
                 "K4": train_launches["fused"]["K4"],
-                "K5": train_launches["fused"]["K5"]}
+                "K5": train_launches["fused"]["K5"],
+                "K6": gray_serve["fused"]["K6"],
+                "K7": gray_train["fused"]["K7"],
+                "K8": gray_train["fused"]["K8"]}
     per = {"K1": {"launches_per_forward": 51,
-                  "launches_per_train_step": train_launches["per_sweep"]["K1"]},
+                  "launches_per_train_step": train_launches["per_sweep"]["K1"],
+                  "mnist_launches_per_forward": 30,
+                  "mnist_launches_per_train_step":
+                      gray_train["per_sweep"]["K1"]},
            "K2": {"launches_per_forward": 3},
-           "K3": {"launches_per_train_step": 51},
+           "K3": {"launches_per_train_step": 51,
+                  "mnist_launches_per_train_step":
+                      gray_train["per_sweep"]["K3"]},
            "K4": {"launches_per_train_step": 3},
-           "K5": {"launches_per_train_step": 3}}
+           "K5": {"launches_per_train_step": 3},
+           "K6": {"mnist_launches_per_forward": 1},
+           "K7": {"mnist_launches_per_train_step": 1},
+           "K8": {"mnist_launches_per_train_step": 1}}
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
@@ -828,7 +1169,13 @@ def main():
         rows.append(row)
     result = {"kernels": rows, "serve_images_per_s": serve_rates,
               "train_images_per_s": train_rates,
-              "train_loss_50_steps": losses}
+              "train_loss_50_steps": losses,
+              "mnist_serve_images_per_s": gray_serve_rates,
+              "mnist_train_images_per_s": gray_train_rates,
+              "mnist_train_loss_50_steps": gray_losses,
+              "fashion_mnist_serve_images_per_s": fashion_serve[1],
+              "fashion_mnist_train_images_per_s": fashion_train[1],
+              "fashion_mnist_train_loss_50_steps": fashion_train[2]}
     log(f"card: {card}")
     log(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of cnn_pde_tpu for an NVIDIA H100 (Hopper, sm_90a).
 
-Slices 1-2: the CIFAR-10 no-conv flagship's serving and training, with five
-hand-written CUDA kernels (``csrc/``): K1, the batched Thomas solve under
-every ADI sweep, and K3, its adjoint; K2, a whole MixedChannelDiffusion layer
-in one launch (eval), and K4 and K5, the trainable whole layer forward and
-backward.  The port imports torch and numpy, never jax and nothing of
-cnn_pde_tpu.
+Slices 1-3: serving and training of the CIFAR-10 no-conv flagship and of the
+grayscale family (MNIST, Fashion-MNIST), with eight hand-written CUDA kernels
+(``csrc/``): K1, the batched Thomas solve under every ADI sweep, and K3, its
+adjoint; K2, a whole MixedChannelDiffusion layer in one launch (eval), and
+K4 and K5, the trainable whole layer forward and backward; K6, a whole
+GrayscaleDiffusion layer in one launch (eval), and K7 and K8, its trainable
+forward and backward.  The port imports torch and numpy, never jax and
+nothing of cnn_pde_tpu.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -1,10 +1,10 @@
 """Weights carried across from the JAX package — port of
-``cnn_pde_tpu/compat/torch_import.py`` for the ported family.
+``cnn_pde_tpu/compat/torch_import.py`` for the ported families.
 
 The port's module names are the reference's ``state_dict`` names, so a
 reference checkpoint loads as it is.  ``state_dict_from_jax`` turns the JAX
 model's ``(params, state)`` (nested dicts of numpy arrays) into that
-namespace: the flagship's key rewrites, the leaf map (``w``/``scale`` →
+namespace: the preset's key rewrites, the leaf map (``w``/``scale`` →
 ``weight``, ``b`` → ``bias``, ``mean``/``var`` → ``running_*``), the Linear
 transpose (JAX keeps (in, out), torch (out, in)) and zero
 ``num_batches_tracked`` counters beside each BatchNorm.
@@ -19,10 +19,18 @@ import torch
 
 __all__ = ["state_dict_from_jax", "load_torch_checkpoint"]
 
-# cifar10_noconv: JAX dotted param path → reference state_dict key
-# (cifar10.py:215-361: SpatialAttention.attention_fc, EnhancedFC.network)
-KEY_REWRITES = [(r"\.fc\.", ".attention_fc."),
-                (r"^classifier\.", "classifier.network.")]
+# per preset: JAX dotted param path → reference state_dict key
+KEY_REWRITES = {
+    # cifar10.py:215-361: SpatialAttention.attention_fc, EnhancedFC.network
+    "cifar10_noconv": [(r"\.fc\.", ".attention_fc."),
+                       (r"^classifier\.", "classifier.network.")],
+    # mnist_test.py:223-261: diff + fc1/fc2 behind ReLU/Dropout
+    "mnist": [(r"^head\.2\.", "fc1."), (r"^head\.5\.", "fc2.")],
+    # fashion_mnist.py:200-254: fc1/bn1/fc2/bn2/fc3
+    "fashion_mnist": [(r"^head\.1\.", "fc1."), (r"^head\.2\.", "bn1."),
+                      (r"^head\.5\.", "fc2."), (r"^head\.6\.", "bn2."),
+                      (r"^head\.9\.", "fc3.")],
+}
 
 
 def _flatten(tree, prefix=""):
@@ -36,8 +44,8 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def _torch_key(path, *, is_state):
-    for pat, rep in KEY_REWRITES:
+def _torch_key(path, *, is_state, preset="cifar10_noconv"):
+    for pat, rep in KEY_REWRITES[preset]:
         new = re.sub(pat, rep, path)
         if new != path:
             path = new
@@ -50,18 +58,18 @@ def _torch_key(path, *, is_state):
     return f"{head}.{leaf}" if head else leaf
 
 
-def state_dict_from_jax(params, state):
-    """The JAX ``cifar10_noconv`` model's ``(params, state)`` as a
-    reference-layout state_dict of CPU tensors, ready for
-    ``model.load_state_dict(sd, strict=True)``."""
+def state_dict_from_jax(params, state, preset="cifar10_noconv"):
+    """The JAX model's ``(params, state)`` for ``preset`` (one of
+    ``KEY_REWRITES``) as a reference-layout state_dict of CPU tensors, ready
+    for ``model.load_state_dict(sd, strict=True)``."""
     sd = {}
     for path, leaf in _flatten(params).items():
         v = np.asarray(leaf)
         if path.rsplit(".", 1)[-1] == "w" and v.ndim == 2:
             v = v.T
-        sd[_torch_key(path, is_state=False)] = torch.tensor(v)
+        sd[_torch_key(path, is_state=False, preset=preset)] = torch.tensor(v)
     for path, leaf in _flatten(state).items():
-        key = _torch_key(path, is_state=True)
+        key = _torch_key(path, is_state=True, preset=preset)
         sd[key] = torch.tensor(np.asarray(leaf))
         sd.setdefault(f"{key.rsplit('.', 1)[0]}.num_batches_tracked",
                       torch.zeros((), dtype=torch.int64))

@@ -1,10 +1,15 @@
-// Device helpers shared by the fused channel-diffusion kernels
-// (fused_channel.cu: K2 and K4; fused_channel_vjp.cu: K5).
+// Device helpers shared by the fused diffusion kernels (fused_channel.cu: K2
+// and K4; fused_channel_vjp.cu: K5; fused_grayscale.cu: K6 and K7;
+// fused_grayscale_vjp.cu: K8).
 //
 // One implicit sweep line solves the Neumann system of the port's
 // ops/fused_channel.py::_abc_nosmooth: a = c = -r, b = 1 + 2r (1 + r on the
-// two edge rows) + eps, with r = clamp(base + time_coeff * t, eps, cmax) * dtf
-// read from the raw coefficient field and clamped on the fly.
+// two edge rows) + eps, with r = c * dtf and c = clamp(base + time_coeff * t,
+// eps, cmax) read from the raw coefficient field and clamped on the fly.  The
+// grayscale kernels pass cmax = +inf (a one-sided clamp) and kSmooth, which
+// replaces c[i] by the 3-tap replicate average
+// c[i-1]/3 + c[i]/3 + c[i+1]/3 along the line (c[-1] = c[0], c[n] = c[n-1]),
+// ops/smoothing.py::smooth3.
 
 #pragma once
 
@@ -24,17 +29,27 @@ struct Field {
 // Solve one line of n elements at `line` (element stride `stride`) in place:
 // T x = d, or T^T x = d when kT (sub'[i] = c[i-1] = -r[i-1], super'[i] =
 // a[i+1] = -r[i+1]; the diagonal is the same).  The coefficient of element i
-// sits at coef + i * cstride.
-template <bool kT>
+// sits at coef + i * cstride; with kSmooth it is averaged with its two
+// neighbours along the line.
+template <bool kT, bool kSmooth = false>
 __device__ void solve_line(float* line, int stride, int n, Field f,
                            long long coef, int cstride, float t, float dtf,
                            float eps, float cmax) {
   float cs[kMaxN];
-  auto r_at = [&](int i) {
+  auto c_at = [&](int i) {
     const long long k = coef + (long long)i * cstride;
     float v = __ldg(f.base + k) + __ldg(f.tc + k) * t;
-    v = fminf(fmaxf(v, eps), cmax);
-    return v * dtf;
+    return fminf(fmaxf(v, eps), cmax);
+  };
+  auto r_at = [&](int i) {
+    if constexpr (kSmooth) {
+      const float third = 1.0f / 3.0f;
+      const float l = c_at(i > 0 ? i - 1 : 0);
+      const float r = c_at(i < n - 1 ? i + 1 : n - 1);
+      return (l * third + c_at(i) * third + r * third) * dtf;
+    } else {
+      return c_at(i) * dtf;
+    }
   };
   float r = r_at(0);                               // r[i]
   float rn = (kT && n > 1) ? r_at(1) : 0.0f;       // r[i + 1], kT only

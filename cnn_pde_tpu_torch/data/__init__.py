@@ -1,5 +1,5 @@
-"""Data of the port: the synthetic CIFAR-10 stand-in (``synthetic``) and
-on-device augmentation (``augment``)."""
+"""Data of the port: the synthetic stand-ins of the ported datasets
+(``synthetic``) and on-device augmentation (``augment``)."""
 
 from .augment import AugmentSpec
 from .synthetic import make_synthetic

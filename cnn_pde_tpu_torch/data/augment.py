@@ -1,6 +1,7 @@
-"""On-device batch augmentation for the CIFAR spec — port of
-``cnn_pde_tpu/data/augment.py`` (crop-pad, hflip, rotation, colour jitter,
-normalisation, random erasing after normalisation).
+"""On-device batch augmentation for the CIFAR and grayscale specs — port of
+``cnn_pde_tpu/data/augment.py`` (crop-pad, hflip, the rotation and
+translation warp, colour jitter, normalisation, random erasing after
+normalisation).
 
 Each op is split into a draw and an apply.  ``draw`` takes every random
 number of a batch from one ``torch.Generator``; the ``apply_*`` functions
@@ -20,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["AugmentSpec", "draw", "apply", "augment", "apply_crop_pad",
-           "apply_hflip", "apply_rotation", "apply_color_jitter",
-           "apply_normalize", "apply_erasing"]
+           "apply_hflip", "apply_rotation", "apply_affine",
+           "apply_color_jitter", "apply_normalize", "apply_erasing"]
 
 ERASE_SCALE = (0.02, 0.33)
 ERASE_RATIO = (0.3, 3.3)
@@ -30,11 +31,12 @@ ERASE_RATIO = (0.3, 3.3)
 @dataclass(frozen=True)
 class AugmentSpec:
     """The torchvision chain of a preset (the JAX ``AugmentSpec`` fields the
-    CIFAR presets use)."""
+    CIFAR and grayscale presets use)."""
 
     crop_padding: int = 0
     hflip: float = 0.0
     rotation: float = 0.0
+    translate: float = 0.0
     brightness: float = 0.0
     contrast: float = 0.0
     saturation: float = 0.0
@@ -67,6 +69,9 @@ def draw(spec: AugmentSpec, shape, generator: torch.Generator,
         d["flip"] = uniform(0.0, 1.0) < spec.hflip
     if spec.rotation:
         d["angle"] = uniform(-spec.rotation, spec.rotation)
+    if spec.translate:  # in pixels: a fraction of the width and the height
+        d["tx"] = uniform(-spec.translate, spec.translate) * width
+        d["ty"] = uniform(-spec.translate, spec.translate) * height
     for key in ("brightness", "contrast", "saturation"):
         amount = getattr(spec, key)
         if amount:
@@ -102,16 +107,33 @@ def apply_hflip(images, flip):
 def apply_rotation(images, angle):
     """Rotate by ``angle`` degrees about the image centre: bilinear, zero
     fill, centred coordinates (the JAX ``_rotate``/``_affine_warp``)."""
+    return apply_affine(images, angle=angle)
+
+
+def apply_affine(images, angle=None, tx=None, ty=None):
+    """Translate(rotate(x)) in one bilinear warp with zero fill and centred
+    coordinates, as the JAX augment composes rotation and translation:
+    each output pixel (x, y) reads the input at the inverse map
+    [[c, s, −(c·tx + s·ty)], [−s, c, −(−s·tx + c·ty)]] of (x, y, 1), with
+    c, s the cosine and sine of ``angle`` degrees and (tx, ty) the shift in
+    pixels, per image.  A missing angle is 0 and a missing shift 0 (the JAX
+    rotation-only and translation-only warps)."""
     B, C, H, W = images.shape
-    rad = angle * math.pi / 180.0
-    cos, sin = torch.cos(rad)[:, None, None], torch.sin(rad)[:, None, None]
+    zero = torch.zeros(B, dtype=images.dtype, device=images.device)
+    rad = (zero if angle is None else angle) * math.pi / 180.0
+    tx = zero if tx is None else tx
+    ty = zero if ty is None else ty
+    cos, sin = torch.cos(rad), torch.sin(rad)
+    off_x = -(cos * tx + sin * ty)
+    off_y = -(-sin * tx + cos * ty)
+    cos, sin = cos[:, None, None], sin[:, None, None]
     ys = torch.arange(H, dtype=images.dtype, device=images.device) \
         - (H - 1) / 2.0
     xs = torch.arange(W, dtype=images.dtype, device=images.device) \
         - (W - 1) / 2.0
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-    src_x = cos * xx + sin * yy
-    src_y = -sin * xx + cos * yy
+    src_x = cos * xx + sin * yy + off_x[:, None, None]
+    src_y = -sin * xx + cos * yy + off_y[:, None, None]
     # align_corners=True: pixel k of N sits at 2k/(N-1) - 1
     grid = torch.stack([src_x / ((W - 1) / 2.0), src_y / ((H - 1) / 2.0)],
                        dim=-1)
@@ -205,8 +227,8 @@ def apply(spec: AugmentSpec, images, d: dict):
         x = apply_crop_pad(x, d["crop_oy"], d["crop_ox"], spec.crop_padding)
     if spec.hflip:
         x = apply_hflip(x, d["flip"])
-    if spec.rotation:
-        x = apply_rotation(x, d["angle"])
+    if spec.rotation or spec.translate:
+        x = apply_affine(x, d.get("angle"), d.get("tx"), d.get("ty"))
     if spec.brightness or spec.contrast or spec.saturation or spec.hue:
         x = apply_color_jitter(x, d.get("brightness"), d.get("contrast"),
                                d.get("saturation"), d.get("hue"))

@@ -1,6 +1,7 @@
-"""Deterministic procedural CIFAR-10 stand-in — the port's own copy of
-``cnn_pde_tpu/data/synthetic.py::make_synthetic`` for the cifar10 spec (numpy
-only), so that training runs with no dataset on disk.
+"""Deterministic procedural stand-ins for the ported datasets (MNIST,
+Fashion-MNIST, CIFAR-10) — the port's own copy of
+``cnn_pde_tpu/data/synthetic.py::make_synthetic`` (numpy only), so that
+training runs with no dataset on disk.
 
 Images are float32 NCHW in [0, 1] (the post-ToTensor convention), labels
 int32; the same arrays as the JAX package's for the same arguments.

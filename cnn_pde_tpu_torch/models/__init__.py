@@ -1,5 +1,6 @@
-"""Model registry of the port.  Only the CIFAR-10 no-conv flagship is ported;
-every other preset of the JAX package raises until its slice lands."""
+"""Model registry of the port: the CIFAR-10 no-conv flagship and the
+grayscale family (MNIST, Fashion-MNIST); every other preset of the JAX
+package raises until its slice lands."""
 
 from __future__ import annotations
 
@@ -8,16 +9,18 @@ import torch
 from .attention import SpatialAttention
 from .cifar10_noconv import (CIFAR10PDENoConv, EnhancedFC,
                              MultiScaleExtractor, set_dropout_generator)
+from .mlp_models import FashionClassifier, MNISTClassifier
 
 __all__ = ["MODEL_REGISTRY", "build_model", "SpatialAttention",
            "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor",
-           "set_dropout_generator"]
+           "MNISTClassifier", "FashionClassifier", "set_dropout_generator"]
 
-MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv}
+MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv,
+                  "mnist": MNISTClassifier,
+                  "fashion_mnist": FashionClassifier}
 
 # JAX model families still to port, with their ROADMAP.md queue-A items
-NOT_YET_PORTED = {"mnist": "A7", "fashion_mnist": "A7", "svhn": "A8",
-                  "emotion": "A9", "tiny_imagenet": "A10",
+NOT_YET_PORTED = {"svhn": "A8", "emotion": "A9", "tiny_imagenet": "A10",
                   "cifar10_hybrid": "A11"}
 
 

@@ -1,17 +1,23 @@
-"""L1 ops: tridiagonal solves and their adjoint, ADI sweeps, and the five
-CUDA kernels' wrappers (K1, K3 in ``tridiag``; K2 in ``fused_channel``; K4,
-K5 in ``fused_channel_vjp``)."""
+"""L1 ops: tridiagonal solves and their adjoint, coefficient smoothing, ADI
+sweeps, and the eight CUDA kernels' wrappers (K1, K3 in ``tridiag``; K2 in
+``fused_channel``; K4, K5 in ``fused_channel_vjp``; K6 in
+``fused_grayscale``; K7, K8 in ``fused_grayscale_vjp``)."""
 
 from .adi import sweep_last_axis, sweep_x, sweep_y
 from .fused_channel import (fused_channel_diffusion_fwd,
                             fused_channel_diffusion_plain)
 from .fused_channel_vjp import fused_channel_diffusion
+from .fused_grayscale import (fused_grayscale_diffusion_fwd,
+                              fused_grayscale_diffusion_plain)
+from .fused_grayscale_vjp import fused_grayscale_diffusion
 from .kernels import plain_versions
+from .smoothing import smooth3
 from .tridiag import (tridiag_adjoint, tridiag_solve, tridiag_solve_pcr,
                       tridiag_solve_plain)
 
 __all__ = ["sweep_last_axis", "sweep_x", "sweep_y",
            "fused_channel_diffusion", "fused_channel_diffusion_fwd",
-           "fused_channel_diffusion_plain", "plain_versions",
-           "tridiag_adjoint", "tridiag_solve", "tridiag_solve_pcr",
-           "tridiag_solve_plain"]
+           "fused_channel_diffusion_plain", "fused_grayscale_diffusion",
+           "fused_grayscale_diffusion_fwd", "fused_grayscale_diffusion_plain",
+           "plain_versions", "smooth3", "tridiag_adjoint", "tridiag_solve",
+           "tridiag_solve_pcr", "tridiag_solve_plain"]

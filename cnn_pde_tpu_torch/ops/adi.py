@@ -8,14 +8,18 @@ One backward-Euler sweep along an axis solves, per line,
 the batch.  The y-sweep solves down the columns in place (K1 takes the solve
 axis), where the JAX version transposes twice.
 
-Smoothing of the coefficients (the grayscale and SVHN layers) and the
-hoisted-operator sweeps belong to later slices (ROADMAP.md A6, A7).
+``smooth=True`` (the grayscale layer) first smooths the field with
+``smooth3`` along the sweep axis: along W for an x-sweep, along H (down the
+column) for a y-sweep, which is the axis the JAX y-sweep smooths after its
+transpose.  The hoisted-operator sweeps belong to a later slice (ROADMAP.md
+A6).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .smoothing import smooth3
 from .tridiag import tridiag_solve
 
 __all__ = ["sweep_last_axis", "sweep_x", "sweep_y"]
@@ -32,22 +36,25 @@ def _neumann_b(r, dim=-1):
     return b.movedim(-1, dim).contiguous()
 
 
-def _sweep(u, coeff_field, dt, dh, eps, dim):
+def _sweep(u, coeff_field, dt, dh, eps, dim, smooth):
+    if smooth:
+        coeff_field = smooth3(coeff_field, dim)
     r = coeff_field * (dt / (dh * dh))
     return tridiag_solve(-r, _neumann_b(r, dim) + eps, -r, u, dim)
 
 
-def sweep_last_axis(u, coeff_field, dt, dx, *, eps):
+def sweep_last_axis(u, coeff_field, dt, dx, *, eps, smooth=False):
     """One implicit sweep along the trailing axis of u (..., N); the field
     has u's trailing shape and is shared by the leading (batch) axes."""
-    return _sweep(u, coeff_field, dt, dx, eps, -1)
+    return _sweep(u, coeff_field, dt, dx, eps, -1, smooth)
 
 
-def sweep_x(u, alpha, dt, dx, *, eps):
+def sweep_x(u, alpha, dt, dx, *, eps, smooth=False):
     """Sweep along W of (..., H, W) with α of shape (..., H, W) sans batch."""
-    return sweep_last_axis(u, alpha, dt, dx, eps=eps)
+    return sweep_last_axis(u, alpha, dt, dx, eps=eps, smooth=smooth)
 
 
-def sweep_y(u, beta, dt, dy, *, eps):
-    """Sweep along H of (..., H, W), down the columns, with no transpose."""
-    return _sweep(u, beta, dt, dy, eps, -2)
+def sweep_y(u, beta, dt, dy, *, eps, smooth=False):
+    """Sweep along H of (..., H, W), down the columns, with no transpose;
+    with ``smooth`` the field is smoothed along H."""
+    return _sweep(u, beta, dt, dy, eps, -2, smooth)

@@ -1,0 +1,215 @@
+"""The trainable fused grayscale diffusion: K7 (forward with residuals) and K8
+(backward), and their plain versions.
+
+Counterpart of ``cnn_pde_tpu/ops/pallas_fused_adi_vjp.py::
+fused_grayscale_diffusion``.  ``fused_grayscale_diffusion`` is a
+``torch.autograd.Function`` over a whole GrayscaleDiffusion layer:
+
+* forward: the layer's S Strang steps, writing each step's input state to a
+  (S, B, H, W) residual tensor — K7 (``csrc/fused_grayscale.cu`` with its
+  residual pointer set), or K6's plain version collecting the same states;
+* backward: the steps in reverse.  Each recomputes x1 and x2 from its
+  residual (x3 is the next residual, or the layer's output at the last
+  step), then applies the sweep adjoints last sweep first: the transposed
+  solve (``_sweepT_smooth``), ``_grad_r`` folded onto the Neumann rows and
+  summed over the batch, the adjoint of ``smooth3`` along the sweep axis
+  (``_smooth3_adjoint``), the one-sided clamp gate raw > eps and the weight
+  t on the time coefficients.  K8 (``csrc/fused_grayscale_vjp.cu``) on the
+  card, ``fused_grayscale_bwd_plain`` elsewhere.
+
+The clamp gate is applied as a mask, never as autograd through
+``clamp_min``, whose gradient passes 1 at the bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import kernels
+from .fused_channel import _dt_factors
+from .fused_channel_vjp import _grad_r
+from .fused_grayscale import (_abc_smooth, _coeff, _sweep_smooth,
+                              _sweep_y_smooth, check_layer_args,
+                              fused_grayscale_diffusion_plain, launch_forward,
+                              launch_shape)
+from .tridiag import _transpose_system, tridiag_solve_pcr
+
+__all__ = ["fused_grayscale_diffusion", "fused_grayscale_fwd_res",
+           "fused_grayscale_fwd_res_plain", "fused_grayscale_bwd",
+           "fused_grayscale_bwd_plain", "TILE_B_BWD"]
+
+TILE_B_BWD = 4          # images a K8 block: 128 threads, 55.1 KB at 28×28
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+
+def _sweepT_smooth(lines, field, dtfac, eps):
+    """λ = T⁻ᵀ·lines along the last axis, T the smoothed sweep system of
+    the clamped field (``_sweepT_rows``)."""
+    return tridiag_solve_pcr(
+        *_transpose_system(*_abc_smooth(field, dtfac, eps)), lines)
+
+
+def _smooth3_adjoint(g):
+    """Adjoint of ``smooth3`` along the last axis, as the TPU kernel writes
+    it: the 3-tap sum with zeros outside the line, over 3, plus one more
+    third of g on the two edge elements (the replicate pad)."""
+    zero = torch.zeros_like(g[..., :1])
+    left = torch.cat([zero, g[..., :-1]], dim=-1)
+    right = torch.cat([g[..., 1:], zero], dim=-1)
+    k = 1.0 / 3.0
+    gsm = (left + g + right) * k
+    n = g.shape[-1]
+    idx = torch.arange(n, device=g.device)
+    return gsm + torch.where((idx == 0) | (idx == n - 1), g * k, 0.0)
+
+
+def fused_grayscale_fwd_res_plain(u, alpha_base, alpha_tc, beta_base,
+                                  beta_tc, *, dt, dx, dy, ts, eps=1e-6):
+    """Plain PyTorch version of K7: (out, residuals (S, B, H, W))."""
+    res = []
+    out = fused_grayscale_diffusion_plain(
+        u, alpha_base, alpha_tc, beta_base, beta_tc, dt=dt, dx=dx, dy=dy,
+        ts=ts, eps=eps, residuals=res)
+    return out, torch.stack(res)
+
+
+def fused_grayscale_fwd_res(u, alpha_base, alpha_tc, beta_base, beta_tc, *,
+                            dt, dx, dy, ts, eps=1e-6):
+    """(out, residuals): K7 on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
+    if not kernels.use_kernel(u):
+        return fused_grayscale_fwd_res_plain(u, *fields, **kw)
+    check_layer_args("fused_grayscale_fwd_res", u, *fields, ts)
+    res = torch.empty((ts.shape[0], *u.shape), dtype=u.dtype,
+                      device=u.device)
+    out = launch_forward(u, *fields, res=res, **kw)
+    fused_grayscale_fwd_res.launches += 1
+    return out, res
+
+
+fused_grayscale_fwd_res.launches = 0
+
+
+def fused_grayscale_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
+                              beta_tc, *, dt, dx, dy, ts, eps=1e-6):
+    """Plain PyTorch version of K8, step by step as the JAX backward kernel
+    (``_make_bwd_kernel``): (grad_u, grad_alpha_base, grad_alpha_tc,
+    grad_beta_base, grad_beta_tc)."""
+    dtf_x, dtf_y = _dt_factors(dt, dx, dy, "strang")
+    grads = {k: torch.zeros_like(alpha_base) for k in ("ab", "atc", "bb",
+                                                        "btc")}
+
+    def gate(base, tc, t, gfield, kb, kt):
+        mask = ((base + tc * t) > eps).to(gfield.dtype)
+        grads[kb] += mask * gfield
+        grads[kt] += mask * gfield * t
+
+    def x_adjoint(cot, x_out, t):
+        lam = _sweepT_smooth(cot, _coeff(alpha_base, alpha_tc, t, eps),
+                             dtf_x, eps)
+        gfield = _grad_r(lam, x_out).sum(dim=0) * dtf_x
+        gate(alpha_base, alpha_tc, t, _smooth3_adjoint(gfield), "ab", "atc")
+        return lam
+
+    def y_adjoint(cot, x_out, t):
+        beta_t = _coeff(beta_base, beta_tc, t, eps).transpose(-1, -2)
+        lam_t = _sweepT_smooth(cot.transpose(-1, -2), beta_t, dtf_y, eps)
+        gfield_t = _grad_r(lam_t, x_out.transpose(-1, -2)).sum(dim=0) * dtf_y
+        gate(beta_base, beta_tc, t,
+             _smooth3_adjoint(gfield_t).transpose(-1, -2), "bb", "btc")
+        return lam_t.transpose(-1, -2)
+
+    cot = g
+    S = ts.shape[0]
+    for s in reversed(range(S)):
+        x1 = _sweep_smooth(res[s], _coeff(alpha_base, alpha_tc, ts[s, 0], eps),
+                           dtf_x, eps)
+        x2 = _sweep_y_smooth(x1, _coeff(beta_base, beta_tc, ts[s, 1], eps),
+                             dtf_y, eps)
+        x3 = out if s == S - 1 else res[s + 1]
+        cot = x_adjoint(cot, x3, ts[s, 2])
+        cot = y_adjoint(cot, x2, ts[s, 1])
+        cot = x_adjoint(cot, x1, ts[s, 0])
+    return cot, grads["ab"], grads["atc"], grads["bb"], grads["btc"]
+
+
+def fused_grayscale_bwd(g, res, out, alpha_base, alpha_tc, beta_base,
+                        beta_tc, *, dt, dx, dy, ts, eps=1e-6):
+    """The five gradients: K8 on a CUDA tensor, the plain version on a CPU
+    tensor.  K8 writes one partial field gradient per block; they are
+    summed here, in a fixed order."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
+    if not kernels.use_kernel(g):
+        return fused_grayscale_bwd_plain(g, res, out, *fields, **kw)
+    check_layer_args("fused_grayscale_bwd", g, *fields, ts)
+    B, H, W = g.shape
+    S = ts.shape[0]
+    if tuple(res.shape) != (S, B, H, W) or out.shape != g.shape:
+        raise ValueError(f"fused_grayscale_bwd: residuals {tuple(res.shape)} "
+                         f"and output {tuple(out.shape)} do not match g "
+                         f"{tuple(g.shape)} over {S} steps")
+    kernels.check_float32("fused_grayscale_bwd", g.device, res=res, out=out)
+    launch_shape(TILE_B_BWD, H, W, 4, 1)
+    if B == 0:
+        return (torch.empty_like(g), *(torch.zeros_like(f) for f in fields))
+    G = -(-B // TILE_B_BWD)
+    gu = torch.empty_like(g)
+    partials = [torch.empty((G, H, W), dtype=g.dtype, device=g.device)
+                for _ in range(4)]
+    dtf_x, dtf_y = _dt_factors(dt, dx, dy, "strang")
+    fn = kernels.function("fused_grayscale_vjp",
+                          "fused_grayscale_diffusion_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(g.device):
+        code = fn(g.data_ptr(), res.data_ptr(), out.data_ptr(),
+                  *(f.data_ptr() for f in fields), ts.data_ptr(),
+                  gu.data_ptr(), *(p.data_ptr() for p in partials),
+                  B, H, W, TILE_B_BWD, S, dtf_x, dtf_y, eps,
+                  kernels.stream_handle(g.device))
+    kernels.raise_on_error("fused_grayscale_bwd", code)
+    fused_grayscale_bwd.launches += 1
+    return (gu, *(p.sum(dim=0) for p in partials))
+
+
+fused_grayscale_bwd.launches = 0
+
+
+class _FusedGrayscaleDiffusion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, alpha_base, alpha_tc, beta_base, beta_tc, ts, kw):
+        ctx.kernel = kernels.use_kernel(u)
+        fields = (alpha_base, alpha_tc, beta_base, beta_tc)
+        if ctx.kernel:
+            out, res = fused_grayscale_fwd_res(u, *fields, ts=ts, **kw)
+        else:
+            out, res = fused_grayscale_fwd_res_plain(u, *fields, ts=ts, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(res, out, *fields, ts)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        res, out, *fields, ts = ctx.saved_tensors
+        if ctx.kernel:
+            grads = fused_grayscale_bwd(g.contiguous(), res, out, *fields,
+                                        ts=ts, **ctx.kw)
+        else:
+            grads = fused_grayscale_bwd_plain(g, res, out, *fields, ts=ts,
+                                              **ctx.kw)
+        return (*grads, None, None)
+
+
+def fused_grayscale_diffusion(u, alpha_base, alpha_tc, beta_base, beta_tc, *,
+                              dt, dx, dy, ts, eps=1e-6):
+    """A whole GrayscaleDiffusion layer, differentiable in u and all four
+    fields: K7 forward and K8 backward on a CUDA tensor, their plain versions
+    on a CPU tensor (or inside ``plain_versions()``).  u (B, H, W), fields
+    (H, W), ts (num_steps, 3)."""
+    kw = dict(dt=dt, dx=dx, dy=dy, eps=eps)
+    return _FusedGrayscaleDiffusion.apply(u, alpha_base, alpha_tc, beta_base,
+                                          beta_tc, ts, kw)

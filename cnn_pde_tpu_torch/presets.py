@@ -8,16 +8,51 @@ from __future__ import annotations
 __all__ = ["PRESETS", "SYNTHETIC_SPECS", "NORMALIZATION", "get_preset"]
 
 # dataset name: (channels, size, num_classes)
-SYNTHETIC_SPECS = {"cifar10": (3, 32, 10)}
+SYNTHETIC_SPECS = {"mnist": (1, 28, 10), "fashion_mnist": (1, 28, 10),
+                   "cifar10": (3, 32, 10)}
 
-# torchvision normalisation constants (mean, std) of the reference scripts
-NORMALIZATION = {"cifar10": ((0.4914, 0.4822, 0.4465),
-                             (0.2023, 0.1994, 0.2010))}
+# torchvision normalisation constants (mean, std) of the reference scripts;
+# the MNIST script applies none (ToTensor only)
+NORMALIZATION = {
+    "fashion_mnist": ((0.2860,), (0.3530,)),
+    "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
+}
 
-# cifar10.py:400-527 of the reference: 20 epochs, batch 64, two-group AdamW
-# (α/β at lr with weight decay 1e-6, the rest at lr·0.5 with 1e-4), cosine
-# with T_max = epochs stepped per epoch, CE with label smoothing 0.1, clip 1.
+# Each preset: the reference script's training values, with label smoothing
+# 0.1 and a global-norm clip of 1 unless it says otherwise.
 PRESETS = {
+    # mnist_test.py:263-345 of the reference: 1 epoch, batch 128, AdamW
+    # 1e-3 / wd 1e-4 in one group, cosine with T_max = 3 stepped per epoch
+    "mnist": {
+        "name": "mnist", "model": "mnist", "dataset": "mnist",
+        "model_kwargs": {},
+        "train": {
+            "epochs": 1, "batch_size": 128, "lr": 1e-3,
+            "weight_decay": 1e-4, "schedule": "cosine",
+            "schedule_kwargs": {"t_max": 3}, "label_smoothing": 0.1,
+            "clip_norm": 1.0, "default_lr_scale": 1.0, "param_groups": (),
+            "augment": {"rotation": 5.0, "translate": 0.05},
+        },
+    },
+    # fashion_mnist.py:256-331: 25 epochs, batch 128, AdamW 2e-3 / wd 5e-4,
+    # cosine with T_max = 5
+    "fashion_mnist": {
+        "name": "fashion_mnist", "model": "fashion_mnist",
+        "dataset": "fashion_mnist", "model_kwargs": {},
+        "train": {
+            "epochs": 25, "batch_size": 128, "lr": 2e-3,
+            "weight_decay": 5e-4, "schedule": "cosine",
+            "schedule_kwargs": {"t_max": 5}, "label_smoothing": 0.1,
+            "clip_norm": 1.0, "default_lr_scale": 1.0, "param_groups": (),
+            "augment": {
+                "rotation": 10.0, "translate": 0.1, "hflip": 0.5,
+                "mean": NORMALIZATION["fashion_mnist"][0],
+                "std": NORMALIZATION["fashion_mnist"][1]},
+        },
+    },
+    # cifar10.py:400-527: 20 epochs, batch 64, two-group AdamW (α/β at lr
+    # with weight decay 1e-6, the rest at lr·0.5 with 1e-4), cosine with
+    # T_max = epochs stepped per epoch
     "cifar10_noconv": {
         "name": "cifar10_noconv", "model": "cifar10_noconv",
         "dataset": "cifar10", "model_kwargs": {},

@@ -1,5 +1,5 @@
 """Training of the port: loss, grouped AdamW with global-norm clipping, the
-per-epoch cosine schedule and the flagship train step."""
+per-epoch cosine schedule and the train step of the ported presets."""
 
 from .losses import cross_entropy
 from .optim import ParamGroup, build_optimizer, clip_by_global_norm_

@@ -79,8 +79,8 @@ def test_unported_options_raise():
     for kw, item in (({"hoisted": True}, "A6"), ({"remat": True}, "A12")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             MixedChannelDiffusion(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        build_model("mnist")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+        build_model("svhn")
 
 
 @pytest.fixture(scope="module")

@@ -137,6 +137,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                       torch.Generator())\n"
         "loss, _ = step(x, np.array([1, 2]))\n"
         "assert bool(torch.isfinite(loss))\n"
+        "g = build_model('mnist', device='cpu', fused=True)\n"
+        "gstep = make_train_step(g, PRESETS['mnist']['train'], 1,\n"
+        "                        torch.Generator())\n"
+        "gx = np.random.default_rng(1).random((2, 1, 28, 28), np.float32)\n"
+        "assert bool(torch.isfinite(gstep(gx, np.array([3, 4]))[0]))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'cnn_pde_tpu' or k.startswith('cnn_pde_tpu.')]\n"
         "assert not bad, bad\n"
