@@ -10,11 +10,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu),
    K5 (csrc/fused_channel_vjp.cu), K6 and K7 (csrc/fused_grayscale.cu) and
    K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
-   started together;
+   started together, and ptxas's report (registers, shared memory, spills)
+   of each kernel in csrc/thomas.cu;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the two model families' main paths (K1, K3: x- and y-sweeps of
-   the flagship's three branch scales at B in {1, 7, 512}, plus lines of
-   1, 2 and 3, plus the grayscale layer's smoothed sweeps at B = 1024; K2:
+   the flagship's three branch scales at B in {1, 7, 64, 128, 512, 1000,
+   1024}, 1000 not a multiple of the kernels' chunk, plus bands (3, 5, N)
+   and (3, N, 7) with N in {1, 2, 3, 33, 64} at B in {7, 300}, plus the
+   grayscale layer's smoothed sweeps at B = 1024; K2:
    the three branches, Strang and Lie, at B in {1, 7, 512}; K4 and K5: the
    three branches, Strang and Lie, at B in {1, 7, 64, 512}, with fields that
    straddle both clamp bounds; K6, K7 and K8: the mnist (10 steps) and
@@ -41,8 +44,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    B in {1, 128} (12 K1 or 1 K6 a forward) and trained at B = 128 (12 K1 +
    12 K3, or 1 K7 + 1 K8 a step), without its CLIs;
 8. times of each kernel and its plain version (CUDA events, median of
-   groups) at B = 512 (K1, K2), at B = 64 and 512 (K3-K5) and at B = 128
-   and 1024 (K6-K8), beside the least time the card could take;
+   groups) at B = 512 (K2), at B = 64 and 512 (K4, K5) and at B = 128 and
+   1024 (K6-K8), beside the least time the card could take; K1 and K3 at
+   the main path's shapes (the flagship's sweeps at B = 64 and 512, the
+   mnist layer's at B = 128 and 1024), launched back to back through
+   their C entry points in a CUDA graph, L2-warm and cold, with the
+   wrapper's call time, the plain version, the bound and torch.linalg.solve
+   on the dense system as the library yardstick;
 9. the ``kernels`` JSON line, then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -76,6 +84,10 @@ from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import (
     fused_grayscale_bwd, fused_grayscale_bwd_plain, fused_grayscale_fwd_res,
     fused_grayscale_fwd_res_plain)
 from cnn_pde_tpu_torch.ops.smoothing import smooth3
+from cnn_pde_tpu_torch.ops.tridiag import _ADJOINT_ARGTYPES, _ARGTYPES
+from cnn_pde_tpu_torch.ops.tridiag import _bind as bind_thomas
+from cnn_pde_tpu_torch.ops.tridiag import _line_shape
+from cnn_pde_tpu_torch.ops.tridiag import _plan as tridiag_plan
 from cnn_pde_tpu_torch.ops.tridiag import (tridiag_adjoint,
                                            tridiag_adjoint_plain,
                                            tridiag_solve, tridiag_solve_plain)
@@ -105,6 +117,12 @@ ZERO_IN_EXACT_ARITHMETIC = {"feature_bn.bias"} | {
     f"classifier.network.{i}.bias" for i in (0, 4, 8, 12)}
 USED_DEVICES = set()  # every device a model or kernel input was placed on
 SCALES = MultiScaleExtractor.SCALES
+# K1 and K3's cases: the flagship's sweeps at these batches (RAGGED_B not a
+# multiple of the kernels' chunk), and bands (3, 5, N) and (3, N, 7) at
+# these line lengths (one row a lane, two past 32)
+RAGGED_B = 1000
+THOMAS_BATCHES = (1, 7, 64, 128, 512, RAGGED_B, 1024)
+THOMAS_NS = (1, 2, 3, 33, 64)
 # (memory bytes/s, f32 non-tensor FLOP/s) from NVIDIA's data sheets
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12)}
 
@@ -247,15 +265,37 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel; beside it, compile csrc/thomas.cu once more to a
+    cubin with ``-Xptxas -v`` and print what ptxas reports for each of its
+    kernels (registers, shared memory, spills)."""
     t0 = time.perf_counter()
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report = subprocess.Popen(
+        [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o",
+         str(kernels.BUILD_DIR / "thomas-report.cubin"),
+         str(kernels.CSRC / "thomas.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     paths = kernels.build()
     log(f"[build] nvcc {' '.join(kernels.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    out, _ = report.communicate()
+    if report.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v thomas.cu failed:\n{out}")
+    for line in out.splitlines():
+        if "ptxas info" in line or "bytes stack frame" in line:
+            log(f"[build] thomas.cu {line.strip()}")
 
 
 def phase_kernels(device):
     rng = np.random.default_rng(SEED)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunk = tridiag_plan(RAGGED_B, 96, 32, 1, sms)[0]
+    log(f"[kernels] K1 and K3 take B={RAGGED_B} in chunks of {chunk} "
+        f"images on the flagship x-sweep ({sms} SMs)")
+    if RAGGED_B % chunk == 0:
+        raise AssertionError(f"B={RAGGED_B} is a multiple of the chunk")
     log("[kernels] K1 tridiag_solve against tridiag_solve_plain")
     k1_err = 0.0
     for scale in SCALES:
@@ -265,7 +305,7 @@ def phase_kernels(device):
                           float(ts[-1, 2]), EPS, CMAX)
         beta = _coeff_at(f["beta_base"], f["beta_time_coeff"],
                          float(ts[-1, 1]), EPS, CMAX)
-        for B in (1, 7, 512):
+        for B in THOMAS_BATCHES:
             u = torch.rand((B, 3, 32, 32), device=device)
             for dim, field, dt in ((-1, alpha, scale["dt"] / 2),
                                    (-2, beta, scale["dt"])):
@@ -277,16 +317,18 @@ def phase_kernels(device):
                     f"dt={scale['dt']} dx={scale['dx']} B={B} "
                     f"{'x' if dim == -1 else 'y'}-sweep",
                     max_err(out, ref), KERNEL_TOL))
-    for n in (1, 2, 3):
-        for dim, shape in ((-1, (3, 5, n)), (-2, (3, n, 5))):
+    for n in THOMAS_NS:
+        for dim, shape in ((-1, (3, 5, n)), (-2, (3, n, 7))):
             r = torch.rand(shape, device=device) * 2.0
             bands = (-r, (_neumann_b(r, dim) + EPS).contiguous(), -r)
-            u = torch.rand((7, *shape), device=device)
-            out = tridiag_solve(*bands, u, dim)
-            torch.cuda.synchronize()
-            k1_err = max(k1_err, check(
-                f"N={n} dim={dim}", max_err(out, tridiag_solve_plain(
-                    *bands, u, dim)), KERNEL_TOL))
+            for B in (7, 300):
+                u = torch.rand((B, *shape), device=device)
+                out = tridiag_solve(*bands, u, dim)
+                torch.cuda.synchronize()
+                k1_err = max(k1_err, check(
+                    f"bands {shape} dim={dim} B={B}", max_err(
+                        out, tridiag_solve_plain(*bands, u, dim)),
+                    KERNEL_TOL))
 
     log("[kernels] K2 fused_channel_diffusion_fwd against its plain version")
     k2_err = 0.0
@@ -335,19 +377,20 @@ def phase_kernels(device):
                           float(ts[-1, 2]), EPS, CMAX)
         beta = _coeff_at(f["beta_base"], f["beta_time_coeff"],
                          float(ts[-1, 1]), EPS, CMAX)
-        for B in (1, 7, 512):
+        for B in THOMAS_BATCHES:
             for dim, field, dt in ((-1, alpha, scale["dt"] / 2),
                                    (-2, beta, scale["dt"])):
                 k3_case(f"dt={scale['dt']} dx={scale['dx']} B={B} "
                         f"{'x' if dim == -1 else 'y'}-sweep",
                         sweep_bands(field, dt, scale["dx"], dim),
                         (3, 32, 32), dim, B)
-    for n in (1, 2, 3):
-        for dim, shape in ((-1, (3, 5, n)), (-2, (3, n, 5))):
+    for n in THOMAS_NS:
+        for dim, shape in ((-1, (3, 5, n)), (-2, (3, n, 7))):
             r = torch.rand(shape, device=device) * 2.0
-            k3_case(f"N={n} dim={dim}",
-                    (-r, (_neumann_b(r, dim) + EPS).contiguous(), -r),
-                    shape, dim, 7)
+            for B in (7, 300):
+                k3_case(f"bands {shape} dim={dim} B={B}",
+                        (-r, (_neumann_b(r, dim) + EPS).contiguous(), -r),
+                        shape, dim, B)
 
     log("[kernels] K4 fused_channel_fwd_res and K5 fused_channel_bwd "
         "against their plain versions (fields straddle both clamps)")
@@ -879,28 +922,9 @@ def phase_times(device, peak_bytes, peak_flops):
     rng = np.random.default_rng(SEED + 3)
     B, C, H, W = 512, 3, 32, 32
     elems = B * C * H * W
+    band = C * H * W
     u = torch.rand((B, C, H, W), device=device)
     f = fields(rng, device)
-    scale = SCALES[0]
-    alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"], 0.0, EPS, CMAX)
-    times = {}
-    for dim, label in ((-1, "x"), (-2, "y")):
-        bands = sweep_bands(alpha, scale["dt"] / 2, scale["dx"], dim)
-        times[label] = (time_ms(lambda: tridiag_solve(*bands, u, dim)),
-                        time_ms(lambda: tridiag_solve_plain(*bands, u, dim),
-                                groups=20, per_group=2))
-    # Work counted once where it is the same for every image: the c* chain
-    # of the batch-free bands (3 flops a band element).  Per element of d:
-    # elimination (3) and back-substitution (2).
-    band = C * H * W
-    k1_bound, k1_by = bound(4 * (2 * elems + 3 * band),
-                            5 * elems + 3 * band, peak_bytes, peak_flops)
-    for label, (ms, plain_ms) in times.items():
-        log(f"[times] K1 {label}-sweep B={B} (3,32,32): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); "
-            "library: none (no PyTorch call solves a batched tridiagonal "
-            "system)")
-
     scale = SCALES[1]  # the 8-step branch, the longest
     S = scale["num_steps"]
     ts = torch.tensor(_substep_times_np(scale["dt"], S), dtype=torch.float32,
@@ -925,21 +949,18 @@ def phase_times(device, peak_bytes, peak_flops):
         f"plain {k2_plain:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}); "
         "library: none (no PyTorch call computes the layer)")
     result = {
-        "K1": dict(ms=times["x"][0], plain_ms=times["x"][1],
-                   bound_ms=k1_bound, bound_by=k1_by,
-                   at="x-sweep B=512 (3,32,32)", y_sweep_ms=times["y"][0]),
         "K2": dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
                    bound_by=k2_by, at="8-step Strang branch B=512 (3,32,32)"),
     }
     result.update(times_training(f, peak_bytes, peak_flops))
+    result.update(times_thomas(device, peak_bytes, peak_flops))
     return result
 
 
 def times_training(f, peak_bytes, peak_flops):
-    """K3 (x- and y-sweep adjoints of the 5-step branch) and K4, K5 (the
-    8-step Strang branch) at B = 64 and 512, each beside its plain version
-    and its bound.  Returns the B = 512 figures, with those at B = 64 under
-    ``at_B64``."""
+    """K4 and K5 (the 8-step Strang branch) at B = 64 and 512, each beside
+    its plain version and its bound.  Returns the B = 512 figures, with
+    those at B = 64 under ``at_B64``."""
     C, H, W = 3, 32, 32
     band = C * H * W
     device = f["alpha_base"].device
@@ -949,24 +970,6 @@ def times_training(f, peak_bytes, peak_flops):
         elems = B * band
         u = torch.rand((B, C, H, W), device=device)
         g = torch.randn((B, C, H, W), device=device)
-
-        scale = SCALES[0]
-        alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"], 0.0, EPS,
-                          CMAX)
-        k3 = {}
-        for dim, label in ((-1, "x"), (-2, "y")):
-            bands = sweep_bands(alpha, scale["dt"] / 2, scale["dx"], dim)
-            x = tridiag_solve(*bands, u, dim)
-            k3[label] = (
-                time_ms(lambda: tridiag_adjoint(*bands, g, x, dim)),
-                time_ms(lambda: tridiag_adjoint_plain(*bands, g, x, dim),
-                        groups=20, per_group=2))
-        # Reads g and x and writes λ once, reads the three bands and writes
-        # the three band gradients once.  Per element: the adjoint
-        # recurrence (5) and the three band products summed over the batch
-        # (6); per band element, once: the c* chain (3).
-        k3_bound = bound(4 * (3 * elems + 6 * band), 11 * elems + 3 * band,
-                         peak_bytes, peak_flops)
 
         scale = SCALES[1]  # the 8-step branch, the longest
         S = scale["num_steps"]
@@ -999,24 +1002,214 @@ def times_training(f, peak_bytes, peak_flops):
             elems * S * (6 * C + 46) + band * S * 65,
             peak_bytes, peak_flops)
         for name, (ms, plain_ms), (b_ms, b_by), at in (
-                ("K3", k3["x"], k3_bound, f"x-sweep adjoint B={B} (3,32,32)"),
                 ("K4", k4, k4_bound, f"8-step Strang branch B={B} (3,32,32)"),
                 ("K5", k5, k5_bound, f"8-step Strang branch B={B} (3,32,32)")):
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, at=at)
-            if name == "K3":
-                entry["y_sweep_ms"] = k3["y"][0]
-                entry["y_sweep_plain_ms"] = k3["y"][1]
             log(f"[times] {name} {at}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
-                "none (no PyTorch call computes it)"
-                + (f"; y-sweep adjoint kernel {k3['y'][0]:.4f} ms, plain "
-                   f"{k3['y'][1]:.4f} ms" if name == "K3" else ""))
+                "none (no PyTorch call computes it)")
             if B == 512:
                 out.setdefault(name, {}).update(entry)
             else:
                 out.setdefault(name, {})["at_B64"] = entry
     return out
+
+
+COLD_BYTES = 128e6   # inputs rotated through, above the 50 MB L2 twice
+
+
+def raw_thomas(fns, bands, dim, u, g, x):
+    """K1 and K3 as callables that launch straight through the C entry
+    points ``fns`` = (thomas_solve, thomas_adjoint, chunked) on outputs
+    allocated once, with the arguments the wrappers pass; ``chunked``: the
+    interface that takes the chunk (and K3 its partials scratch), sized by
+    the wrappers' plan.  A wrapper call spends longer on the host than
+    these kernels spend on the card, and at B = 64 and 128 so can a raw
+    launch, so CUDA events around back-to-back calls time the host; in a
+    CUDA graph (``graph_ms``) the raw launches run back to back on the
+    card.  A callable launches on the stream current when it was made."""
+    solve, adjoint, chunked = fns
+    batch, p, n, q = _line_shape("raw", *bands, u, dim)
+    out, lam = torch.empty_like(u), torch.empty_like(g)
+    grads = [torch.empty_like(bands[0]) for _ in range(3)]
+    stream = kernels.stream_handle(u.device)
+    ptrs = [t.data_ptr() for t in bands]
+    k1_extra, k3_extra, partials = [], [], []
+    if chunked:
+        sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+        k1_extra = [tridiag_plan(batch, p, n, q, sms)[0]]
+        chunk, chunks, _ = tridiag_plan(batch, p, n, q, sms, 2)
+        # k3 holds the scratch itself, not only its address: freed, its
+        # memory would go to the next tensor the caller allocates
+        k3_extra = [chunk]
+        partials = [torch.empty((chunks, 3, *bands[0].shape),
+                                device=u.device)]
+
+    def k1():
+        code = solve(*ptrs, u.data_ptr(), out.data_ptr(), batch, p, n, q,
+                     *k1_extra, stream)
+        kernels.raise_on_error("thomas_solve", code)
+        return out
+
+    def k3():
+        code = adjoint(*ptrs, g.data_ptr(), x.data_ptr(), lam.data_ptr(),
+                       *(t.data_ptr() for t in grads + partials), batch, p,
+                       n, q, *k3_extra, stream)
+        kernels.raise_on_error("thomas_adjoint", code)
+        return (lam, *grads)
+    return k1, k3
+
+
+def this_thomas():
+    """This checkout's K1 and K3 entry points, as the wrappers bind them."""
+    return (bind_thomas("thomas_solve", _ARGTYPES),
+            bind_thomas("thomas_adjoint", _ADJOINT_ARGTYPES), True)
+
+
+def graph_ms(make, walks=100, groups=10):
+    """Mean time of one call in the replay of a CUDA graph of ``walks``
+    walks through the calls ``make()`` returns, by CUDA events, median over
+    ``groups`` replays: back-to-back launches with no host time between
+    them.  ``make`` binds its calls to the current stream, so it is called
+    again inside the capture."""
+    for call in make():
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        calls = make()
+        for _ in range(walks):
+            for call in calls:
+                call()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / (walks * len(calls)))
+    return statistics.median(times)
+
+
+def cold_sets(inputs):
+    """Copies of ``inputs`` that total at least COLD_BYTES, so that a walk
+    through them reads every input after it has left the L2."""
+    size = sum(t.numel() * t.element_size() for t in inputs)
+    return [tuple(t.clone() for t in inputs)
+            for _ in range(max(2, int(np.ceil(COLD_BYTES / size))))]
+
+
+def dense_system(bands, rhs, dim):
+    """The library yardstick's operands: T (lines, N, N), dense from the
+    bands, and the right-hand sides (lines, N, batch), the batch as
+    columns; a line is one (p, q) of the bands."""
+    a, b, c = (t.movedim(dim, -1).reshape(-1, t.shape[dim]) for t in bands)
+    T = (torch.diag_embed(b) + torch.diag_embed(a[:, 1:], -1)
+         + torch.diag_embed(c[:, :-1], 1))
+    D = rhs.movedim(dim, -1).reshape(rhs.shape[0], *T.shape[:2])
+    return T.contiguous(), D.permute(1, 2, 0).contiguous()
+
+
+def thomas_shapes(device):
+    """(label, bands, dim, batch) of the main path's K1 and K3 launches:
+    the flagship's x- and y-sweeps (5-step branch, (3, 32, 32)) at B = 64
+    and 512, and the mnist layer's smoothed sweeps (28, 28) at B = 128
+    and 1024."""
+    rng = np.random.default_rng(SEED + 12)
+    f = fields(rng, device)
+    scale = SCALES[0]
+    alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"], 0.0, EPS, CMAX)
+    gf = gray_fields(rng, device, "mnist")
+    dt, steps, _ = GRAY_LAYERS["mnist"]
+    t_last = float(_substep_times_np(dt, steps)[-1, 2])
+    shapes = []
+    for B in (64, 512):
+        for dim, label in ((-1, "x"), (-2, "y")):
+            shapes.append((f"flagship {label}-sweep B={B} (3,32,32)",
+                           sweep_bands(alpha, scale["dt"] / 2, scale["dx"],
+                                       dim), dim, B))
+    for B in (128, 1024):
+        for dim, key, dtf, label in ((-1, "alpha", dt / 2, "x"),
+                                     (-2, "beta", dt, "y")):
+            field = _coeff_at(gf[f"{key}_base"], gf[f"{key}_time_coeff"],
+                              t_last, EPS)
+            shapes.append((f"mnist smoothed {label}-sweep B={B} (28,28)",
+                           sweep_bands(smooth3(field, dim), dtf, 1.0, dim),
+                           dim, B))
+    return shapes
+
+
+def times_thomas(device, peak_bytes, peak_flops):
+    """K1 and K3 at each shape of ``thomas_shapes``, launched back to back
+    through their C entry points (``raw_thomas``) in a CUDA graph timed by
+    CUDA events around its replay (``graph_ms``): L2-warm (the same inputs,
+    100 launches) and cold (5 walks through ``cold_sets``), with the
+    wrapper's call time (events around
+    wrapper calls, host included), beside the plain version, the least
+    time the card could take (device memory, whatever the L2 does) and
+    the library yardstick, one torch.linalg.solve on the dense system with
+    the batch as columns (for K3 the λ solve on Tᵀ; the band sums are not
+    in it).  The port never calls the library.  Returns the K1 and K3
+    rows, headed by the flagship x-sweep at B = 512 with every shape under
+    ``shapes``."""
+    rows = {"K1": [], "K3": []}
+    fns = this_thomas()
+    for at, bands, dim, B in thomas_shapes(device):
+        shape = tuple(bands[0].shape)
+        band = int(np.prod(shape))
+        elems = B * band
+        u = torch.rand((B, *shape), device=device)
+        g = torch.randn((B, *shape), device=device)
+        x = tridiag_solve(*bands, u, dim)
+        cold = cold_sets((u, g, x))
+        T, D = dense_system(bands, u, dim)
+        Tt, G = T.transpose(-1, -2).contiguous(), dense_system(bands, g, dim)[1]
+        # K1 reads d and writes x once, reads the bands once; per element
+        # the Thomas recurrence's 5 flops, per band element its c* chain (3).
+        k1_bound = bound(4 * (2 * elems + 3 * band), 5 * elems + 3 * band,
+                         peak_bytes, peak_flops)
+        # K3 reads g and x and writes λ once, reads the bands and writes
+        # their gradients once; per element the adjoint recurrence (5) and
+        # the three band products summed over the batch (6).
+        k3_bound = bound(4 * (3 * elems + 6 * band), 11 * elems + 3 * band,
+                         peak_bytes, peak_flops)
+        for i, (key, call, plain, lib, (b_ms, b_by)) in enumerate((
+                ("K1", lambda: tridiag_solve(*bands, u, dim),
+                 lambda: tridiag_solve_plain(*bands, u, dim),
+                 lambda: torch.linalg.solve(T, D), k1_bound),
+                ("K3", lambda: tridiag_adjoint(*bands, g, x, dim),
+                 lambda: tridiag_adjoint_plain(*bands, g, x, dim),
+                 lambda: torch.linalg.solve(Tt, G), k3_bound))):
+            entry = dict(
+                at=at,
+                ms=graph_ms(lambda i=i: [
+                    raw_thomas(fns, bands, dim, u, g, x)[i]]),
+                cold_ms=graph_ms(lambda i=i: [
+                    raw_thomas(fns, bands, dim, *inputs)[i]
+                    for inputs in cold], walks=5),
+                call_ms=time_ms(call),
+                plain_ms=time_ms(plain, groups=10, per_group=2),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lib, groups=10, per_group=20))
+            rows[key].append(entry)
+            log(f"[times] {key} {at}: kernel {entry['ms']:.4f} ms L2-warm, "
+                f"{entry['cold_ms']:.4f} ms cold (a CUDA graph of "
+                "back-to-back launches); "
+                f"call {entry['call_ms']:.4f} ms (wrapper, host included); "
+                f"plain {entry['plain_ms']:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by}, device memory); library torch.linalg.solve "
+                f"{entry['library_ms']:.4f} ms"
+                + (" (the λ solve on Tᵀ alone, no band sums)"
+                   if key == "K3" else ""))
+    head = "flagship x-sweep B=512 (3,32,32)"
+    return {key: dict(next(e for e in entries if e["at"] == head),
+                      shapes=entries)
+            for key, entries in rows.items()}
 
 
 def times_grayscale(device, peak_bytes, peak_flops):
@@ -1164,7 +1357,7 @@ def main():
         if isinstance(err, tuple):
             row["max_rel_err_grads"] = err[1]
         row.update(times[key])
-        row["library_ms"] = None
+        row.setdefault("library_ms", None)
         row.update(per[key])
         rows.append(row)
     result = {"kernels": rows, "serve_images_per_s": serve_rates,

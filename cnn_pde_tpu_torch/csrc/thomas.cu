@@ -1,226 +1,532 @@
-// Batched Thomas solve for Hopper (sm_90a) and its adjoint.
+// Batched tridiagonal solve for Hopper (sm_90a) and its adjoint, by
+// parallel cyclic reduction (PCR) with the batch-free factorisation hoisted
+// out of the per-image path.
 //
 // K1, thomas_solve: x = T^-1 d along one axis of d, with batch-free
 // tridiagonal bands (a, b, c) broadcast over the batch.
-// Replaces: cnn_pde_tpu/ops/pallas_thomas.py::pallas_tridiag_solve (forward),
-// the Pallas kernel _thomas_kernel launched by _solve_2d.
+// Replaces: cnn_pde_tpu/ops/pallas_thomas.py::_thomas_kernel, launched by
+// _solve_2d for pallas_tridiag_solve's forward.
 //
 // K3, thomas_adjoint: the backward of K1.  lam = T^-T g along the same axis,
 // then the band gradients summed over the batch onto the batch-free shape:
 // grad_b = -sum lam*x, grad_a[i] = -sum lam[i]*x[i-1], grad_c[i] =
 // -sum lam[i]*x[i+1] (grad_a[0] = grad_c[N-1] = 0), and grad_d = lam.
-// Replaces: the custom VJP of pallas_tridiag_solve (pallas_thomas.py::_bwd),
-// which calls the same Pallas kernel on transposed bands and forms the band
-// gradients with XLA ops outside it.
+// Replaces: pallas_thomas.py::_bwd, which calls the same Pallas kernel on
+// transposed bands and forms the band gradients with XLA ops outside it.
 //
 // Layout.  d, x, g and lam are (B, P, N, Q) row-major and the solve runs
 // along N with element stride Q; a, b, c are (P, N, Q), the same layout
 // without the batch.  The ADI x-sweep of a (B, C, H, W) state is P = C*H,
-// N = W, Q = 1; the y-sweep is P = C, N = H, Q = W, so it solves down the
-// columns in place and needs none of the two transposes the JAX sweep_y pays.
+// N = W, Q = 1; the y-sweep is P = C, N = H, Q = W, solved down the columns
+// in place.  1 <= N <= 64.
 //
-// What bounds it.  Per element of d the recurrence needs about five flops
-// (the c* chain of the batch-free bands is the same for every image) against
-// eight bytes of d and x that must cross device memory once, so the solves
-// are bound by bytes (an H100 SXM moves 3.35 TB/s against 67 TFLOP/s of f32),
-// and by how well those bytes coalesce: one thread per line reads its line
-// with a stride of N floats when Q = 1.  The bands are batch-free (a few tens
-// of KB) and stay in L1/L2 after the first line touches them.  The adjoint
-// also reads lam and x once more for the band sums (6 flops an element).
+// What bounds it.  Bytes: K1 must read d and write x once (8 bytes an
+// element; the bands are batch-free, a few tens of KB); K3 must read g and x
+// and write lam once (12 bytes an element) plus the batch-free bands and
+// their gradients.  The arithmetic (2 fmas a PCR level and element, 5-6
+// levels) is far below the card's f32 rate.  So the design has to keep
+// enough loads in flight and do nothing per image that is the same for
+// every image.
 //
-// What the design does about it.  One thread per line; c* lives in a
-// per-thread local array (N <= 64), which the compiler keeps interleaved so
-// neighbouring threads touch neighbouring words.  For Q = 1 a block of 128
-// lines is staged through shared memory with a row stride of N + 1 (no bank
-// conflicts), so device memory is read and written in whole coalesced rows;
-// d* is written in place in the staged tile.  For Q > 1 neighbouring threads
-// own neighbouring columns, so direct global access is already coalesced.
-// The adjoint solve is the same kernel reading the transposed bands on the
-// fly (lower'[i] = c[i-1], upper'[i] = a[i+1]); no transposed copy exists.
-// The band sums take one thread per band element looping over the batch in
-// order, neighbouring threads on neighbouring words: deterministic, with no
-// atomics.  The recurrence is the one of ops/tridiag.py::_thomas_last_axis
-// (divide, not multiply by a reciprocal), so the two differ only in fma
-// contraction.
+// What the design does about it.
+// - A block owns a tile of kLines band lines (x-sweep: kLines consecutive p,
+//   each N contiguous floats; y-sweep: one p and kLines consecutive q, each
+//   tile row kLines contiguous floats) and a chunk of consecutive images.
+//   One warp a line, lane = row (rows lane and lane + 32 when N > 32).
+// - The warp first factors its line once, in registers, by PCR: for level
+//   l < L = max(1, ceil(log2 N)) with stride s = 2^l, alpha_l[i] =
+//   -a_l[i] / b_l[i-s] and gamma_l[i] = -c_l[i] / b_l[i+s] and the reduced
+//   bands, neighbours exchanged with shuffles; finally 1/b_L.  Every image
+//   of the chunk reuses these factors: the per-image path has no division.
+// - Per image the apply is L levels of d[i] += alpha_l[i] d[i-s] +
+//   gamma_l[i] d[i+s] (out-of-range neighbours are 0), then x = d / b_L as a
+//   product: two fmas a level and element, depth L, against a 2N-step chain
+//   per line in a serial Thomas solve.
+// - The images stream through shared memory in stages of kStage images, a
+//   ring of kBufs stage buffers filled by cp.async: while one stage is
+//   solved, the next kBufs - 1 stages' loads are in flight, and the first
+//   ones are started before the factorisation.  A stage's images are solved
+//   level by level side by side, so their shuffles interleave.  Loads are
+//   coalesced in global order (x: the tile is contiguous; y: rows of kLines
+//   floats) with no runtime division per element; the y tile's row stride
+//   kLines + 1 is odd, so a warp reading a column hits 32 banks.  x-sweep
+//   results go straight from registers to global memory (a warp's line is
+//   contiguous); the y tile goes back through shared memory and out in
+//   rows.  Masks cover ragged tiles and the last stage of a chunk.
+// - K3 applies the same PCR to the transposed bands read on the fly
+//   (lower'[i] = c[i-1], upper'[i] = a[i+1]; no transposed copy).  Its band
+//   sums run in the same block: the x tile is staged beside g, and each
+//   lane accumulates lam[i] x[i], lam[i] x[i-1] and lam[i] x[i+1] in
+//   registers, in image order, over the chunk; one partial per (chunk, band
+//   element) goes to a scratch the wrapper allocates, and a second small
+//   kernel of the same C call sums the partials over chunks in a fixed
+//   order (eight interleaved slices, then the slices) and negates them.
+//   Deterministic, no atomics; g and x are read and lam written once each.
+// - The wrapper (ops/tridiag.py::_plan) picks the chunk so that the grid has
+//   about two blocks an SM wherever the batch allows it.  Measured on an
+//   H100 (thomas_ab.py, PERF.md): more, smaller chunks repeat the per-block
+//   factorisation and pipeline start, and were slower at 4, 8 and 16; a
+//   stage of 8 images beat 4 at B = 512 and 1024; a deeper ring did not
+//   help.
+//
+// Numerics.  The same system as the Thomas recurrence of
+// ops/tridiag.py::tridiag_solve_plain, solved by another elimination
+// order; the arithmetic is that of ops/tridiag.py::pcr_factor and
+// pcr_apply, up to fma contraction and the product by 1/b_L (formed once a
+// block) in place of their division by b_L.
 
 #include <cuda_runtime.h>
 
+#include "channel_sweep.cuh"
+
 namespace {
 
-constexpr int kMaxN = 64;
-constexpr int kLinesPerBlock = 128;
-constexpr int kBandThreads = 128;
+constexpr int kLines = 8;              // band lines a block, one warp each
+constexpr int kThreads = 32 * kLines;
+constexpr int kLd = kLines + 1;        // y tile row stride in shared memory
+constexpr int kStage = 8;              // images a pipeline stage
+constexpr int kBufs = 3;               // stage buffers: kBufs - 1 in flight
+constexpr unsigned kFull = 0xffffffffu;
 
-// Sub- and super-diagonal of row i, whose band element sits at k, in a line
-// of element stride q: of T itself, or of T^T when kT.
-template <bool kT>
-__device__ __forceinline__ float lower_at(const float* a, const float* c,
-                                          long long k, long long q) {
-  return kT ? __ldg(c + k - q) : __ldg(a + k);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
 
-template <bool kT>
-__device__ __forceinline__ float upper_at(const float* a, const float* c,
-                                          long long k, long long q,
-                                          bool last) {
-  if (last) return 0.0f;  // outside the matrix
-  return kT ? __ldg(a + k + q) : __ldg(c + k);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <bool kT>
-__global__ void thomas_contiguous(const float* __restrict__ a,
-                                  const float* __restrict__ b,
-                                  const float* __restrict__ c,
-                                  const float* __restrict__ d,
-                                  float* __restrict__ x,
-                                  long long lines, int P, int N) {
-  extern __shared__ float tile[];  // kLinesPerBlock rows of N + 1 floats
-  const int ld = N + 1;
-  const long long first = (long long)blockIdx.x * kLinesPerBlock;
-  const long long left = lines - first;
-  const int nlines = left < kLinesPerBlock ? (int)left : kLinesPerBlock;
-  const int count = nlines * N;
-  const float* dsrc = d + first * N;
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    tile[(k / N) * ld + k % N] = dsrc[k];
-  }
-  __syncthreads();
+// Wait until at most ``n`` of this thread's newest copy groups are
+// pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
 
-  if (threadIdx.x < nlines) {
-    float* row = tile + threadIdx.x * ld;
-    const long long coef = ((first + threadIdx.x) % P) * N;
-    float cs[kMaxN];
-    const float b0 = __ldg(b + coef);
-    cs[0] = upper_at<kT>(a, c, coef, 1, N == 1) / b0;
-    row[0] = row[0] / b0;
-    for (int i = 1; i < N; ++i) {
-      const long long k = coef + i;
-      const float ai = lower_at<kT>(a, c, k, 1);
-      const float denom = __ldg(b + k) - ai * cs[i - 1];
-      cs[i] = upper_at<kT>(a, c, k, 1, i == N - 1) / denom;
-      row[i] = (row[i] - ai * row[i - 1]) / denom;
+// Row lane + 32k of a line held K rows a lane.  v[i - s] and v[i + s] for
+// s <= 32, with ``fill`` outside rows [0, 32K).  Every lane of the warp
+// must call them.
+template <int K>
+__device__ __forceinline__ void shift_down(const float (&v)[K], int s,
+                                           float fill, float (&out)[K]) {
+  const int lane = threadIdx.x & 31;
+  float w[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) w[k] = __shfl_sync(kFull, v[k], (lane - s) & 31);
+  // (the inner k > 0 ? k - 1 : 0 keeps a dead index in range once unrolled)
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    out[k] = lane >= s ? w[k] : (k > 0 ? w[k > 0 ? k - 1 : 0] : fill);
+}
+
+template <int K>
+__device__ __forceinline__ void shift_up(const float (&v)[K], int s,
+                                         float fill, float (&out)[K]) {
+  const int lane = threadIdx.x & 31;
+  float w[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) w[k] = __shfl_sync(kFull, v[k], (lane + s) & 31);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    out[k] = lane + s < 32 ? w[k]
+                           : (k + 1 < K ? w[k + 1 < K ? k + 1 : k] : fill);
+}
+
+// N <= 32: one row a lane and at most 5 levels; N <= 64: two and 6.
+template <int K>
+struct Pcr {
+  static constexpr int kMaxLevels = K == 1 ? 5 : 6;
+  float alpha[K][kMaxLevels];
+  float gamma[K][kMaxLevels];
+  float inv[K];
+
+  // lo, di, up: the lane's rows of the line's sub-, main and
+  // super-diagonal, with lo = up = 0 outside the matrix and identity rows
+  // (0, 1, 0) past N.
+  __device__ __forceinline__ void factor(float (&lo)[K], float (&di)[K],
+                                         float (&up)[K], int levels) {
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      if (l < levels) {
+        const int s = 1 << l;
+        float bd[K], bu[K], ad[K], au[K], cd[K], cu[K];
+        shift_down<K>(di, s, 1.0f, bd);
+        shift_up<K>(di, s, 1.0f, bu);
+        shift_down<K>(lo, s, 0.0f, ad);
+        shift_up<K>(lo, s, 0.0f, au);
+        shift_down<K>(up, s, 0.0f, cd);
+        shift_up<K>(up, s, 0.0f, cu);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float al = -lo[k] / bd[k];
+          const float ga = -up[k] / bu[k];
+          alpha[k][l] = al;
+          gamma[k][l] = ga;
+          di[k] = di[k] + al * cd[k] + ga * au[k];
+          lo[k] = al * ad[k];
+          up[k] = ga * cu[k];
+        }
+      }
     }
-    for (int i = N - 2; i >= 0; --i) {
-      row[i] = row[i] - cs[i] * row[i + 1];
+#pragma unroll
+    for (int k = 0; k < K; ++k) inv[k] = 1.0f / di[k];
+  }
+
+  // d (the lane's rows of G images' lines) becomes x in place, level by
+  // level across the images, so that their shuffles and fmas interleave.
+  template <int G>
+  __device__ __forceinline__ void apply(float (&d)[G][K], int levels) const {
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      if (l < levels) {
+        float dn[G][K], dp[G][K];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          shift_down<K>(d[g], 1 << l, 0.0f, dn[g]);
+          shift_up<K>(d[g], 1 << l, 0.0f, dp[g]);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            d[g][k] = d[g][k] + alpha[k][l] * dn[g][k] + gamma[k][l] * dp[g][k];
+      }
     }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int k = 0; k < K; ++k) d[g][k] *= inv[k];
   }
-  __syncthreads();
+};
 
-  float* xdst = x + first * N;
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    xdst[k] = tile[(k / N) * ld + k % N];
-  }
-}
+// The block's tile: band element (line l, row i) sits at band0 + l*ls +
+// i*rs of the (P, N, Q) band, and at the same offset plus n*P*N*Q in image n.
+struct Tile {
+  long long band0;
+  int ls, rs, nlines;
+};
 
-template <bool kT>
-__global__ void thomas_strided(const float* __restrict__ a,
-                               const float* __restrict__ b,
-                               const float* __restrict__ c,
-                               const float* __restrict__ d,
-                               float* __restrict__ x,
-                               long long lines, int P, int N, int Q) {
-  const long long line = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (line >= lines) return;
-  const long long q = line % Q;
-  const long long bp = line / Q;      // batch * P + p
-  const long long p = bp % P;
-  const long long base = bp * N * Q + q;
-  const long long coef = p * N * Q + q;
-  const float* dp = d + base;
-  float* xp = x + base;
-  float cs[kMaxN];
-  const float b0 = __ldg(b + coef);
-  cs[0] = upper_at<kT>(a, c, coef, Q, N == 1) / b0;
-  float dprev = dp[0] / b0;
-  xp[0] = dprev;
-  for (int i = 1; i < N; ++i) {
-    const long long k = coef + (long long)i * Q;
-    const float ai = lower_at<kT>(a, c, k, Q);
-    const float denom = __ldg(b + k) - ai * cs[i - 1];
-    cs[i] = upper_at<kT>(a, c, k, Q, i == N - 1) / denom;
-    dprev = (dp[(long long)i * Q] - ai * dprev) / denom;
-    xp[(long long)i * Q] = dprev;
-  }
-  float xnext = dprev;
-  for (int i = N - 2; i >= 0; --i) {
-    xnext = xp[(long long)i * Q] - cs[i] * xnext;
-    xp[(long long)i * Q] = xnext;
-  }
-}
-
-// One thread per band element e of (P, N, Q), summing over the batch in
-// order.  Row i = (e / Q) % N; its neighbours along the line are e -+ Q.
-__global__ void thomas_band_grads(const float* __restrict__ lam,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ ga,
-                                  float* __restrict__ gb,
-                                  float* __restrict__ gc, long long batch,
-                                  long long band, int N, int Q) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= band) return;
-  const int i = (int)((e / Q) % N);
-  const bool prev = i > 0;
-  const bool next = i < N - 1;
-  float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-  for (long long n = 0; n < batch; ++n) {
-    const long long k = n * band + e;
-    const float l = lam[k];
-    sb += l * x[k];
-    if (prev) sa += l * x[k - Q];
-    if (next) sc += l * x[k + Q];
-  }
-  ga[e] = -sa;
-  gb[e] = -sb;
-  gc[e] = -sc;
-}
-
-template <bool kT>
-void launch_solve(const float* a, const float* b, const float* c,
-                  const float* d, float* x, long long batch, int P, int N,
-                  int Q, cudaStream_t s) {
-  if (Q == 1) {
-    const long long lines = batch * P;
-    const unsigned blocks =
-        (unsigned)((lines + kLinesPerBlock - 1) / kLinesPerBlock);
-    const size_t smem = sizeof(float) * kLinesPerBlock * (N + 1);
-    thomas_contiguous<kT><<<blocks, kLinesPerBlock, smem, s>>>(
-        a, b, c, d, x, lines, P, N);
+template <bool kY>
+__device__ __forceinline__ Tile block_tile(int P, int N, int Q) {
+  Tile t;
+  if (!kY) {
+    const int p0 = blockIdx.x * kLines;
+    t.nlines = min(kLines, P - p0);
+    t.band0 = (long long)p0 * N;
+    t.ls = N;
+    t.rs = 1;
   } else {
-    const long long lines = batch * P * Q;
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((lines + threads - 1) / threads);
-    thomas_strided<kT><<<blocks, threads, 0, s>>>(a, b, c, d, x, lines, P,
-                                                   N, Q);
+    const int qtiles = (Q + kLines - 1) / kLines;
+    const int p = blockIdx.x / qtiles;
+    const int q0 = (blockIdx.x - p * qtiles) * kLines;
+    t.nlines = min(kLines, Q - q0);
+    t.band0 = (long long)p * N * Q + q0;
+    t.ls = 1;
+    t.rs = Q;
   }
+  return t;
+}
+
+// Offset of (line l, row i) in an image's slot of shared memory: the x
+// tile keeps its global layout, the y tile has rows of kLd floats.
+template <bool kY>
+__device__ __forceinline__ int smem_at(int l, int i, int N) {
+  return kY ? i * kLd + l : l * N + i;
+}
+
+// Start the cp.async copies of ``count`` images, from image n0 of ``src``,
+// into consecutive slots of ``buf``.
+template <bool kY>
+__device__ __forceinline__ void load_stage(float* buf, const float* src,
+                                           const Tile& t, long long img,
+                                           long long n0, int count, int N,
+                                           int Q) {
+  const int slot = kLd * N;
+  for (int g = 0; g < count; ++g) {
+    const float* s = src + (n0 + g) * img + t.band0;
+    float* dst = buf + g * slot;
+    if (!kY) {
+      const int cnt = t.nlines * N;
+      for (int k = threadIdx.x; k < cnt; k += kThreads) cp_async4(dst + k, s + k);
+    } else {
+      const int cnt = N * kLines;
+      for (int k = threadIdx.x; k < cnt; k += kThreads) {
+        const int i = k / kLines, l = k % kLines;  // a power of two: shifts
+        if (l < t.nlines) cp_async4(dst + i * kLd + l, s + (long long)i * Q + l);
+      }
+    }
+  }
+}
+
+// Store ``count`` solved images of a y tile from consecutive slots of
+// ``buf`` in rows of kLines floats (the x-sweep stores from registers).
+__device__ __forceinline__ void store_rows(float* __restrict__ dst_base,
+                                           const float* __restrict__ buf,
+                                           const Tile& t, long long img,
+                                           long long n0, int count, int N,
+                                           int Q) {
+  const int slot = kLd * N;
+  for (int g = 0; g < count; ++g) {
+    float* dst = dst_base + (n0 + g) * img + t.band0;
+    const float* s = buf + g * slot;
+    for (int k = threadIdx.x; k < N * kLines; k += kThreads) {
+      const int i = k / kLines, l = k % kLines;  // a power of two: shifts
+      if (l < t.nlines) dst[(long long)i * Q + l] = s[i * kLd + l];
+    }
+  }
+}
+
+// One kernel for K1 (kAdj false: src = d, out = x) and K3's solve and
+// partial band sums (kAdj true: src = g, xin = x, out = lam, partials of
+// shape (chunks, 3, P, N, Q)).
+template <bool kY, bool kAdj, int K>
+__global__ void __launch_bounds__(kThreads, K == 1 ? 4 : 2)
+    pcr_lines(const float* __restrict__ a, const float* __restrict__ b,
+              const float* __restrict__ c, const float* __restrict__ src,
+              const float* __restrict__ xin, float* __restrict__ out,
+              float* __restrict__ partials, long long batch, int P, int N,
+              int Q, int chunk) {
+  // A ring of kBufs stage buffers for d (or g), then kBufs for x (K3).
+  extern __shared__ float smem[];
+  const int slot = kLd * N;
+  const int buf = kStage * slot;
+  const int xoff = kBufs * buf;
+
+  const Tile t = block_tile<kY>(P, N, Q);
+  const long long band = (long long)P * N * Q;
+  const long long n_begin = (long long)blockIdx.y * chunk;
+  const int count = (int)min((long long)chunk, batch - n_begin);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = warp < t.nlines;  // uniform across the warp
+
+  // Stage st (images n_begin + st*kStage on) goes to ring slot st % kBufs;
+  // while stage s is solved, stages s+1 .. s+kBufs-1 are in flight.
+  const int stages = (count + kStage - 1) / kStage;
+  auto fetch = [&](int st, float* dst) {
+    if (st < stages) {
+      const long long n0 = n_begin + (long long)st * kStage;
+      const int cnt = min(kStage, count - st * kStage);
+      load_stage<kY>(dst, src, t, band, n0, cnt, N, Q);
+      if (kAdj) load_stage<kY>(dst + xoff, xin, t, band, n0, cnt, N, Q);
+    }
+    cp_async_commit();  // an empty group past the last stage keeps the count
+  };
+#pragma unroll
+  for (int st = 0; st < kBufs - 1; ++st) fetch(st, smem + st * buf);
+
+  // The factorisation runs while the first stages' copies are in flight.
+  int levels = 1;
+  while ((1 << levels) < N) ++levels;
+
+  Pcr<K> f;
+  if (active) {
+    float lo[K], di[K], up[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lane + 32 * k;
+      const long long e = t.band0 + (long long)warp * t.ls + (long long)i * t.rs;
+      if (i < N) {
+        di[k] = __ldg(b + e);
+        if (!kAdj) {
+          lo[k] = i > 0 ? __ldg(a + e) : 0.0f;
+          up[k] = i + 1 < N ? __ldg(c + e) : 0.0f;
+        } else {  // the bands of T^T
+          lo[k] = i > 0 ? __ldg(c + e - t.rs) : 0.0f;
+          up[k] = i + 1 < N ? __ldg(a + e + t.rs) : 0.0f;
+        }
+      } else {
+        lo[k] = 0.0f;
+        di[k] = 1.0f;
+        up[k] = 0.0f;
+      }
+    }
+    f.factor(lo, di, up, levels);
+  }
+
+  float sa[K], sb[K], sc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) sa[k] = sb[k] = sc[k] = 0.0f;
+
+  int rd = 0, wr = kBufs - 1;  // ring slots of stage s and of s + kBufs - 1
+  for (int s = 0; s < stages; ++s) {
+    float* cur = smem + rd * buf;
+    const long long n0 = n_begin + (long long)s * kStage;
+    const int here = min(kStage, count - s * kStage);
+    fetch(s + kBufs - 1, smem + wr * buf);
+    cp_async_wait<kBufs - 1>();  // stage s's copies, not the later ones
+    __syncthreads();
+    rd = rd + 1 == kBufs ? 0 : rd + 1;
+    wr = wr + 1 == kBufs ? 0 : wr + 1;
+
+    if (active) {
+      // The stage's images side by side, so that their level chains
+      // interleave; slots past ``here`` hold zeros and are not stored.
+      float d[kStage][K];
+#pragma unroll
+      for (int g = 0; g < kStage; ++g) {
+        const float* line = cur + g * slot;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int i = lane + 32 * k;
+          d[g][k] = (g < here && i < N) ? line[smem_at<kY>(warp, i, N)] : 0.0f;
+        }
+      }
+      f.apply(d, levels);
+#pragma unroll
+      for (int g = 0; g < kStage; ++g) {
+        if (g < here) {
+          float* line = cur + g * slot;
+          const float* xl = cur + xoff + g * slot;
+          // x-sweep: a warp's line is contiguous in global memory too, so
+          // it stores straight from registers; the y tile goes back
+          // through shared memory and out in rows.
+          float* xrow = out + (n0 + g) * band + t.band0 + warp * t.ls;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const int i = lane + 32 * k;
+            if (i < N) {
+              if (kY)
+                line[smem_at<kY>(warp, i, N)] = d[g][k];
+              else
+                xrow[i] = d[g][k];
+              if (kAdj) {
+                const float lam = d[g][k];
+                sb[k] += lam * xl[smem_at<kY>(warp, i, N)];
+                if (i > 0) sa[k] += lam * xl[smem_at<kY>(warp, i - 1, N)];
+                if (i + 1 < N) sc[k] += lam * xl[smem_at<kY>(warp, i + 1, N)];
+              }
+            }
+          }
+        }
+      }
+    }
+    if (kY) {
+      __syncthreads();
+      store_rows(out, cur, t, band, n0, here, N, Q);
+    }
+    __syncthreads();  // before a later stage's copies reuse this buffer
+  }
+
+  if (kAdj && active) {
+    float* part = partials + (long long)blockIdx.y * 3 * band;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lane + 32 * k;
+      if (i < N) {
+        const long long e =
+            t.band0 + (long long)warp * t.ls + (long long)i * t.rs;
+        part[e] = sa[k];
+        part[band + e] = sb[k];
+        part[2 * band + e] = sc[k];
+      }
+    }
+  }
+}
+
+// K3's second pass: grad = -(the sum of the chunks' partials), in a fixed
+// order: slice k of a block's kSumSlices sums chunks k, k + kSumSlices, ...
+// in order, then the slices are added in order (ops/tridiag.py::
+// _sum_band_partials).  A block takes kSumLanes band elements of one of the
+// three gradients; neighbouring threads read neighbouring words.
+constexpr int kSumLanes = 32;
+constexpr int kSumSlices = 8;
+
+__global__ void __launch_bounds__(kSumLanes * kSumSlices)
+    sum_partials(const float* __restrict__ partials, float* __restrict__ ga,
+                 float* __restrict__ gb, float* __restrict__ gc,
+                 long long band, int chunks) {
+  __shared__ float slices[kSumSlices][kSumLanes];
+  const int j = blockIdx.y;  // 0: grad_a, 1: grad_b, 2: grad_c
+  const long long e = (long long)blockIdx.x * kSumLanes + threadIdx.x;
+  float acc = 0.0f;
+  if (e < band)
+    for (int n = threadIdx.y; n < chunks; n += kSumSlices)
+      acc += partials[((long long)n * 3 + j) * band + e];
+  slices[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < band) {
+    float sum = slices[0][threadIdx.x];
+    for (int k = 1; k < kSumSlices; ++k) sum += slices[k][threadIdx.x];
+    (j == 0 ? ga : j == 1 ? gb : gc)[e] = -sum;
+  }
+}
+
+template <bool kAdj, int K>
+cudaError_t launch_lines(const float* a, const float* b, const float* c,
+                         const float* src, const float* xin, float* out,
+                         float* partials, long long batch, int P, int N,
+                         int Q, int chunk, cudaStream_t stream) {
+  // each instantiation's opt-in above 48 KB, once per device
+  static size_t smem_allowed[2][channel_sweep::kMaxDevices];
+  const size_t smem =
+      sizeof(float) * (kAdj ? 2 : 1) * kBufs * kStage * kLd * N;
+  const unsigned chunks = (unsigned)((batch + chunk - 1) / chunk);
+  const bool y = Q > 1;
+  auto kernel = y ? pcr_lines<true, kAdj, K> : pcr_lines<false, kAdj, K>;
+  const cudaError_t err = channel_sweep::allow_shared_memory(
+      (const void*)kernel, smem, smem_allowed[y]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(y ? (unsigned)P * ((Q + kLines - 1) / kLines)
+                    : (unsigned)((P + kLines - 1) / kLines),
+                  chunks);
+  kernel<<<grid, kThreads, smem, stream>>>(a, b, c, src, xin, out, partials,
+                                           batch, P, N, Q, chunk);
+  return cudaGetLastError();
+}
+
+template <bool kAdj>
+cudaError_t launch(const float* a, const float* b, const float* c,
+                   const float* src, const float* xin, float* out,
+                   float* partials, long long batch, int P, int N, int Q,
+                   int chunk, cudaStream_t stream) {
+  if (N <= 32)
+    return launch_lines<kAdj, 1>(a, b, c, src, xin, out, partials, batch, P,
+                                 N, Q, chunk, stream);
+  return launch_lines<kAdj, 2>(a, b, c, src, xin, out, partials, batch, P, N,
+                               Q, chunk, stream);
 }
 
 }  // namespace
 
-// K1.  Returns cudaGetLastError() after the launch; the caller raises if it
-// is not 0.  N must lie in [1, 64]; the wrapper checks it.
-extern "C" int thomas_solve(const float* a, const float* b, const float* c,
-                            const float* d, float* x, long long batch, int P,
-                            int N, int Q, void* stream) {
-  launch_solve<false>(a, b, c, d, x, batch, P, N, Q,
-                      static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+// The tiling the wrapper sizes its launches with (ops/tridiag.py::_plan
+// reads LINES, STAGE and BUFFERS and checks them against these once, when
+// it binds the kernels): band lines a block, images a stage, stage buffers.
+extern "C" int thomas_layout(int* lines, int* stage, int* buffers) {
+  *lines = kLines;
+  *stage = kStage;
+  *buffers = kBufs;
+  return 0;
 }
 
-// K3: the adjoint solve into lam, then the band gradients (ga, gb, gc of the
-// band shape), two kernels on one stream.  Same contract as thomas_solve.
+// K1.  ``chunk``: images a block (ops/tridiag.py::_plan).  Returns the
+// error of the shared-memory opt-in or cudaGetLastError() after the
+// launch; the caller raises if it is not 0.
+// N must lie in [1, 64]; the wrapper checks it.
+extern "C" int thomas_solve(const float* a, const float* b, const float* c,
+                            const float* d, float* x, long long batch, int P,
+                            int N, int Q, int chunk, void* stream) {
+  return (int)launch<false>(a, b, c, d, nullptr, x, nullptr, batch, P, N, Q,
+                            chunk, static_cast<cudaStream_t>(stream));
+}
+
+// K3: the adjoint solve into lam with the chunks' partial band sums into
+// ``partials`` ((batch + chunk - 1) / chunk * 3 * P*N*Q floats), then their
+// sum into the band gradients ga, gb, gc; two kernels on one stream.  Same
+// contract as thomas_solve.
 extern "C" int thomas_adjoint(const float* a, const float* b, const float* c,
                               const float* g, const float* x, float* lam,
                               float* ga, float* gb, float* gc,
-                              long long batch, int P, int N, int Q,
-                              void* stream) {
+                              float* partials, long long batch, int P, int N,
+                              int Q, int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_solve<true>(a, b, c, g, lam, batch, P, N, Q, s);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      launch<true>(a, b, c, g, x, lam, partials, batch, P, N, Q, chunk, s);
   if (err != cudaSuccess) return (int)err;
   const long long band = (long long)P * N * Q;
-  const unsigned blocks =
-      (unsigned)((band + kBandThreads - 1) / kBandThreads);
-  thomas_band_grads<<<blocks, kBandThreads, 0, s>>>(lam, x, ga, gb, gc,
-                                                    batch, band, N, Q);
+  const dim3 grid((unsigned)((band + kSumLanes - 1) / kSumLanes), 3);
+  sum_partials<<<grid, dim3(kSumLanes, kSumSlices), 0, s>>>(
+      partials, ga, gb, gc, band, (int)((batch + chunk - 1) / chunk));
   return (int)cudaGetLastError();
 }

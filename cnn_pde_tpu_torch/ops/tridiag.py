@@ -15,11 +15,17 @@ Shapes: the bands ``a, b, c`` have a batch-free shape ``S`` and the right-hand
 side ``d`` has shape ``(*batch, *S)``; the solve runs along axis ``dim`` of
 ``S`` (``-1`` for an x-sweep, ``-2`` for a y-sweep down the columns, in place
 and without a transpose).  Row ``i`` of a line reads
-``a[i]·x[i-1] + b[i]·x[i] + c[i]·x[i+1] = d[i]``; ``a[0]`` and ``c[N-1]`` lie
-outside the matrix and are ignored.
+``a[i]·x[i-1] + b[i]·x[i] + c[i]·x[i+1] = d[i]``; ``a[0]`` and ``c[N-1]``
+lie outside the matrix and are ignored.
 
-``tridiag_solve_pcr`` is parallel cyclic reduction in plain PyTorch: the same
-system in ceil(log2 N) levels, the plain version of K2's in-kernel solve.
+The kernels solve by parallel cyclic reduction (PCR): ``pcr_factor`` reduces
+the batch-free bands once, ``pcr_apply`` runs the per-image levels;
+``tridiag_solve_pcr`` is their composition, the plain version of
+K1's and K3's arithmetic and of the fused kernels' line solves.
+``_adjoint_band_partials`` and ``_sum_band_partials`` mirror K3's band sums
+(per chunk of images, then over chunks in fixed order).  The plain versions
+of K1 and K3 are the Thomas recurrence, the reference the kernels are held
+against.
 
 The gradient (``_TridiagSolve.backward``): λ = T⁻ᵀg, grad_d = λ,
 grad_b = −Σ_batch λ∘x, grad_a[i] = −Σ λ[i]x[i−1], grad_c[i] = −Σ λ[i]x[i+1],
@@ -38,13 +44,24 @@ import torch
 from . import kernels
 
 __all__ = ["tridiag_solve", "tridiag_solve_plain", "tridiag_solve_pcr",
-           "tridiag_adjoint", "tridiag_adjoint_plain", "MAX_N"]
+           "pcr_factor", "pcr_apply", "tridiag_adjoint",
+           "tridiag_adjoint_plain", "MAX_N"]
 
-MAX_N = 64  # c* lives in a per-thread array of this length (csrc/thomas.cu)
+# A line is one warp, one row a lane or two past 32, and its PCR factors
+# (at most 2·6 + 1 a row) live in that warp's registers (csrc/thomas.cu).
+MAX_N = 64
+# csrc/thomas.cu's tiling, checked against thomas_layout() at the first bind
+LINES = 8              # band lines a block, one warp each (kLines)
+STAGE = 8              # images a pipeline stage (kStage)
+BUFFERS = 3            # stage buffers a ring (kBufs)
+BLOCKS_PER_SM = 2      # the grid the chunk size aims for
+SMEM_LIMIT = 232_448   # bytes of shared memory a block may use on Hopper
 _SHAPE_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE_ARGS
-_ADJOINT_ARGTYPES = [ctypes.c_void_p] * 9 + _SHAPE_ARGS
+_ADJOINT_ARGTYPES = [ctypes.c_void_p] * 10 + _SHAPE_ARGS
+_sm_count: dict = {}
+_layout_checked = False
 
 
 def _thomas_last_axis(a, b, c, d):
@@ -128,6 +145,48 @@ def _line_shape(name, a, b, c, d, dim):
     return d.numel() // math.prod(shape), p, n, q
 
 
+def _plan(batch, p, n, q, sms, arrays=1):
+    """(images a block, chunks, shared-memory bytes) of a launch: chunks of
+    consecutive images sized so that the grid of band tiles × chunks has
+    about ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs where the batch
+    allows it.  ``arrays``: 1 for K1 (d), 2 for K3 (g and x), each in a
+    ring of ``BUFFERS`` stages of ``STAGE`` images of (LINES + 1)·N floats.
+    Raises if the budget passes what a block may use."""
+    tiles = -(-p // LINES) if q == 1 else p * -(-q // LINES)
+    chunk = max(1, batch // -(-BLOCKS_PER_SM * sms // tiles))
+    smem = 4 * BUFFERS * arrays * STAGE * (LINES + 1) * n
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"thomas: {smem} bytes of shared memory a block "
+                         f"(limit {SMEM_LIMIT})")
+    return chunk, -(-batch // chunk), smem
+
+
+def _sms(device):
+    if device.index not in _sm_count:
+        _sm_count[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_count[device.index]
+
+
+def _bind(symbol, argtypes):
+    """The C entry point ``symbol`` of csrc/thomas.cu.  At the first bind,
+    raise unless the kernel's tiling is the one ``_plan`` sizes launches
+    and shared memory with."""
+    global _layout_checked
+    if not _layout_checked:
+        vals = [ctypes.c_int() for _ in range(3)]
+        kernels.function("thomas", "thomas_layout",
+                         [ctypes.POINTER(ctypes.c_int)] * 3)(
+            *map(ctypes.byref, vals))
+        layout = tuple(v.value for v in vals)
+        if layout != (LINES, STAGE, BUFFERS):
+            raise RuntimeError(f"thomas.cu tiles (lines, stage, buffers) = "
+                               f"{layout}, the wrapper plans for "
+                               f"{(LINES, STAGE, BUFFERS)}")
+        _layout_checked = True
+    return kernels.function("thomas", symbol, argtypes)
+
+
 def _thomas_kernel(a, b, c, d, dim):
     """K1 on CUDA tensors."""
     batch, p, n, q = _line_shape("tridiag_solve", a, b, c, d, dim)
@@ -135,10 +194,11 @@ def _thomas_kernel(a, b, c, d, dim):
     x = torch.empty_like(d)
     if batch == 0:
         return x
-    fn = kernels.function("thomas", "thomas_solve", _ARGTYPES)
+    chunk = _plan(batch, p, n, q, _sms(d.device))[0]
+    fn = _bind("thomas_solve", _ARGTYPES)
     with torch.cuda.device(d.device):
         code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                  x.data_ptr(), batch, p, n, q,
+                  x.data_ptr(), batch, p, n, q, chunk,
                   kernels.stream_handle(d.device))
     kernels.raise_on_error("tridiag_solve", code)
     tridiag_solve.launches += 1
@@ -161,11 +221,14 @@ def tridiag_adjoint(a, b, c, g, x, dim=-1):
     ga, gb, gc = (torch.empty_like(a) for _ in range(3))
     if batch == 0:
         return lam, ga.zero_(), gb.zero_(), gc.zero_()
-    fn = kernels.function("thomas", "thomas_adjoint", _ADJOINT_ARGTYPES)
+    chunk, chunks, _ = _plan(batch, p, n, q, _sms(g.device), arrays=2)
+    partials = torch.empty((chunks, 3, *a.shape), dtype=torch.float32,
+                           device=g.device)
+    fn = _bind("thomas_adjoint", _ADJOINT_ARGTYPES)
     with torch.cuda.device(g.device):
         code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), g.data_ptr(),
                   x.data_ptr(), lam.data_ptr(), ga.data_ptr(), gb.data_ptr(),
-                  gc.data_ptr(), batch, p, n, q,
+                  gc.data_ptr(), partials.data_ptr(), batch, p, n, q, chunk,
                   kernels.stream_handle(g.device))
     kernels.raise_on_error("tridiag_adjoint", code)
     tridiag_adjoint.launches += 1
@@ -206,32 +269,95 @@ def tridiag_solve(a, b, c, d, dim=-1):
 tridiag_solve.launches = 0
 
 
-def tridiag_solve_pcr(a, b, c, d):
-    """Parallel cyclic reduction along the last axis.  The band reduction is
-    batch-free when (a, b, c) broadcast against a batched d; only the
-    d-update runs at batch size."""
-    n = d.shape[-1]
+def _shift(x, s, fill, down):
+    """x[i - s] (``down``) or x[i + s] along the last axis, ``fill``
+    outside the line."""
+    n = x.shape[-1]
+    pad = torch.full_like(x[..., :1], fill).expand(*x.shape[:-1], min(s, n))
+    if down:
+        return torch.cat([pad, x], dim=-1)[..., :n]
+    return torch.cat([x, pad], dim=-1)[..., -n:]
+
+
+def pcr_factor(a, b, c, dim=-1):
+    """PCR's batch-free phase along ``dim``: ([α_l], [γ_l], b_L) for the
+    levels l < max(1, ceil(log2 N)) with stride s = 2^l, α_l[i] =
+    −a_l[i]/b_l[i−s] and γ_l[i] = −c_l[i]/b_l[i+s] (out-of-range b is 1),
+    and the bands reduced level by level.  The phase K1 and K3 run once a
+    block (keeping 1/b_L)."""
+    a, b, c = (t.movedim(dim, -1) for t in (a, b, c))
+    n = b.shape[-1]
     zero = torch.zeros_like(a[..., :1])
     a = torch.cat([zero, a[..., 1:]], dim=-1)
     c = torch.cat([c[..., :-1], zero], dim=-1)
-
-    def shift_right(x, s, fill):  # x[i-s], out of range -> fill
-        pad = torch.full_like(x[..., :1], fill).expand(*x.shape[:-1], s)
-        return torch.cat([pad, x], dim=-1)[..., :n]
-
-    def shift_left(x, s, fill):  # x[i+s], out of range -> fill
-        pad = torch.full_like(x[..., :1], fill).expand(*x.shape[:-1], s)
-        return torch.cat([x, pad], dim=-1)[..., s:]
-
+    alphas, gammas = [], []
     s = 1
     for _ in range(max(1, (n - 1).bit_length())):
-        alpha = -a / shift_right(b, s, 1.0)
-        gamma = -c / shift_left(b, s, 1.0)
-        a, b, c, d = (
-            alpha * shift_right(a, s, 0.0),
-            b + alpha * shift_right(c, s, 0.0) + gamma * shift_left(a, s, 0.0),
-            gamma * shift_left(c, s, 0.0),
-            d + alpha * shift_right(d, s, 0.0) + gamma * shift_left(d, s, 0.0),
+        alpha = -a / _shift(b, s, 1.0, True)
+        gamma = -c / _shift(b, s, 1.0, False)
+        a, b, c = (
+            alpha * _shift(a, s, 0.0, True),
+            b + alpha * _shift(c, s, 0.0, True)
+            + gamma * _shift(a, s, 0.0, False),
+            gamma * _shift(c, s, 0.0, False),
         )
+        alphas.append(alpha.movedim(-1, dim))
+        gammas.append(gamma.movedim(-1, dim))
         s *= 2
-    return d / b
+    return alphas, gammas, b.movedim(-1, dim)
+
+
+def pcr_apply(factors, d, dim=-1):
+    """PCR's per-image phase: d ← d + α_l·d[i−s] + γ_l·d[i+s] for each level
+    (out-of-range d is 0), then x = d/b_L.  ``factors`` from ``pcr_factor``
+    broadcast against ``d``.  K1 and K3 multiply by 1/b_L, formed once a
+    block, so that no division is left per image: one rounding apart.  The
+    division keeps this the arithmetic the fused kernels' plain versions
+    have always used."""
+    alphas, gammas, b = factors
+    d = d.movedim(dim, -1)
+    s = 1
+    for alpha, gamma in zip(alphas, gammas):
+        d = (d + alpha.movedim(dim, -1) * _shift(d, s, 0.0, True)
+             + gamma.movedim(dim, -1) * _shift(d, s, 0.0, False))
+        s *= 2
+    return (d / b.movedim(dim, -1)).movedim(-1, dim)
+
+
+def tridiag_solve_pcr(a, b, c, d):
+    """Parallel cyclic reduction along the last axis: ``pcr_factor`` then
+    ``pcr_apply``.  The band reduction is batch-free when (a, b, c)
+    broadcast against a batched d; only the d-update runs at batch size."""
+    return pcr_apply(pcr_factor(a, b, c), d)
+
+
+def _adjoint_band_partials(lam, x, dim, chunk):
+    """K3's in-block band sums: for each chunk of ``chunk`` consecutive
+    images of λ and x (both (batch, *S)), Σ λ[i]x[i−1], Σ λx and
+    Σ λ[i]x[i+1] accumulated in image order; shape (chunks, 3, *S)."""
+    lam_l, x_l = lam.movedim(dim, -1), x.movedim(dim, -1)
+    prods = torch.stack([lam_l * _shift(x_l, 1, 0.0, True), lam_l * x_l,
+                         lam_l * _shift(x_l, 1, 0.0, False)], dim=1)
+    partials = []
+    for start in range(0, prods.shape[0], chunk):
+        acc = prods[start]
+        for n in range(start + 1, min(start + chunk, prods.shape[0])):
+            acc = acc + prods[n]
+        partials.append(acc)
+    return torch.stack(partials).movedim(-1, dim)
+
+
+def _sum_band_partials(partials, slices=8):
+    """K3's second pass: (grad_a, grad_b, grad_c) = −Σ of the chunks'
+    partials in the kernel's fixed order: slice k sums chunks k, k + slices,
+    … in order, then the slices are added in order."""
+    sums = []
+    for k in range(min(slices, partials.shape[0])):
+        acc = partials[k]
+        for part in partials[k + slices::slices]:
+            acc = acc + part
+        sums.append(acc)
+    total = sums[0]
+    for acc in sums[1:]:
+        total = total + acc
+    return tuple(-total[j] for j in range(3))
