@@ -11,18 +11,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    K5 (csrc/fused_channel_vjp.cu), K6 and K7 (csrc/fused_grayscale.cu) and
    K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
    started together, and ptxas's report (registers, shared memory, spills)
-   of each kernel in csrc/thomas.cu;
+   of each kernel in csrc/thomas.cu, csrc/fused_channel.cu and
+   csrc/fused_channel_vjp.cu;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the two model families' main paths (K1, K3: x- and y-sweeps of
    the flagship's three branch scales at B in {1, 7, 64, 128, 512, 1000,
    1024}, 1000 not a multiple of the kernels' chunk, plus bands (3, 5, N)
    and (3, N, 7) with N in {1, 2, 3, 33, 64} at B in {7, 300}, plus the
-   grayscale layer's smoothed sweeps at B = 1024; K2:
-   the three branches, Strang and Lie, at B in {1, 7, 512}; K4 and K5: the
-   three branches, Strang and Lie, at B in {1, 7, 64, 512}, with fields that
-   straddle both clamp bounds; K6, K7 and K8: the mnist (10 steps) and
-   fashion_mnist (4 steps) layers at B in {1, 7, 128, 1024}, with fields
-   that straddle eps);
+   grayscale layer's smoothed sweeps at B = 1024; K2, K4 and K5: the three
+   branches (3, 32, 32), Strang and Lie, at B in {1, 7, 64, 512}, and
+   (1, 28, 28), (2, 20, 33) and (3, 48, 64) at B in {7, 300} (K2 also
+   (3, 64, 64)), K4 and K5 with fields that straddle both clamp bounds, K5
+   twice on the same inputs and equal bit for bit, and K5 and its plain
+   version each against the plain version in float64 (logged, not held);
+   K6, K7 and K8: the mnist
+   (10 steps) and fashion_mnist (4 steps) layers at B in {1, 7, 128, 1024},
+   with fields that straddle eps);
 4. serving the CIFAR-10 flagship: ``make_predict_fn`` (weights from a seed)
    in the per-sweep and the fused configuration at B in {1, 64, 1024},
    logits held against the same model on its plain versions, launch counts
@@ -31,8 +35,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 6. training the flagship: the train step (``make_train_step``, the preset's
    augmentation, dropout and grouped AdamW) per-sweep and fused at B = 64
    and 256: launch counts read around one step, the loss and every
-   gradient held against the same step on the plain versions, 50 steps on
-   synthetic CIFAR-10 with a falling loss, images/s by CUDA events, the
+   gradient held against the same step on the plain versions (and both
+   against that step in float64, logged), 50 steps on synthetic CIFAR-10
+   with a falling loss, images/s by CUDA events, the
    device's busy share of a step; then the train CLI on cuda;
 7. the grayscale family (mnist): serving per-sweep (30 K1 a forward) and
    fused (1 K6) at B in {1, 128, 1024} against the plain versions, with
@@ -43,14 +48,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``--preset mnist`` on cuda; then fashion_mnist the same way, served at
    B in {1, 128} (12 K1 or 1 K6 a forward) and trained at B = 128 (12 K1 +
    12 K3, or 1 K7 + 1 K8 a step), without its CLIs;
-8. times of each kernel and its plain version (CUDA events, median of
-   groups) at B = 512 (K2), at B = 64 and 512 (K4, K5) and at B = 128 and
-   1024 (K6-K8), beside the least time the card could take; K1 and K3 at
-   the main path's shapes (the flagship's sweeps at B = 64 and 512, the
-   mnist layer's at B = 128 and 1024), launched back to back through
-   their C entry points in a CUDA graph, L2-warm and cold, with the
-   wrapper's call time, the plain version, the bound and torch.linalg.solve
-   on the dense system as the library yardstick;
+8. times of each kernel and its plain version beside the least time the
+   card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
+   on the 8-step Strang branch, launched back to back through their C entry
+   points in a CUDA graph and by CUDA events around wrapper calls; K6-K8
+   (CUDA events, median of groups) at B = 128 and 1024; K1 and K3 at the
+   main path's shapes (the flagship's sweeps at B = 64 and 512, the mnist
+   layer's at B = 128 and 1024), in a CUDA graph, L2-warm and cold, with
+   the wrapper's call time, the plain version, the bound and
+   torch.linalg.solve on the dense system as the library yardstick;
 9. the ``kernels`` JSON line, then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -73,10 +79,16 @@ from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
 from cnn_pde_tpu_torch.ops import kernels
 from cnn_pde_tpu_torch.ops.adi import _neumann_b
+from cnn_pde_tpu_torch.ops.fused_channel import _ARGTYPES as FWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_channel import (
-    fused_channel_diffusion_fwd, fused_channel_diffusion_plain)
+    _dt_factors, fused_channel_diffusion_fwd, fused_channel_diffusion_plain,
+    plan_tiles)
+from cnn_pde_tpu_torch.ops.fused_channel import bind as bind_fused
+from cnn_pde_tpu_torch.ops.fused_channel_vjp import \
+    _BWD_ARGTYPES as BWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
-    fused_channel_bwd, fused_channel_bwd_plain, fused_channel_fwd_res,
+    bwd_plan, fused_channel_bwd,
+    fused_channel_bwd_plain, fused_channel_fwd_res,
     fused_channel_fwd_res_plain)
 from cnn_pde_tpu_torch.ops.fused_grayscale import (
     fused_grayscale_diffusion_fwd, fused_grayscale_diffusion_plain)
@@ -123,6 +135,14 @@ SCALES = MultiScaleExtractor.SCALES
 RAGGED_B = 1000
 THOMAS_BATCHES = (1, 7, 64, 128, 512, RAGGED_B, 1024)
 THOMAS_NS = (1, 2, 3, 33, 64)
+# K2, K4 and K5's cases: the flagship's (3, 32, 32) at these batches, and
+# these shapes at these (lines of 28 rows; x-lines of 33; K5 with one
+# factor buffer), and K2 also at FUSED_K2_SHAPES (one factor buffer, alpha
+# not staged)
+FUSED_BATCHES = (1, 7, 64, 512)
+FUSED_SHAPES = ((1, 28, 28), (2, 20, 33), (3, 48, 64))
+FUSED_SHAPE_BATCHES = (7, 300)
+FUSED_K2_SHAPES = ((3, 64, 64),)
 # (memory bytes/s, f32 non-tensor FLOP/s) from NVIDIA's data sheets
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12)}
 
@@ -170,11 +190,11 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def fields(rng, device, C=3, S=32, straddle=False):
-    """Trained-looking coefficient fields: bases 1 ± 0.5, time coefficients
-    5·N(0, 1), mixing I + 0.05·N(0, 1).  ``straddle``: bases uniform on
-    [-0.5, CMAX + 0.5], so raw coefficients fall on both sides of both
-    clamp bounds."""
+def fields(rng, device, C=3, H=32, W=32, straddle=False):
+    """Trained-looking coefficient fields (C, H, W): bases 1 ± 0.5, time
+    coefficients 5·N(0, 1), mixing I + 0.05·N(0, 1).  ``straddle``: bases
+    uniform on [-0.5, CMAX + 0.5], so raw coefficients fall on both sides of
+    both clamp bounds."""
     USED_DEVICES.add(torch.device(device))
 
     def t(x):
@@ -182,13 +202,13 @@ def fields(rng, device, C=3, S=32, straddle=False):
 
     def base():
         if straddle:
-            return t(rng.uniform(-0.5, CMAX + 0.5, (C, S, S)))
-        return t(1.0 + 0.5 * rng.standard_normal((C, S, S)))
+            return t(rng.uniform(-0.5, CMAX + 0.5, (C, H, W)))
+        return t(1.0 + 0.5 * rng.standard_normal((C, H, W)))
     return {
         "alpha_base": base(),
-        "alpha_time_coeff": t(5.0 * rng.standard_normal((C, S, S))),
+        "alpha_time_coeff": t(5.0 * rng.standard_normal((C, H, W))),
         "beta_base": base(),
-        "beta_time_coeff": t(5.0 * rng.standard_normal((C, S, S))),
+        "beta_time_coeff": t(5.0 * rng.standard_normal((C, H, W))),
         "channel_mixing": t(np.eye(C) + 0.05 * rng.standard_normal((C, C))),
     }
 
@@ -264,28 +284,57 @@ def phase_device():
     return name, card
 
 
+def fused_cases(rng, device, straddle, shapes=FUSED_SHAPES):
+    """(label, state shape, field arguments, keywords) of K2's, K4's and
+    K5's cases: the flagship's three branches (3, 32, 32), Strang and Lie,
+    at FUSED_BATCHES, and ``shapes`` on the 8-step branch's settings at
+    FUSED_SHAPE_BATCHES; fields from ``fields`` (``straddle``: raw values
+    on both sides of both clamps)."""
+    cases = [((3, 32, 32), scale, FUSED_BATCHES) for scale in SCALES]
+    cases += [(shape, SCALES[1], FUSED_SHAPE_BATCHES) for shape in shapes]
+    for shape, scale, batches in cases:
+        f = fields(rng, device, *shape, straddle=straddle)
+        args = [f[k] for k in FIELD_KEYS]
+        ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
+                          dtype=torch.float32, device=device)
+        for splitting in ("strang", "lie"):
+            kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
+                      splitting=splitting, eps=EPS, cmax=CMAX)
+            for B in batches:
+                yield (f"{shape} steps={scale['num_steps']} "
+                       f"dx={scale['dx']} {splitting} B={B}", (B, *shape),
+                       args, kw)
+
+
+REPORTED_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp")
+
+
 def phase_build():
-    """Build every kernel; beside it, compile csrc/thomas.cu once more to a
-    cubin with ``-Xptxas -v`` and print what ptxas reports for each of its
-    kernels (registers, shared memory, spills)."""
+    """Build every kernel; beside it, compile the sources of
+    ``REPORTED_SOURCES`` once more to cubins with ``-Xptxas -v`` and print
+    what ptxas reports for each of their kernels (registers, shared memory,
+    spills).  One nvcc process a source, all started together."""
     t0 = time.perf_counter()
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    report = subprocess.Popen(
+    reports = {name: subprocess.Popen(
         [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o",
-         str(kernels.BUILD_DIR / "thomas-report.cubin"),
-         str(kernels.CSRC / "thomas.cu")],
+         str(kernels.BUILD_DIR / f"{name}-report.cubin"),
+         str(kernels.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in REPORTED_SOURCES}
     paths = kernels.build()
     log(f"[build] nvcc {' '.join(kernels.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    out, _ = report.communicate()
-    if report.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v thomas.cu failed:\n{out}")
-    for line in out.splitlines():
-        if "ptxas info" in line or "bytes stack frame" in line:
-            log(f"[build] thomas.cu {line.strip()}")
+    for name, report in reports.items():
+        out, _ = report.communicate()
+        if report.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n{out}")
+        for line in out.splitlines():
+            if ("ptxas info" in line or "bytes stack frame" in line
+                    or "ptxas warning" in line):
+                log(f"[build] {name}.cu {line.strip()}")
 
 
 def phase_kernels(device):
@@ -332,23 +381,13 @@ def phase_kernels(device):
 
     log("[kernels] K2 fused_channel_diffusion_fwd against its plain version")
     k2_err = 0.0
-    for scale in SCALES:
-        f = fields(rng, device)
-        args = [f[k] for k in ("alpha_base", "alpha_time_coeff", "beta_base",
-                               "beta_time_coeff", "channel_mixing")]
-        ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
-                          dtype=torch.float32, device=device)
-        for splitting in ("strang", "lie"):
-            kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
-                      splitting=splitting, eps=EPS, cmax=CMAX)
-            for B in (1, 7, 512):
-                u = torch.rand((B, 3, 32, 32), device=device)
-                out = fused_channel_diffusion_fwd(u, *args, **kw)
-                torch.cuda.synchronize()
-                ref = fused_channel_diffusion_plain(u, *args, **kw)
-                k2_err = max(k2_err, check(
-                    f"steps={scale['num_steps']} dx={scale['dx']} "
-                    f"{splitting} B={B}", max_err(out, ref), KERNEL_TOL))
+    for label, shape, args, kw in fused_cases(
+            rng, device, False, FUSED_SHAPES + FUSED_K2_SHAPES):
+        u = torch.rand(shape, device=device)
+        out = fused_channel_diffusion_fwd(u, *args, **kw)
+        torch.cuda.synchronize()
+        ref = fused_channel_diffusion_plain(u, *args, **kw)
+        k2_err = max(k2_err, check(label, max_err(out, ref), KERNEL_TOL))
 
     log("[kernels] K3 tridiag_adjoint against tridiag_adjoint_plain "
         "(λ abs, band gradients relative)")
@@ -393,35 +432,37 @@ def phase_kernels(device):
                         shape, dim, B)
 
     log("[kernels] K4 fused_channel_fwd_res and K5 fused_channel_bwd "
-        "against their plain versions (fields straddle both clamps)")
+        "against their plain versions (fields straddle both clamps); K5 "
+        "twice on the same inputs, equal bit for bit")
     k4_err, k5_abs, k5_rel = 0.0, 0.0, 0.0
-    for scale in SCALES:
-        f = fields(rng, device, straddle=True)
-        args = [f[k] for k in FIELD_KEYS]
-        ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
-                          dtype=torch.float32, device=device)
-        for splitting in ("strang", "lie"):
-            kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
-                      splitting=splitting, eps=EPS, cmax=CMAX)
-            for B in (1, 7, 64, 512):
-                label = (f"steps={scale['num_steps']} dx={scale['dx']} "
-                         f"{splitting} B={B}")
-                u = torch.rand((B, 3, 32, 32), device=device)
-                out, res = fused_channel_fwd_res(u, *args, **kw)
-                torch.cuda.synchronize()
-                ref_out, ref_res = fused_channel_fwd_res_plain(u, *args, **kw)
-                k4_err = max(k4_err, check(f"K4 {label} output",
-                                           max_err(out, ref_out), KERNEL_TOL),
-                             check(f"K4 {label} residuals",
-                                   max_err(res, ref_res), KERNEL_TOL))
-                g = torch.randn_like(u)
-                grads = fused_channel_bwd(g, res, out, *args, **kw)
-                torch.cuda.synchronize()
-                ref = fused_channel_bwd_plain(g, res, out, *args, **kw)
-                for name, o, r in zip(("u",) + FIELD_KEYS, grads, ref):
-                    k5_rel = max(k5_rel, check_rel(f"K5 {label} grad {name}",
-                                                   rel_err(o, r), GRAD_TOL))
-                    k5_abs = max(k5_abs, max_err(o, r))
+    for label, shape, args, kw in fused_cases(rng, device, straddle=True):
+        u = torch.rand(shape, device=device)
+        out, res = fused_channel_fwd_res(u, *args, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_res = fused_channel_fwd_res_plain(u, *args, **kw)
+        k4_err = max(k4_err, check(f"K4 {label} output",
+                                   max_err(out, ref_out), KERNEL_TOL),
+                     check(f"K4 {label} residuals",
+                           max_err(res, ref_res), KERNEL_TOL))
+        g = torch.randn_like(u)
+        grads = fused_channel_bwd(g, res, out, *args, **kw)
+        again = fused_channel_bwd(g, res, out, *args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"K5 {label}: two runs differ")
+        ref = fused_channel_bwd_plain(g, res, out, *args, **kw)
+        ref64 = fused_channel_bwd_plain(
+            *(t.double() for t in (g, res, out, *args)),
+            **dict(kw, ts=kw["ts"].double()))
+        far = []
+        for name, o, r, d in zip(("u",) + FIELD_KEYS, grads, ref, ref64):
+            k5_rel = max(k5_rel, check_rel(f"K5 {label} grad {name}",
+                                           rel_err(o, r), GRAD_TOL))
+            k5_abs = max(k5_abs, max_err(o, r))
+            far.append(f"{name} {rel_err(o, d):.2e} / {rel_err(r, d):.2e}")
+        log(f"  K5 {label} against the plain version in float64, kernel / "
+            f"float32 plain, of each gradient's largest entry: "
+            + ", ".join(far))
     return {"K1": k1_err, "K2": k2_err, "K3": (k3_abs, k3_rel),
             "K4": k4_err, "K5": (k5_abs, k5_rel)}
 
@@ -446,7 +487,8 @@ def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3):
 
 def device_busy(fn, reps, device):
     """(busy share, host-clock µs a call, top kernels by device time, top
-    host ops by self CPU time) of ``reps`` calls of ``fn``: the time of the
+    host ops by self CPU time, cudaLaunchKernel calls a call) of ``reps``
+    calls of ``fn``: the time of the
     device's own events (kernels and copies, not the PyTorch ops that
     launched them) summed by torch.profiler over the wall time; None when
     the profiler recorded no device event."""
@@ -475,11 +517,12 @@ def device_busy(fn, reps, device):
         return None
     top = sorted(by_name.items(), key=lambda r: -r[1])[:3]
     host = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
+    launches = sum(r.count for r in host if r.key == "cudaLaunchKernel")
     return (device_us / wall_us, wall_us / reps,
             "; ".join(f"{k[:48]} {100 * t / device_us:.0f}%" for k, t in top),
             "; ".join(f"{r.key[:40]} x{r.count // reps} "
                       f"{r.self_cpu_time_total / reps / 1e3:.2f} ms"
-                      for r in host[:6]))
+                      for r in host[:6]), launches / reps)
 
 
 def serve_family(tag, device, make_model, shape, batches, expected, reps,
@@ -562,7 +605,7 @@ def log_busy(tag, label, busy, what):
         log(f"[{tag}] {label}: device busy {100 * busy[0]:.1f}% of "
             f"{busy[1]:.0f} us a {what} (profiler on); top kernels: "
             f"{busy[2]}; top host ops a {what} (calls, self CPU time): "
-            f"{busy[3]}")
+            f"{busy[3]}; cudaLaunchKernel calls a {what}: {busy[4]:g}")
 
 
 def phase_profile(device):
@@ -664,8 +707,15 @@ def train_family(tag, make_model, values, data, expected, batch, inputs,
                 loss_p, grads_p = train_grads(make_model(config, 0.0), xs,
                                               ys, values["label_smoothing"],
                                               masks)
+                loss_d, grads_d = train_grads(
+                    make_model(config, 0.0).double(), xs.double(), ys,
+                    values["label_smoothing"], masks)
             sync(device)
             worst, where = rel_err(loss_k, loss_p), "loss"
+            # the kernel path's and the float32 plain path's distance from
+            # the float64 plain run: the float32 rounding floor of the step
+            far = {"kernels": (rel_err(loss_k, loss_d), "loss"),
+                   "float32 plain": (rel_err(loss_p, loss_d), "loss")}
             for name, g in grads_k.items():
                 if name in zero_names:
                     size = max(g.abs().max().item(),
@@ -676,8 +726,17 @@ def train_family(tag, make_model, values, data, expected, batch, inputs,
                 err = rel_err(g, grads_p[name])
                 if err > worst:
                     worst, where = err, name
+                for path, got in (("kernels", g),
+                                  ("float32 plain", grads_p[name])):
+                    far[path] = max(far[path],
+                                    (rel_err(got, grads_d[name]), name))
             check_rel(f"{config} B={B} loss and every gradient vs plain "
                       f"versions (worst: {where})", worst, GRAD_TOL)
+            log(f"  {config} B={B} against the same step in float64 on the "
+                f"plain versions (the same ReLU masks), worst of the loss "
+                f"and every gradient: " + "; ".join(
+                    f"{path} {err:.3e} ({name})"
+                    for path, (err, name) in far.items()))
 
         model = make_model(config, None)
         step = make_train_step(model, values, steps_per_epoch,
@@ -919,77 +978,111 @@ def phase_grayscale(device):
 
 
 def phase_times(device, peak_bytes, peak_flops):
-    rng = np.random.default_rng(SEED + 3)
-    B, C, H, W = 512, 3, 32, 32
-    elems = B * C * H * W
-    band = C * H * W
-    u = torch.rand((B, C, H, W), device=device)
-    f = fields(rng, device)
-    scale = SCALES[1]  # the 8-step branch, the longest
-    S = scale["num_steps"]
-    ts = torch.tensor(_substep_times_np(scale["dt"], S), dtype=torch.float32,
-                      device=device)
-    args = [f[k] for k in ("alpha_base", "alpha_time_coeff", "beta_base",
-                           "beta_time_coeff", "channel_mixing")]
-    kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
-              splitting="strang", eps=EPS, cmax=CMAX)
-    k2_ms = time_ms(lambda: fused_channel_diffusion_fwd(u, *args, **kw))
-    k2_plain = time_ms(lambda: fused_channel_diffusion_plain(u, *args, **kw),
-                       groups=20, per_group=1)
-    # Per element of the state, step and image: mixing 2C, and per sweep
-    # (three for Strang) elimination and back-substitution, 5.  Once per
-    # (c, h, w), step and sweep, the same for every image: the coefficient
-    # (fma, two clamps, ·dtf: 5), b (2) and the c* chain (3).
-    sweeps = 3
-    k2_bound, k2_by = bound(
-        4 * (2 * elems + 4 * band + C * C + 3 * S),
-        elems * S * (2 * C + 5 * sweeps) + band * S * sweeps * 10,
-        peak_bytes, peak_flops)
-    log(f"[times] K2 8-step Strang branch B={B}: kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}); "
-        "library: none (no PyTorch call computes the layer)")
-    result = {
-        "K2": dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
-                   bound_by=k2_by, at="8-step Strang branch B=512 (3,32,32)"),
-    }
-    result.update(times_training(f, peak_bytes, peak_flops))
+    result = times_fused(device, peak_bytes, peak_flops)
     result.update(times_thomas(device, peak_bytes, peak_flops))
     return result
 
 
-def times_training(f, peak_bytes, peak_flops):
-    """K4 and K5 (the 8-step Strang branch) at B = 64 and 512, each beside
-    its plain version and its bound.  Returns the B = 512 figures, with
-    those at B = 64 under ``at_B64``."""
+def raw_fused(args, kw, u, g, res, y):
+    """K2, K4 and K5 as callables that launch straight through their C entry
+    points on outputs (and K5's partials scratch) allocated once, with the
+    arguments and the launch plan the wrappers pass: K2 and K4 on u, K5 on
+    the cotangent g, K4's residuals res and output y.  As ``raw_thomas``:
+    for ``graph_ms``, on the stream current when they are made."""
+    B, C, H, W = u.shape
+    S = kw["ts"].shape[0]
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    dtf = _dt_factors(kw["dt"], kw["dx"], kw["dy"], kw["splitting"])
+    tail = (S, int(kw["splitting"] == "strang"), *dtf, kw["eps"],
+            kw["cmax"], kernels.stream_handle(u.device))
+    ptrs = [t.data_ptr() for t in (*args, kw["ts"])]
+    fplan = plan_tiles(B, C, H, W, sms)
+    bplan = bwd_plan(B, C, H, W, sms)
+    fwd = bind_fused("fused_channel", "fused_channel_diffusion",
+                     FWD_ARGTYPES, "fused_channel_layout", (C, H, W), fplan)
+    bwd = bind_fused("fused_channel_vjp", "fused_channel_diffusion_bwd",
+                     BWD_ARGTYPES, "fused_channel_bwd_layout", (C, H, W),
+                     bplan)
+    flayout = (fplan.grid, fplan.nbuf, fplan.staged)
+    blayout = (bplan.grid, bplan.nbuf, bplan.staged)
+    out, res_out, gu = (torch.empty_like(u), torch.empty_like(res),
+                        torch.empty_like(u))
+    grads = [torch.empty_like(a) for a in args]
+    # held here, not only by address: freed, the memory would go to the
+    # next tensor the caller allocates
+    partials = torch.empty((bplan.grid, 4 * C * H * W + C * C),
+                           device=u.device)
+
+    def launch(name, fn, *ptr_args):
+        code = fn(*ptr_args)
+        kernels.raise_on_error(name, code)
+
+    def k2():
+        launch("K2", fwd, u.data_ptr(), out.data_ptr(), *ptrs, None, B, C, H,
+               W, *flayout, *tail)
+        return out
+
+    def k4():
+        launch("K4", fwd, u.data_ptr(), out.data_ptr(), *ptrs,
+               res_out.data_ptr(), B, C, H, W, *flayout, *tail)
+        return out, res_out
+
+    def k5():
+        launch("K5", bwd, g.data_ptr(), res.data_ptr(), y.data_ptr(), *ptrs,
+               gu.data_ptr(), *(t.data_ptr() for t in grads),
+               partials.data_ptr(), B, C, H, W, *blayout, *tail)
+        return (gu, *grads)
+    return k2, k4, k5
+
+
+def times_fused(device, peak_bytes, peak_flops):
+    """K2 at B = 1, 64 and 512 and K4 and K5 at B = 64 and 512, on the
+    8-step Strang branch (3, 32, 32): device time by raw launches back to
+    back in a CUDA graph (``graph_ms``; each launch's outputs held against
+    the wrapper's), CUDA events around wrapper calls (host included), the
+    plain version and the bound.  Returns each kernel's B = 512 figures,
+    with the others under ``at_B1`` and ``at_B64``."""
+    rng = np.random.default_rng(SEED + 3)
     C, H, W = 3, 32, 32
     band = C * H * W
-    device = f["alpha_base"].device
+    f = fields(rng, device)
     args = [f[k] for k in FIELD_KEYS]
+    scale = SCALES[1]  # the 8-step branch, the longest
+    S = scale["num_steps"]
+    ts = torch.tensor(_substep_times_np(scale["dt"], S), dtype=torch.float32,
+                      device=device)
+    kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
+              splitting="strang", eps=EPS, cmax=CMAX)
     out = {}
-    for B in (64, 512):
+    for B in (1, 64, 512):
         elems = B * band
         u = torch.rand((B, C, H, W), device=device)
         g = torch.randn((B, C, H, W), device=device)
-
-        scale = SCALES[1]  # the 8-step branch, the longest
-        S = scale["num_steps"]
-        ts = torch.tensor(_substep_times_np(scale["dt"], S),
-                          dtype=torch.float32, device=device)
-        kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
-                  splitting="strang", eps=EPS, cmax=CMAX)
-        k4 = (time_ms(lambda: fused_channel_fwd_res(u, *args, **kw)),
-              time_ms(lambda: fused_channel_fwd_res_plain(u, *args, **kw),
-                      groups=20, per_group=1))
+        y, res = fused_channel_fwd_res(u, *args, **kw)
+        raw = raw_fused(args, kw, u, g, res, y)
+        for name, got, want in (
+                ("K2", raw[0](), fused_channel_diffusion_fwd(u, *args, **kw)),
+                ("K4", raw[1](), (y, res)),
+                ("K5", raw[2](), fused_channel_bwd(g, res, y, *args, **kw))):
+            torch.cuda.synchronize()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} B={B}: raw launch and wrapper "
+                                     "differ")
+        # Per element of the state, step and image: mixing 2C, and per sweep
+        # (three for Strang) elimination and back-substitution, 5.  Once per
+        # (c, h, w), step and sweep, the same for every image: the
+        # coefficient (fma, two clamps, ·dtf: 5), b (2) and the c* chain (3).
+        k2_bound = bound(
+            4 * (2 * elems + 4 * band + C * C + 3 * S),
+            elems * S * (2 * C + 5 * 3) + band * S * 3 * 10,
+            peak_bytes, peak_flops)
         # K2's work, and the S residual states written once more.
         k4_bound = bound(
             4 * ((2 + S) * elems + 4 * band + C * C + 3 * S),
             elems * S * (2 * C + 5 * 3) + band * S * 3 * 10,
             peak_bytes, peak_flops)
-        y, res = fused_channel_fwd_res(u, *args, **kw)
-        k5 = (time_ms(lambda: fused_channel_bwd(g, res, y, *args, **kw)),
-              time_ms(lambda: fused_channel_bwd_plain(g, res, y, *args,
-                                                      **kw),
-                      groups=10, per_group=1))
         # Reads g, the output and the S residuals, writes grad u; reads the
         # four fields and the mixing, writes their gradients.  Per element,
         # step and image: the recompute (mixing 2C, two sweeps 5 each), three
@@ -1001,18 +1094,36 @@ def times_training(f, peak_bytes, peak_flops):
             4 * ((3 + S) * elems + 8 * band + 2 * C * C + 3 * S),
             elems * S * (6 * C + 46) + band * S * 65,
             peak_bytes, peak_flops)
-        for name, (ms, plain_ms), (b_ms, b_by), at in (
-                ("K4", k4, k4_bound, f"8-step Strang branch B={B} (3,32,32)"),
-                ("K5", k5, k5_bound, f"8-step Strang branch B={B} (3,32,32)")):
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, at=at)
-            log(f"[times] {name} {at}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
-                "none (no PyTorch call computes it)")
+        rows = [("K2", 0, lambda: fused_channel_diffusion_fwd(u, *args, **kw),
+                 lambda: fused_channel_diffusion_plain(u, *args, **kw),
+                 k2_bound)]
+        if B > 1:
+            rows += [
+                ("K4", 1, lambda: fused_channel_fwd_res(u, *args, **kw),
+                 lambda: fused_channel_fwd_res_plain(u, *args, **kw),
+                 k4_bound),
+                ("K5", 2, lambda: fused_channel_bwd(g, res, y, *args, **kw),
+                 lambda: fused_channel_bwd_plain(g, res, y, *args, **kw),
+                 k5_bound)]
+        at = f"8-step Strang branch B={B} (3,32,32)"
+        for name, i, call, plain, (b_ms, b_by) in rows:
+            entry = dict(
+                at=at,
+                ms=graph_ms(lambda i=i: [raw_fused(args, kw, u, g, res,
+                                                   y)[i]], walks=20),
+                call_ms=time_ms(call),
+                plain_ms=time_ms(plain, groups=5, per_group=1),
+                bound_ms=b_ms, bound_by=b_by)
+            log(f"[times] {name} {at}: kernel {entry['ms']:.4f} ms (a CUDA "
+                f"graph of back-to-back launches), call "
+                f"{entry['call_ms']:.4f} ms (events around wrapper calls, "
+                f"host included), plain {entry['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
+                "computes the layer)")
             if B == 512:
                 out.setdefault(name, {}).update(entry)
             else:
-                out.setdefault(name, {})["at_B64"] = entry
+                out.setdefault(name, {})[f"at_B{B}"] = entry
     return out
 
 

@@ -1,15 +1,23 @@
-// Device helpers shared by the fused diffusion kernels (fused_channel.cu: K2
-// and K4; fused_channel_vjp.cu: K5; fused_grayscale.cu: K6 and K7;
-// fused_grayscale_vjp.cu: K8).
+// Device helpers shared by the hand-written kernels.
 //
-// One implicit sweep line solves the Neumann system of the port's
-// ops/fused_channel.py::_abc_nosmooth: a = c = -r, b = 1 + 2r (1 + r on the
-// two edge rows) + eps, with r = c * dtf and c = clamp(base + time_coeff * t,
-// eps, cmax) read from the raw coefficient field and clamped on the fly.  The
-// grayscale kernels pass cmax = +inf (a one-sided clamp) and kSmooth, which
-// replaces c[i] by the 3-tap replicate average
-// c[i-1]/3 + c[i]/3 + c[i+1]/3 along the line (c[-1] = c[0], c[n] = c[n-1]),
-// ops/smoothing.py::smooth3.
+// solve_line: one implicit sweep line solved by the Thomas recurrence, one
+// thread a line, the coefficients read and the factors formed again for
+// every image; used by the grayscale kernels (fused_grayscale.cu: K6 and
+// K7; fused_grayscale_vjp.cu: K8).  The channel kernels K2, K4 and K5 form
+// a line's factors once a block and apply them to every image
+// (channel_lines.cuh).
+// The line is the Neumann system of ops/fused_channel.py::_abc_nosmooth:
+// a = c = -r, b = 1 + 2r (1 + r on the two edge rows) + eps, with
+// r = c * dtf and c = clamp(base + time_coeff * t, eps, cmax) read from the
+// raw coefficient field and clamped on the fly.  The grayscale kernels pass
+// cmax = +inf (a one-sided clamp) and kSmooth, which replaces c[i] by the
+// 3-tap replicate average c[i-1]/3 + c[i]/3 + c[i+1]/3 along the line
+// (c[-1] = c[0], c[n] = c[n-1]), ops/smoothing.py::smooth3.
+//
+// cp_async4 / cp_async_commit / cp_async_wait: 4-byte asynchronous copies
+// from global to shared memory (thomas.cu, fused_channel_vjp.cu).
+// allow_shared_memory: the once-per-device opt-in above 48 KB (every
+// kernel that asks for more).
 
 #pragma once
 
@@ -78,6 +86,23 @@ __device__ void solve_line(float* line, int stride, int n, Field f,
     xnext = line[i * stride] - cs[i] * xnext;
     line[i * stride] = xnext;
   }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most ``n`` of this thread's newest copy groups are
+// pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // Opt `kernel` into `smem` bytes of dynamic shared memory on the current

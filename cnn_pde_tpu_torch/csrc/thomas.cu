@@ -88,22 +88,9 @@ constexpr int kStage = 8;              // images a pipeline stage
 constexpr int kBufs = 3;               // stage buffers: kBufs - 1 in flight
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most ``n`` of this thread's newest copy groups are
-// pending.
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
+using channel_sweep::cp_async4;
+using channel_sweep::cp_async_commit;
+using channel_sweep::cp_async_wait;
 
 // Row lane + 32k of a line held K rows a lane.  v[i - s] and v[i + s] for
 // s <= 32, with ``fill`` outside rows [0, 32K).  Every lane of the warp

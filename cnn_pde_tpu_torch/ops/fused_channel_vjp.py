@@ -15,7 +15,11 @@ fused_channel_diffusion``.  ``fused_channel_diffusion`` is a
   the time coefficients — then the mixing adjoint
   grad_mix[k, c] += Σ cot[:, k]·u_s[:, c], cot ← mixᵀ·cot.  K5
   (``csrc/fused_channel_vjp.cu``) on the card, ``fused_channel_bwd_plain``
-  elsewhere.
+  elsewhere.  K5's blocks each take a tile of whole images
+  (``fused_channel.plan_tiles``), accumulate their parameter gradients over
+  all steps and write them once as partials, which a second kernel of the
+  same call sums over the tiles in a fixed order;
+  ``fused_channel_bwd_tiled`` is the plain mirror of that structure.
 
 The clamp gate is applied as a mask, never as autograd through ``clamp``,
 whose gradient passes 1 at the bounds.
@@ -28,18 +32,22 @@ import ctypes
 import torch
 
 from . import kernels
-from .fused_channel import (MAX_SMEM, _abc_nosmooth, _dt_factors,
-                            _sweep_nosmooth, _sweep_y_nosmooth,
-                            check_layer_args, fused_channel_diffusion_plain,
-                            launch_forward)
-from .tridiag import _transpose_system, tridiag_solve_pcr
+from .fused_channel import (THREADS, _abc_nosmooth, _dt_factors,
+                            _sweep_nosmooth, _sweep_y_nosmooth, bind,
+                            check_layer_args, factor_threads,
+                            fused_channel_diffusion_plain, launch_forward,
+                            plan_tiles)
+from .tridiag import _sms, _transpose_system, tridiag_solve_pcr
 
 __all__ = ["fused_channel_diffusion", "fused_channel_fwd_res",
            "fused_channel_fwd_res_plain", "fused_channel_bwd",
-           "fused_channel_bwd_plain", "TILE_B_BWD"]
+           "fused_channel_bwd_plain", "fused_channel_bwd_tiled"]
 
-TILE_B_BWD = 2          # images a K5 block: 192 threads, 101.6 KB at 3×32×32
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+# csrc/fused_channel_vjp.cu's image buffers a block image (cotangent, state,
+# residual); beside them C·C floats a worker warp for the mixing gradient
+BWD_BUFFERS = 3
+SUM_SLICES = 8          # the partial sum's interleaved slices (kSumSlices)
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
                  + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 
 
@@ -155,18 +163,66 @@ def fused_channel_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
     return cot, grads["ab"], grads["atc"], grads["bb"], grads["btc"], g_mix
 
 
-def _bwd_launch_shape(C, H, W):
-    threads = -(-TILE_B_BWD * C * max(H, W) // 32) * 32
-    smem = 4 * (4 * TILE_B_BWD * C * H * (W + 1) + threads // 32 * C * C)
-    return threads, smem
+def bwd_plan(B, C, H, W, sms):
+    """K5's launch plan (``fused_channel.plan_tiles``)."""
+    worker_warps = (THREADS - factor_threads(C, H, W)) // 32
+    return plan_tiles(B, C, H, W, sms, BWD_BUFFERS, worker_warps * C * C)
+
+
+def _tile_bounds(B, grid):
+    """The images [first, last) of each of ``grid`` blocks: B split as
+    evenly as whole images allow (csrc/channel_lines.cuh::block_images)."""
+    return [(b * B // grid, (b + 1) * B // grid) for b in range(grid)]
+
+
+def _sum_tile_partials(partials, slices=SUM_SLICES):
+    """K5's second kernel: the sum of the tiles' partial rows in its fixed
+    order — slice k sums tiles k, k + slices, … in order, then the slices
+    are added in order."""
+    sums = []
+    for k in range(min(slices, partials.shape[0])):
+        acc = partials[k]
+        for part in partials[k + slices::slices]:
+            acc = acc + part
+        sums.append(acc)
+    total = sums[0]
+    for acc in sums[1:]:
+        total = total + acc
+    return total
+
+
+def fused_channel_bwd_tiled(g, res, out, alpha_base, alpha_tc, beta_base,
+                            beta_tc, mixing, *, grid, dt, dx, dy, ts,
+                            splitting="strang", eps=1e-6, cmax=10.0):
+    """Plain mirror of K5's reduction structure: the images split over
+    ``grid`` tiles as K5's blocks take them; each tile's parameter gradients
+    accumulated over all steps (the plain backward on its images) into one
+    partial row (4·C·H·W field gradients, then C·C for the mixing); the rows
+    summed over tiles in K5's fixed order.  The same six gradients as
+    ``fused_channel_bwd_plain``."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
+              cmax=cmax)
+    gus, rows = [], []
+    for first, last in _tile_bounds(g.shape[0], grid):
+        gu, *grads = fused_channel_bwd_plain(
+            g[first:last], res[:, first:last], out[first:last], *fields,
+            **kw)
+        gus.append(gu)
+        rows.append(torch.cat([t.reshape(-1) for t in grads]))
+    total = _sum_tile_partials(torch.stack(rows))
+    chw = alpha_base.numel()
+    grads = [total[i * chw:(i + 1) * chw].view_as(alpha_base)
+             for i in range(4)]
+    return (torch.cat(gus), *grads, total[4 * chw:].view_as(mixing))
 
 
 def fused_channel_bwd(g, res, out, alpha_base, alpha_tc, beta_base, beta_tc,
                       mixing, *, dt, dx, dy, ts, splitting="strang",
                       eps=1e-6, cmax=10.0):
     """The six gradients: K5 on a CUDA tensor, the plain version on a CPU
-    tensor.  K5 writes one partial gradient per block; they are summed
-    here, in a fixed order."""
+    tensor.  K5's one C call writes each block's partial parameter
+    gradients into a scratch and sums them over blocks in a fixed order."""
     fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
     kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
               cmax=cmax)
@@ -180,31 +236,27 @@ def fused_channel_bwd(g, res, out, alpha_base, alpha_tc, beta_base, beta_tc,
                          f"and output {tuple(out.shape)} do not match g "
                          f"{tuple(g.shape)} over {S} steps")
     kernels.check_float32("fused_channel_bwd", g.device, res=res, out=out)
-    threads, smem = _bwd_launch_shape(C, H, W)
-    if threads > 1024 or smem > MAX_SMEM:
-        raise ValueError(f"{TILE_B_BWD} images of {(C, H, W)} need "
-                         f"{threads} threads and {smem} bytes of shared "
-                         f"memory a block (limits 1024 and {MAX_SMEM})")
-    G = -(-B // TILE_B_BWD)
     gu = torch.empty_like(g)
-    partials = [torch.empty((G, C, H, W), dtype=g.dtype, device=g.device)
-                for _ in range(4)]
-    g_mix = torch.empty((G, C, C), dtype=g.dtype, device=g.device)
+    grads = [torch.empty_like(f) for f in fields]
     if B == 0:
-        return (gu, *(torch.zeros_like(f) for f in fields))
+        return (gu, *(t.zero_() for t in grads))
+    plan = bwd_plan(B, C, H, W, _sms(g.device))
+    partials = torch.empty((plan.grid, 4 * C * H * W + C * C),
+                           dtype=g.dtype, device=g.device)
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, splitting)
-    fn = kernels.function("fused_channel_vjp", "fused_channel_diffusion_bwd",
-                          _BWD_ARGTYPES)
+    fn = bind("fused_channel_vjp", "fused_channel_diffusion_bwd",
+              _BWD_ARGTYPES, "fused_channel_bwd_layout", (C, H, W), plan)
     with torch.cuda.device(g.device):
         code = fn(g.data_ptr(), res.data_ptr(), out.data_ptr(),
                   *(f.data_ptr() for f in fields), ts.data_ptr(),
-                  gu.data_ptr(), *(p.data_ptr() for p in partials),
-                  g_mix.data_ptr(), B, C, H, W, TILE_B_BWD, S,
+                  gu.data_ptr(), *(t.data_ptr() for t in grads),
+                  partials.data_ptr(), B, C, H, W, plan.grid, plan.nbuf,
+                  plan.staged, S,
                   int(splitting == "strang"), dtf_x, dtf_y, eps, cmax,
                   kernels.stream_handle(g.device))
     kernels.raise_on_error("fused_channel_bwd", code)
     fused_channel_bwd.launches += 1
-    return (gu, *(p.sum(dim=0) for p in partials), g_mix.sum(dim=0))
+    return (gu, *grads)
 
 
 fused_channel_bwd.launches = 0
