@@ -11,8 +11,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    K5 (csrc/fused_channel_vjp.cu), K6 and K7 (csrc/fused_grayscale.cu) and
    K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
    started together, and ptxas's report (registers, shared memory, spills)
-   of each kernel in csrc/thomas.cu, csrc/fused_channel.cu and
-   csrc/fused_channel_vjp.cu;
+   of each kernel of every source;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the two model families' main paths (K1, K3: x- and y-sweeps of
    the flagship's three branch scales at B in {1, 7, 64, 128, 512, 1000,
@@ -26,7 +25,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    version each against the plain version in float64 (logged, not held);
    K6, K7 and K8: the mnist
    (10 steps) and fashion_mnist (4 steps) layers at B in {1, 7, 128, 1024},
-   with fields that straddle eps);
+   and (12, 12), (1, 28), (64, 64), (9, 13) and (33, 20) on the mnist
+   layer's settings at B in {7, 300}, with fields that straddle eps, K8
+   twice on the same inputs and equal bit for bit);
 4. serving the CIFAR-10 flagship: ``make_predict_fn`` (weights from a seed)
    in the per-sweep and the fused configuration at B in {1, 64, 1024},
    logits held against the same model on its plain versions, launch counts
@@ -46,13 +47,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gradient against the plain versions, 50 steps on synthetic MNIST with a
    falling loss, images/s and the busy share; both CLIs with
    ``--preset mnist`` on cuda; then fashion_mnist the same way, served at
-   B in {1, 128} (12 K1 or 1 K6 a forward) and trained at B = 128 (12 K1 +
-   12 K3, or 1 K7 + 1 K8 a step), without its CLIs;
+   B in {1, 128, 1024} (12 K1 or 1 K6 a forward) and trained at B = 128
+   (12 K1 + 12 K3, or 1 K7 + 1 K8 a step), without its CLIs;
 8. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
-   points in a CUDA graph and by CUDA events around wrapper calls; K6-K8
-   (CUDA events, median of groups) at B = 128 and 1024; K1 and K3 at the
+   points in a CUDA graph and by CUDA events around wrapper calls; K6 at
+   B in {1, 128, 1024} and K7 and K8 at B in {128, 1024} on the mnist layer,
+   and K6 on the fashion_mnist layer at B in {1, 128, 1024}, the same two
+   ways; K1 and K3 at the
    main path's shapes (the flagship's sweeps at B = 64 and 512, the mnist
    layer's at B = 128 and 1024), in a CUDA graph, L2-warm and cold, with
    the wrapper's call time, the plain version, the bound and
@@ -90,8 +93,14 @@ from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
     bwd_plan, fused_channel_bwd,
     fused_channel_bwd_plain, fused_channel_fwd_res,
     fused_channel_fwd_res_plain)
+from cnn_pde_tpu_torch.ops.fused_grayscale import \
+    _ARGTYPES as GRAY_ARGTYPES
+from cnn_pde_tpu_torch.ops.fused_grayscale import bind as bind_gray
 from cnn_pde_tpu_torch.ops.fused_grayscale import (
-    fused_grayscale_diffusion_fwd, fused_grayscale_diffusion_plain)
+    factor_table, fused_grayscale_diffusion_fwd,
+    fused_grayscale_diffusion_plain, plan_grayscale)
+from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import \
+    _BWD_ARGTYPES as GRAY_BWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import (
     fused_grayscale_bwd, fused_grayscale_bwd_plain, fused_grayscale_fwd_res,
     fused_grayscale_fwd_res_plain)
@@ -143,6 +152,15 @@ FUSED_BATCHES = (1, 7, 64, 512)
 FUSED_SHAPES = ((1, 28, 28), (2, 20, 33), (3, 48, 64))
 FUSED_SHAPE_BATCHES = (7, 300)
 FUSED_K2_SHAPES = ((3, 64, 64),)
+# K6, K7 and K8's cases beside the two presets' layers at GRAY_BATCHES:
+# these (H, W) at these batches, on the mnist layer's settings (a 12-row
+# line; a line of one row; the longest lines, whose halves pass through
+# registers in chunks; H != W with H*W not a multiple of 4, K7's residual
+# stores one float at a time; the longest lines whose halves stay in
+# registers)
+GRAY_BATCHES = (1, 7, 128, 1024)
+GRAY_SHAPES = ((12, 12), (1, 28), (64, 64), (9, 13), (33, 20))
+GRAY_SHAPE_BATCHES = (7, 300)
 # (memory bytes/s, f32 non-tensor FLOP/s) from NVIDIA's data sheets
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12)}
 
@@ -306,7 +324,8 @@ def fused_cases(rng, device, straddle, shapes=FUSED_SHAPES):
                        args, kw)
 
 
-REPORTED_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp")
+REPORTED_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp",
+                    "fused_grayscale", "fused_grayscale_vjp")
 
 
 def phase_build():
@@ -487,7 +506,7 @@ def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3):
 
 def device_busy(fn, reps, device):
     """(busy share, host-clock µs a call, top kernels by device time, top
-    host ops by self CPU time, cudaLaunchKernel calls a call) of ``reps``
+    host ops by self CPU time, kernel launch calls a call) of ``reps``
     calls of ``fn``: the time of the
     device's own events (kernels and copies, not the PyTorch ops that
     launched them) summed by torch.profiler over the wall time; None when
@@ -517,7 +536,10 @@ def device_busy(fn, reps, device):
         return None
     top = sorted(by_name.items(), key=lambda r: -r[1])[:3]
     host = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
-    launches = sum(r.count for r in host if r.key == "cudaLaunchKernel")
+    # kernel launches by the runtime API: cudaLaunchKernel, and
+    # cudaLaunchKernelExC for the grayscale kernels' dependent launches
+    launches = sum(r.count for r in host
+                   if r.key.startswith("cudaLaunchKernel"))
     return (device_us / wall_us, wall_us / reps,
             "; ".join(f"{k[:48]} {100 * t / device_us:.0f}%" for k, t in top),
             "; ".join(f"{r.key[:40]} x{r.count // reps} "
@@ -605,7 +627,8 @@ def log_busy(tag, label, busy, what):
         log(f"[{tag}] {label}: device busy {100 * busy[0]:.1f}% of "
             f"{busy[1]:.0f} us a {what} (profiler on); top kernels: "
             f"{busy[2]}; top host ops a {what} (calls, self CPU time): "
-            f"{busy[3]}; cudaLaunchKernel calls a {what}: {busy[4]:g}")
+            f"{busy[3]}; kernel launch calls (cudaLaunchKernel and "
+            f"cudaLaunchKernelExC) a {what}: {busy[4]:g}")
 
 
 def phase_profile(device):
@@ -800,11 +823,12 @@ def phase_train(device):
     return result
 
 
-def gray_fields(rng, device, preset, straddle=False, S=28):
-    """Coefficient fields for the grayscale layer of ``preset``: bases
-    init ± 0.5 (``straddle``: uniform on [-0.5, 2·init], so that raw values
-    fall on both sides of eps), time coefficients N(0, 1) over the layer's
-    horizon, so that they move each coefficient by about 1 over it."""
+def gray_fields(rng, device, preset, straddle=False, shape=(28, 28)):
+    """(H, W) coefficient fields for the grayscale layer of ``preset``:
+    bases init ± 0.5 (``straddle``: uniform on [-0.5, 2·init], so that raw
+    values fall on both sides of eps), time coefficients N(0, 1) over the
+    layer's horizon, so that they move each coefficient by about 1 over
+    it."""
     USED_DEVICES.add(torch.device(device))
     dt, steps, init = GRAY_LAYERS[preset]
 
@@ -813,11 +837,11 @@ def gray_fields(rng, device, preset, straddle=False, S=28):
 
     def base():
         if straddle:
-            return t(rng.uniform(-0.5, 2.0 * init, (S, S)))
-        return t(init + 0.5 * rng.standard_normal((S, S)))
+            return t(rng.uniform(-0.5, 2.0 * init, shape))
+        return t(init + 0.5 * rng.standard_normal(shape))
 
     def tc():
-        return t(rng.standard_normal((S, S)) / (dt * steps))
+        return t(rng.standard_normal(shape) / (dt * steps))
     return {"alpha_base": base(), "alpha_time_coeff": tc(),
             "beta_base": base(), "beta_time_coeff": tc()}
 
@@ -830,40 +854,19 @@ def gray_kwargs(preset, device):
 
 
 def phase_gray_kernels(device):
-    """K6, K7 and K8 against their plain versions; K1 and K3 on the
-    grayscale per-sweep path's smoothed bands."""
+    """K6, K7 and K8 against their plain versions on the two presets'
+    layers at GRAY_BATCHES and on GRAY_SHAPES at GRAY_SHAPE_BATCHES; K1 and
+    K3 on the grayscale per-sweep path's smoothed bands."""
     rng = np.random.default_rng(SEED + 6)
     log("[kernels] K6 fused_grayscale_diffusion_fwd, K7 "
         "fused_grayscale_fwd_res and K8 fused_grayscale_bwd against their "
-        "plain versions (fields straddle eps)")
-    k6, k7, k8_abs, k8_rel = 0.0, 0.0, 0.0, 0.0
+        "plain versions (fields straddle eps); K8 twice, bit for bit")
+    errs = [0.0, 0.0, 0.0, 0.0]  # K6, K7, K8 abs, K8 of the largest entry
     for preset in GRAY_LAYERS:
         f = gray_fields(rng, device, preset, straddle=True)
-        args = [f[k] for k in GRAY_KEYS]
-        kw = gray_kwargs(preset, device)
-        for B in (1, 7, 128, 1024):
-            label = f"{preset} ({kw['ts'].shape[0]} steps) B={B}"
-            u = torch.rand((B, 28, 28), device=device)
-            out = fused_grayscale_diffusion_fwd(u, *args, **kw)
-            torch.cuda.synchronize()
-            k6 = max(k6, check(f"K6 {label}", max_err(
-                out, fused_grayscale_diffusion_plain(u, *args, **kw)),
-                KERNEL_TOL))
-            out, res = fused_grayscale_fwd_res(u, *args, **kw)
-            torch.cuda.synchronize()
-            ref_out, ref_res = fused_grayscale_fwd_res_plain(u, *args, **kw)
-            k7 = max(k7, check(f"K7 {label} output", max_err(out, ref_out),
-                               KERNEL_TOL),
-                     check(f"K7 {label} residuals", max_err(res, ref_res),
-                           KERNEL_TOL))
-            g = torch.randn_like(u)
-            grads = fused_grayscale_bwd(g, res, out, *args, **kw)
-            torch.cuda.synchronize()
-            ref = fused_grayscale_bwd_plain(g, res, out, *args, **kw)
-            for name, o, r in zip(("u",) + GRAY_KEYS, grads, ref):
-                k8_rel = max(k8_rel, check_rel(f"K8 {label} grad {name}",
-                                               rel_err(o, r), GRAD_TOL))
-                k8_abs = max(k8_abs, max_err(o, r))
+        for B in GRAY_BATCHES:
+            gray_case(errs, f"{preset}", f, gray_kwargs(preset, device),
+                      torch.rand((B, 28, 28), device=device))
 
     log("[kernels] K1 and K3 on the grayscale layer's smoothed sweeps "
         "(mnist, B=1024, 28x28)")
@@ -892,8 +895,50 @@ def phase_gray_kernels(device):
             k3_rel = max(k3_rel, check_rel(f"K3 {label} grad_{name}",
                                            rel_err(o, r), GRAD_TOL))
             k3_abs = max(k3_abs, max_err(o, r))
-    return {"K1": k1, "K3": (k3_abs, k3_rel), "K6": k6, "K7": k7,
-            "K8": (k8_abs, k8_rel)}
+
+    # their own generators, so that every case above sees the inputs it saw
+    # before these were added
+    rng = np.random.default_rng(SEED + 12)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    for shape in GRAY_SHAPES:
+        f = gray_fields(rng, device, "mnist", straddle=True, shape=shape)
+        for B in GRAY_SHAPE_BATCHES:
+            gray_case(errs, f"mnist {shape}", f, gray_kwargs("mnist", device),
+                      torch.rand((B, *shape), device=device, generator=gen),
+                      gen)
+    return {"K1": k1, "K3": (k3_abs, k3_rel), "K6": errs[0], "K7": errs[1],
+            "K8": (errs[2], errs[3])}
+
+
+def gray_case(errs, label, f, kw, u, gen=None):
+    """K6, K7 and K8 on input u against their plain versions, K8 twice and
+    bit for bit; errs (K6, K7, K8 abs, K8 of a gradient's largest entry)
+    takes each largest error."""
+    args = [f[k] for k in GRAY_KEYS]
+    label = f"{label} ({kw['ts'].shape[0]} steps) B={u.shape[0]}"
+    out = fused_grayscale_diffusion_fwd(u, *args, **kw)
+    torch.cuda.synchronize()
+    errs[0] = max(errs[0], check(f"K6 {label}", max_err(
+        out, fused_grayscale_diffusion_plain(u, *args, **kw)), KERNEL_TOL))
+    out, res = fused_grayscale_fwd_res(u, *args, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_res = fused_grayscale_fwd_res_plain(u, *args, **kw)
+    errs[1] = max(errs[1],
+                  check(f"K7 {label} output", max_err(out, ref_out),
+                        KERNEL_TOL),
+                  check(f"K7 {label} residuals", max_err(res, ref_res),
+                        KERNEL_TOL))
+    g = torch.randn(u.shape, device=u.device, generator=gen)
+    grads = fused_grayscale_bwd(g, res, out, *args, **kw)
+    again = fused_grayscale_bwd(g, res, out, *args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"K8 {label}: two runs differ")
+    ref = fused_grayscale_bwd_plain(g, res, out, *args, **kw)
+    for name, o, r in zip(("u",) + GRAY_KEYS, grads, ref):
+        errs[3] = max(errs[3], check_rel(f"K8 {label} grad {name}",
+                                         rel_err(o, r), GRAD_TOL))
+        errs[2] = max(errs[2], max_err(o, r))
 
 
 def grayscale_model(device, preset="mnist", fused_inference=False,
@@ -917,7 +962,7 @@ def grayscale_model(device, preset="mnist", fused_inference=False,
 def phase_grayscale(device):
     """The grayscale family: mnist served and trained in both
     configurations, and both CLIs; then fashion_mnist (4 steps, a BN head)
-    served at B in {1, 128} and trained at B = 128 the same way."""
+    served at B in {1, 128, 1024} and trained at B = 128 the same way."""
     launches, rates = serve_family(
         "gray-serve", device, lambda config: grayscale_model(
             device, fused_inference=config == "fused"),
@@ -960,8 +1005,9 @@ def phase_grayscale(device):
     fashion_serve = serve_family(
         "fashion-serve", device, lambda config: grayscale_model(
             device, "fashion_mnist", fused_inference=config == "fused"),
-        (1, 28, 28), (1, 128), {"per_sweep": {"K1": 12}, "fused": {"K6": 1}},
-        {1: 30, 128: 20}, SEED + 11)
+        (1, 28, 28), (1, 128, 1024),
+        {"per_sweep": {"K1": 12}, "fused": {"K6": 1}},
+        {1: 30, 128: 20, 1024: 10}, SEED + 11)
     images, labels, _, _ = make_synthetic("fashion_mnist", train_per_class=64)
     data = (torch.from_numpy(images).to(device),
             torch.from_numpy(labels).to(device))
@@ -1323,67 +1369,151 @@ def times_thomas(device, peak_bytes, peak_flops):
             for key, entries in rows.items()}
 
 
-def times_grayscale(device, peak_bytes, peak_flops):
-    """K6, K7 and K8 on the mnist layer (10 Strang steps, 28 x 28) at
-    B = 128 and 1024, each beside its plain version and its bound.  Returns
-    the B = 1024 figures, with those at B = 128 under ``at_B128``."""
-    rng = np.random.default_rng(SEED + 10)
-    f = gray_fields(rng, device, "mnist")
-    args = [f[k] for k in GRAY_KEYS]
-    kw = gray_kwargs("mnist", device)
+def raw_gray(args, kw, u, g, res, y):
+    """K6, K7 and K8 as callables that launch straight through their C entry
+    points on outputs and scratch (the factor table, K8's partials)
+    allocated once, with the arguments and the launch plan the wrappers
+    pass: K6 and K7 on u, K8 on the cotangent g, K7's residuals res and
+    output y.  As ``raw_thomas``: for ``graph_ms``, on the stream current
+    when they are made."""
+    B, H, W = u.shape
     S = kw["ts"].shape[0]
-    field = 28 * 28
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    dtf = _dt_factors(kw["dt"], kw["dx"], kw["dy"], "strang")
+    tail = (*dtf, kw["eps"], kernels.stream_handle(u.device))
+    ptrs = [t.data_ptr() for t in (*args, kw["ts"])]
+    fplan = plan_grayscale(B, H, W, sms)
+    bplan = plan_grayscale(B, H, W, sms, backward=True)
+    fwd = bind_gray("fused_grayscale", "fused_grayscale_diffusion",
+                    GRAY_ARGTYPES, "fused_grayscale_layout", (H, W), fplan)
+    bwd = bind_gray("fused_grayscale_vjp", "fused_grayscale_diffusion_bwd",
+                    GRAY_BWD_ARGTYPES, "fused_grayscale_bwd_layout", (H, W),
+                    bplan)
+    out, res_out, gu = (torch.empty_like(u), torch.empty_like(res),
+                        torch.empty_like(u))
+    grads = [torch.empty_like(a) for a in args]
+    # held here, not only by address (see raw_fused)
+    ftable = factor_table(fplan, S, u.device)
+    btable = factor_table(bplan, S, u.device)
+    partials = torch.empty((bplan.grid, 4 * H * W), device=u.device)
+
+    def launch(name, fn, *ptr_args):
+        kernels.raise_on_error(name, fn(*ptr_args))
+
+    def k6():
+        launch("K6", fwd, u.data_ptr(), out.data_ptr(), *ptrs, None,
+               ftable.data_ptr(), B, H, W, fplan.grid, S, *tail)
+        return out
+
+    def k7():
+        launch("K7", fwd, u.data_ptr(), out.data_ptr(), *ptrs,
+               res_out.data_ptr(), ftable.data_ptr(), B, H, W, fplan.grid,
+               S, *tail)
+        return out, res_out
+
+    def k8():
+        launch("K8", bwd, g.data_ptr(), res.data_ptr(), y.data_ptr(), *ptrs,
+               gu.data_ptr(), *(t.data_ptr() for t in grads),
+               btable.data_ptr(), partials.data_ptr(), B, H, W, bplan.grid,
+               S, *tail)
+        return (gu, *grads)
+    return k6, k7, k8
+
+
+def times_grayscale(device, peak_bytes, peak_flops):
+    """K6 at B = 1, 128 and 1024 and K7 and K8 at B = 128 and 1024 on the
+    mnist layer (10 Strang steps, 28 x 28), and K6 on the fashion_mnist
+    layer (4 steps) at B = 1, 128 and 1024: device time by raw launches back
+    to back in a CUDA graph (``graph_ms``; each launch's outputs held
+    against the wrapper's), CUDA events around wrapper calls (host
+    included), the plain version and the bound.  Returns each kernel's
+    mnist B = 1024 figures, with the others under ``at_B1``, ``at_B128``
+    and ``fashion_mnist_at_B<B>``."""
+    rng = np.random.default_rng(SEED + 10)
     out = {}
-    for B in (128, 1024):
-        elems = B * field
-        u = torch.rand((B, 28, 28), device=device)
-        g = torch.randn_like(u)
-        k6 = (time_ms(lambda: fused_grayscale_diffusion_fwd(u, *args, **kw)),
-              time_ms(lambda: fused_grayscale_diffusion_plain(u, *args, **kw),
-                      groups=10, per_group=1))
-        k7 = (time_ms(lambda: fused_grayscale_fwd_res(u, *args, **kw)),
-              time_ms(lambda: fused_grayscale_fwd_res_plain(u, *args, **kw),
-                      groups=10, per_group=1))
-        y, res = fused_grayscale_fwd_res(u, *args, **kw)
-        k8 = (time_ms(lambda: fused_grayscale_bwd(g, res, y, *args, **kw)),
-              time_ms(lambda: fused_grayscale_bwd_plain(g, res, y, *args,
-                                                        **kw),
-                      groups=5, per_group=1))
-        # K6 reads u, the four fields and ts and writes the output once.
-        # Per element, step and image: three sweeps of elimination and
-        # back-substitution, 5 each.  Once per (h, w), step and sweep, the
-        # same for every image: the coefficient (fma, max: 2), its 3-tap
-        # smoothing (5), ·dtf (1), b (2) and the c* chain (3): 13.
-        k6_bound = bound(4 * (2 * elems + 4 * field + 3 * S),
-                         elems * S * 15 + field * S * 3 * 13,
-                         peak_bytes, peak_flops)
-        # K7: K6's work and the S residual states written once more.
-        k7_bound = bound(4 * ((2 + S) * elems + 4 * field + 3 * S),
-                         elems * S * 15 + field * S * 3 * 13,
-                         peak_bytes, peak_flops)
-        # K8 reads g, the output and the S residuals and writes grad u,
-        # reads the four fields and writes their gradients.  Per element,
-        # step and image: two recompute sweeps (5 each), three adjoint
-        # solves (5 each) and three grad_r folds with their batch sum (7
-        # each): 46.  Once per (h, w) and step: the bands of the five solves
-        # (13 each) and, for the three adjoints, ·dtf, the smooth3 adjoint,
-        # the gate and the two accumulations (10 each): 95.
-        k8_bound = bound(4 * ((3 + S) * elems + 8 * field + 3 * S),
-                         elems * S * 46 + field * S * 95,
-                         peak_bytes, peak_flops)
-        at = f"mnist layer, 10 steps, B={B} (28,28)"
-        for name, (ms, plain_ms), (b_ms, b_by) in (
-                ("K6", k6, k6_bound), ("K7", k7, k7_bound),
-                ("K8", k8, k8_bound)):
-            log(f"[times] {name} {at}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
-                "none (no PyTorch call computes the layer)")
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, at=at)
-            if B == 1024:
-                out.setdefault(name, {}).update(entry)
-            else:
-                out.setdefault(name, {})["at_B128"] = entry
+    for preset in ("mnist", "fashion_mnist"):
+        f = gray_fields(rng, device, preset)
+        args = [f[k] for k in GRAY_KEYS]
+        kw = gray_kwargs(preset, device)
+        S = kw["ts"].shape[0]
+        field = 28 * 28
+        for B in (1, 128, 1024):
+            elems = B * field
+            u = torch.rand((B, 28, 28), device=device)
+            g = torch.randn_like(u)
+            y, res = fused_grayscale_fwd_res(u, *args, **kw)
+            raw = raw_gray(args, kw, u, g, res, y)
+            for name, got, want in (
+                    ("K6", raw[0](),
+                     fused_grayscale_diffusion_fwd(u, *args, **kw)),
+                    ("K7", raw[1](), (y, res)),
+                    ("K8", raw[2](),
+                     fused_grayscale_bwd(g, res, y, *args, **kw))):
+                torch.cuda.synchronize()
+                want = want if isinstance(want, tuple) else (want,)
+                got = got if isinstance(got, tuple) else (got,)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name} {preset} B={B}: raw launch "
+                                         "and wrapper differ")
+            # K6 reads u, the four fields and ts and writes the output once.
+            # Per element, step and image: three sweeps of elimination and
+            # back-substitution, 5 each.  Once per (h, w), step and sweep,
+            # the same for every image: the coefficient (fma, max: 2), its
+            # 3-tap smoothing (5), ·dtf (1), b (2) and the c* chain (3): 13.
+            k6_bound = bound(4 * (2 * elems + 4 * field + 3 * S),
+                             elems * S * 15 + field * S * 3 * 13,
+                             peak_bytes, peak_flops)
+            # K7: K6's work and the S residual states written once more.
+            k7_bound = bound(4 * ((2 + S) * elems + 4 * field + 3 * S),
+                             elems * S * 15 + field * S * 3 * 13,
+                             peak_bytes, peak_flops)
+            # K8 reads g, the output and the S residuals and writes grad u,
+            # reads the four fields and writes their gradients.  Per
+            # element, step and image: two recompute sweeps (5 each), three
+            # adjoint solves (5 each) and three grad_r folds with their
+            # batch sum (7 each): 46.  Once per (h, w) and step: the bands
+            # of the five solves (13 each) and, for the three adjoints,
+            # ·dtf, the smooth3 adjoint, the gate and the two accumulations
+            # (10 each): 95.
+            k8_bound = bound(4 * ((3 + S) * elems + 8 * field + 3 * S),
+                             elems * S * 46 + field * S * 95,
+                             peak_bytes, peak_flops)
+            rows = [("K6", 0, lambda: fused_grayscale_diffusion_fwd(
+                        u, *args, **kw),
+                     lambda: fused_grayscale_diffusion_plain(u, *args, **kw),
+                     k6_bound, 10)]
+            if preset == "mnist" and B > 1:
+                rows += [
+                    ("K7", 1, lambda: fused_grayscale_fwd_res(u, *args, **kw),
+                     lambda: fused_grayscale_fwd_res_plain(u, *args, **kw),
+                     k7_bound, 10),
+                    ("K8", 2, lambda: fused_grayscale_bwd(g, res, y, *args,
+                                                          **kw),
+                     lambda: fused_grayscale_bwd_plain(g, res, y, *args,
+                                                       **kw),
+                     k8_bound, 5)]
+            at = f"{preset} layer, {S} steps, B={B} (28,28)"
+            for name, i, call, plain, (b_ms, b_by), plain_groups in rows:
+                entry = dict(
+                    at=at,
+                    ms=graph_ms(lambda i=i: [raw_gray(args, kw, u, g, res,
+                                                      y)[i]], walks=20),
+                    call_ms=time_ms(call),
+                    plain_ms=time_ms(plain, groups=plain_groups,
+                                     per_group=1),
+                    bound_ms=b_ms, bound_by=b_by)
+                log(f"[times] {name} {at}: kernel {entry['ms']:.4f} ms (a "
+                    f"CUDA graph of back-to-back launches), call "
+                    f"{entry['call_ms']:.4f} ms (events around wrapper "
+                    f"calls, host included), plain {entry['plain_ms']:.4f} "
+                    f"ms, bound {b_ms:.4f} ms ({b_by}); library: none (no "
+                    "PyTorch call computes the layer)")
+                if preset == "fashion_mnist":
+                    out.setdefault(name, {})[f"fashion_mnist_at_B{B}"] = entry
+                elif B == 1024:
+                    out.setdefault(name, {}).update(entry)
+                else:
+                    out.setdefault(name, {})[f"at_B{B}"] = entry
     return out
 
 

@@ -15,7 +15,12 @@ fused_grayscale_diffusion``.  ``fused_grayscale_diffusion`` is a
   summed over the batch, the adjoint of ``smooth3`` along the sweep axis
   (``_smooth3_adjoint``), the one-sided clamp gate raw > eps and the weight
   t on the time coefficients.  K8 (``csrc/fused_grayscale_vjp.cu``) on the
-  card, ``fused_grayscale_bwd_plain`` elsewhere.
+  card, ``fused_grayscale_bwd_plain`` elsewhere.  K8's blocks each take a
+  tile of whole images (``fused_grayscale.plan_grayscale``), accumulate
+  their field gradients over all steps and write them once as partials,
+  which a last kernel of the same call sums over the tiles in a fixed
+  order; ``fused_grayscale_bwd_tiled`` is the plain mirror of that
+  structure.
 
 The clamp gate is applied as a mask, never as autograd through
 ``clamp_min``, whose gradient passes 1 at the bound.
@@ -29,19 +34,18 @@ import torch
 
 from . import kernels
 from .fused_channel import _dt_factors
-from .fused_channel_vjp import _grad_r
+from .fused_channel_vjp import _grad_r, _sum_tile_partials, _tile_bounds
 from .fused_grayscale import (_abc_smooth, _coeff, _sweep_smooth,
-                              _sweep_y_smooth, check_layer_args,
-                              fused_grayscale_diffusion_plain, launch_forward,
-                              launch_shape)
-from .tridiag import _transpose_system, tridiag_solve_pcr
+                              _sweep_y_smooth, bind, check_layer_args,
+                              factor_table, fused_grayscale_diffusion_plain,
+                              launch_forward, plan_grayscale)
+from .tridiag import _sms, _transpose_system, tridiag_solve_pcr
 
 __all__ = ["fused_grayscale_diffusion", "fused_grayscale_fwd_res",
            "fused_grayscale_fwd_res_plain", "fused_grayscale_bwd",
-           "fused_grayscale_bwd_plain", "TILE_B_BWD"]
+           "fused_grayscale_bwd_plain", "fused_grayscale_bwd_tiled"]
 
-TILE_B_BWD = 4          # images a K8 block: 128 threads, 55.1 KB at 28×28
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
@@ -138,11 +142,35 @@ def fused_grayscale_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
     return cot, grads["ab"], grads["atc"], grads["bb"], grads["btc"]
 
 
+def fused_grayscale_bwd_tiled(g, res, out, alpha_base, alpha_tc,
+                              beta_base, beta_tc, *, grid, dt, dx, dy, ts,
+                              eps=1e-6):
+    """Plain mirror of K8's reduction structure: the images split over
+    ``grid`` tiles as K8's blocks take them; each tile's field gradients
+    accumulated over all steps (the plain backward on its images) into one
+    partial row (4·H·W); the rows summed over tiles in K8's fixed order
+    (``fused_channel_vjp._sum_tile_partials``).  The same five gradients as
+    ``fused_grayscale_bwd_plain``."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
+    gus, rows = [], []
+    for first, last in _tile_bounds(g.shape[0], grid):
+        gu, *grads = fused_grayscale_bwd_plain(
+            g[first:last], res[:, first:last], out[first:last], *fields,
+            **kw)
+        gus.append(gu)
+        rows.append(torch.cat([t.reshape(-1) for t in grads]))
+    total = _sum_tile_partials(torch.stack(rows))
+    return (torch.cat(gus),
+            *total.view(4, *alpha_base.shape).unbind(0))
+
+
 def fused_grayscale_bwd(g, res, out, alpha_base, alpha_tc, beta_base,
                         beta_tc, *, dt, dx, dy, ts, eps=1e-6):
     """The five gradients: K8 on a CUDA tensor, the plain version on a CPU
-    tensor.  K8 writes one partial field gradient per block; they are
-    summed here, in a fixed order."""
+    tensor.  K8's one C call makes the factor table, writes each block's
+    partial field gradients into a scratch and sums them over blocks in a
+    fixed order."""
     fields = (alpha_base, alpha_tc, beta_base, beta_tc)
     kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
     if not kernels.use_kernel(g):
@@ -155,25 +183,27 @@ def fused_grayscale_bwd(g, res, out, alpha_base, alpha_tc, beta_base,
                          f"and output {tuple(out.shape)} do not match g "
                          f"{tuple(g.shape)} over {S} steps")
     kernels.check_float32("fused_grayscale_bwd", g.device, res=res, out=out)
-    launch_shape(TILE_B_BWD, H, W, 4, 1)
-    if B == 0:
-        return (torch.empty_like(g), *(torch.zeros_like(f) for f in fields))
-    G = -(-B // TILE_B_BWD)
+    plan = plan_grayscale(max(B, 1), H, W, _sms(g.device), backward=True)
     gu = torch.empty_like(g)
-    partials = [torch.empty((G, H, W), dtype=g.dtype, device=g.device)
-                for _ in range(4)]
+    grads = [torch.empty_like(f) for f in fields]
+    if B == 0:
+        return (gu, *(t.zero_() for t in grads))
+    table = factor_table(plan, S, g.device)
+    partials = torch.empty((plan.grid, 4 * H * W), dtype=g.dtype,
+                           device=g.device)
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, "strang")
-    fn = kernels.function("fused_grayscale_vjp",
-                          "fused_grayscale_diffusion_bwd", _BWD_ARGTYPES)
+    fn = bind("fused_grayscale_vjp", "fused_grayscale_diffusion_bwd",
+              _BWD_ARGTYPES, "fused_grayscale_bwd_layout", (H, W), plan)
     with torch.cuda.device(g.device):
         code = fn(g.data_ptr(), res.data_ptr(), out.data_ptr(),
                   *(f.data_ptr() for f in fields), ts.data_ptr(),
-                  gu.data_ptr(), *(p.data_ptr() for p in partials),
-                  B, H, W, TILE_B_BWD, S, dtf_x, dtf_y, eps,
+                  gu.data_ptr(), *(t.data_ptr() for t in grads),
+                  table.data_ptr(), partials.data_ptr(),
+                  B, H, W, plan.grid, S, dtf_x, dtf_y, eps,
                   kernels.stream_handle(g.device))
     kernels.raise_on_error("fused_grayscale_bwd", code)
     fused_grayscale_bwd.launches += 1
-    return (gu, *(p.sum(dim=0) for p in partials))
+    return (gu, *grads)
 
 
 fused_grayscale_bwd.launches = 0

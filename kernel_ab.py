@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this checkout's kernels against another checkout's on one GPU, in
-turns: K1 and K3 (cnn_pde_tpu_torch/csrc/thomas.cu), and K2, K4 and K5 (the
-fused channel kernels).
+turns: K1 and K3 (cnn_pde_tpu_torch/csrc/thomas.cu), K2, K4 and K5 (the
+fused channel kernels), and K6, K7 and K8 (the fused grayscale kernels).
 
     python3 kernel_ab.py [--other DIR ...]
 
@@ -25,16 +25,20 @@ CUDA events around the replay of a CUDA graph of 100 launches
 outputs are held against the plain versions (1e-5 abs; band gradients 1e-4
 of their largest entry).
 
-K2, K4 and K5.  Their C interface changes between checkouts, so each
-checkout's own wrappers and build run them, in a subprocess started in that
-checkout (``FUSED_TIMER``), every other checkout in the same order: on the
+K2-K8.  Their C interface changes between checkouts, so each checkout's
+own wrappers and build run them, in a subprocess started in that checkout
+(``FUSED_TIMER``), every other checkout in the same order: on the
 flagship's 8-step Strang branch (3, 32, 32) with fields from a seed, K2 at
-B in {1, 64, 512} and K4 and K5 at B in {64, 512}, each timed two ways:
-the device time of the kernels a wrapper call launches, as torch.profiler
-records them (``device_ms``), and CUDA events around the replay of a CUDA
-graph of 20 wrapper calls (``graph_ms``).  The outputs of each other
-checkout are held against this one's (K2 and K4 1e-5 abs, K5 1e-4 of each
-gradient's largest entry).
+B in {1, 64, 512} and K4 and K5 at B in {64, 512}; on the mnist layer (28 x
+28, 10 Strang steps) K6 at B in {1, 128, 1024} and K7 and K8 at B in {128,
+1024}; each timed two ways: the device time of the kernels a wrapper call
+launches, as torch.profiler records them (``device_ms``; for K8 of a
+checkout that sums its partials with torch.sum, those sums too), and CUDA
+events around the replay of a CUDA graph of 20 wrapper calls
+(``graph_ms``).  The outputs of each other checkout are held against this
+one's (K2, K4, K6 and K7 1e-5 abs, K5 and K8 1e-4 of each gradient's
+largest entry).  Each checkout's thomas.cu, fused_channel.cu and
+fused_channel_vjp.cu are compiled to SASS and compared with this one's.
 
 Prints one line a shape and version, then one JSON line.
 """
@@ -139,6 +143,10 @@ sys.path.insert(0, ".")
 from cnn_pde_tpu_torch.ops.fused_channel import fused_channel_diffusion_fwd
 from cnn_pde_tpu_torch.ops.fused_channel_vjp import (fused_channel_bwd,
                                                      fused_channel_fwd_res)
+from cnn_pde_tpu_torch.ops.fused_grayscale import \
+    fused_grayscale_diffusion_fwd
+from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import (
+    fused_grayscale_bwd, fused_grayscale_fwd_res)
 from cnn_pde_tpu_torch.pde.diffusion import _substep_times_np
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -207,14 +215,38 @@ for B in (1, 64, 512):
                                 (out if isinstance(out, tuple) else (out,))]
         rows.append(dict(kernel=name, B=B, device_ms=device_ms(fn),
                          graph_ms=graph_ms(fn)))
+
+# the mnist layer: 28 x 28, 10 Strang steps, dt 0.001, fields 2 +- 0.5 with
+# time coefficients that move them by about 1 over the layer
+GS, GSTEPS, GDT = 28, 10, 0.001
+gargs = [t(2.0 + 0.5 * rng.standard_normal((GS, GS))),
+         t(rng.standard_normal((GS, GS)) / (GDT * GSTEPS)),
+         t(2.0 + 0.5 * rng.standard_normal((GS, GS))),
+         t(rng.standard_normal((GS, GS)) / (GDT * GSTEPS))]
+gkw = dict(dt=GDT, dx=1.0, dy=1.0, eps=1e-6,
+           ts=t(_substep_times_np(GDT, GSTEPS)))
+for B in (1, 128, 1024):
+    u = t(rng.random((B, GS, GS)))
+    g = t(rng.standard_normal((B, GS, GS)))
+    y, res = fused_grayscale_fwd_res(u, *gargs, **gkw)
+    calls = {"K6": lambda: fused_grayscale_diffusion_fwd(u, *gargs, **gkw)}
+    if B > 1:
+        calls["K7"] = lambda: fused_grayscale_fwd_res(u, *gargs, **gkw)
+        calls["K8"] = lambda: fused_grayscale_bwd(g, res, y, *gargs, **gkw)
+    for name, fn in calls.items():
+        out = fn()
+        outs[f"{name}_B{B}"] = [o.cpu() for o in
+                                (out if isinstance(out, tuple) else (out,))]
+        rows.append(dict(kernel=name, B=B, device_ms=device_ms(fn),
+                         graph_ms=graph_ms(fn)))
 torch.save(outs, sys.argv[1])
 print(json.dumps(rows))
 """
 
 
 def fused_times(root: Path, label: str, turn: int):
-    """K2, K4 and K5 of the checkout at ``root``, timed by its own wrappers
-    in a subprocess; (rows, outputs)."""
+    """K2-K8 of the checkout at ``root``, timed by its own wrappers in a
+    subprocess; (rows, outputs)."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     saved = kernels.BUILD_DIR / f"ab-{label}-{turn}.pt"
     run = subprocess.run([sys.executable, "-c", FUSED_TIMER, str(saved)],
@@ -226,10 +258,10 @@ def fused_times(root: Path, label: str, turn: int):
 
 
 def compare_fused(this_outs, other_outs, label):
-    """Hold another checkout's K2, K4 and K5 outputs against this one's."""
+    """Hold another checkout's K2-K8 outputs against this one's."""
     for key, mine in this_outs.items():
         for i, (a, b) in enumerate(zip(mine, other_outs[key])):
-            if key.startswith("K5"):
+            if key.startswith(("K5", "K8")):
                 cs.check_rel(f"{key} output {i} this vs {label}",
                              cs.rel_err(a, b), cs.GRAD_TOL)
             else:
@@ -270,15 +302,20 @@ def main():
     others = [label for label in roots if label != "this"]
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # K1 and K3 of another checkout are timed only where its thomas.cu
-    # compiles to other instructions than this one's
-    mine = sass(roots["this"] / "cnn_pde_tpu_torch/csrc/thomas.cu",
-                kernels.BUILD_DIR / "ab-this-thomas.cubin")
-    same = {label: mine == sass(
-        roots[label] / "cnn_pde_tpu_torch/csrc/thomas.cu",
-        kernels.BUILD_DIR / f"ab-{label}-thomas.cubin") for label in others}
-    for label in others:
-        cs.log(f"[ab] thomas.cu of this checkout and of {label} compile to "
-               f"{'the same' if same[label] else 'different'} SASS")
+    # compiles to other instructions than this one's; fused_channel.cu and
+    # fused_channel_vjp.cu (K2, K4, K5) are compared the same way
+    same_sass = {}
+    for source in ("thomas", "fused_channel", "fused_channel_vjp"):
+        mine = sass(roots["this"] / f"cnn_pde_tpu_torch/csrc/{source}.cu",
+                    kernels.BUILD_DIR / f"ab-this-{source}.cubin")
+        for label in others:
+            same_sass[(source, label)] = mine == sass(
+                roots[label] / f"cnn_pde_tpu_torch/csrc/{source}.cu",
+                kernels.BUILD_DIR / f"ab-{label}-{source}.cubin")
+            word = "the same" if same_sass[(source, label)] else "different"
+            cs.log(f"[ab] {source}.cu of this checkout and of {label} "
+                   f"compile to {word} SASS")
+    same = {label: same_sass[("thomas", label)] for label in others}
     timed = [label for label in others if not same[label]]
     versions = {"this": cs.this_thomas()}
     versions.update({label: load_other(roots[label]) for label in timed})
@@ -310,7 +347,9 @@ def main():
             rows.append(dict(at=at, version=label, k1_ms=k1_ms, k3_ms=k3_ms,
                              k1_events_ms=k1_ev, k3_events_ms=k3_ev,
                              k1_graph_ms=k1_gr, k3_graph_ms=k3_gr))
-    result = {"thomas_ab": rows, "thomas_same_sass": same}
+    result = {"thomas_ab": rows, "thomas_same_sass": same,
+              "same_sass": {f"{source} {label}": v
+                            for (source, label), v in same_sass.items()}}
 
     order = [*others, "this", "this", *reversed(others)]
     fused, outs = {}, {}
@@ -324,9 +363,10 @@ def main():
     for (name, B, label), rs in sorted(fused.items()):
         dev_ms = [r["device_ms"] for r in rs]
         gr_ms = [r["graph_ms"] for r in rs]
-        cs.log(f"[ab] {name} 8-step Strang branch B={B} (3,32,32) {label}: "
-               f"device time {dev_ms} ms, CUDA graph of wrapper calls "
-               f"{gr_ms} ms (each turn)")
+        at = ("8-step Strang branch (3,32,32)" if name in ("K2", "K4", "K5")
+              else "mnist layer, 10 steps (28,28)")
+        cs.log(f"[ab] {name} {at} B={B} {label}: device time {dev_ms} ms, "
+               f"CUDA graph of wrapper calls {gr_ms} ms (each turn)")
         result["fused_ab"].append(dict(kernel=name, B=B, version=label,
                                        device_ms=dev_ms, graph_ms=gr_ms))
     cs.log(json.dumps(result))

@@ -28,10 +28,10 @@ from cnn_pde_tpu.ops.smoothing import smooth3 as jax_smooth3
 from cnn_pde_tpu.pde import GrayscaleDiffusion as JaxGrayscale
 from cnn_pde_tpu_torch.ops import smooth3, sweep_x, sweep_y
 from cnn_pde_tpu_torch.ops.fused_grayscale import (
-    TILE_B, check_layer_args, fused_grayscale_diffusion_fwd,
-    fused_grayscale_diffusion_plain, launch_shape)
+    check_layer_args, fused_grayscale_diffusion_fwd,
+    fused_grayscale_diffusion_plain, plan_grayscale)
 from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import (
-    TILE_B_BWD, fused_grayscale_bwd, fused_grayscale_bwd_plain,
+    fused_grayscale_bwd, fused_grayscale_bwd_plain,
     fused_grayscale_diffusion, fused_grayscale_fwd_res,
     fused_grayscale_fwd_res_plain)
 from cnn_pde_tpu_torch.pde.diffusion import _substep_times_np
@@ -271,8 +271,17 @@ def test_layer_argument_checks_and_block_budget():
              "H, W in")):
         with pytest.raises((ValueError, TypeError), match=match):
             check_layer_args("k", *bad)
-    assert launch_shape(TILE_B, 28, 28, 1) == (224, 4 * TILE_B * 28 * 29)
-    assert launch_shape(TILE_B_BWD, 28, 28, 4, 1) == (
-        128, 4 * (4 * TILE_B_BWD * 28 * 29 + 28 * 28))
+    # mnist's layer at B = 1024 on an H100's 132 SMs: 256 blocks of 4
+    # images, two threads a line and image of 28 rows in groups of 8 lanes
+    # a line (224 threads, 256 at least); a block's bytes: factor buffers of
+    # two slots (a slot 28 lines of 29 floats: four buffers for K6/K7, two
+    # for K8), two image buffers of (28, 29) floats an image for K6/K7, five
+    # for K8 beside its (4, 28, 28) partials and (28, 28) fold
+    slot = 28 * 29
+    assert plan_grayscale(1024, 28, 28, 132) == (
+        256, 4, 256, 4 * (4 * 2 * slot + 4 * 2 * slot), 3 * slot)
+    assert plan_grayscale(1024, 28, 28, 132, backward=True) == (
+        256, 4, 256, 4 * (2 * 2 * slot + 5 * 28 * 28 + 4 * 5 * slot),
+        3 * slot)
     with pytest.raises(ValueError, match="shared memory"):
-        launch_shape(64, 64, 64, 4, 1)
+        plan_grayscale(7, 72, 72, 132, backward=True)
