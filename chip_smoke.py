@@ -34,10 +34,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    read around that run, then images/s; then the serve CLI on cuda;
 5. the device's busy share of a served flagship forward (torch.profiler);
 6. training the flagship: the train step (``make_train_step``, the preset's
-   augmentation, dropout and grouped AdamW) per-sweep and fused at B = 64
-   and 256: launch counts read around one step, the loss and every
-   gradient held against the same step on the plain versions (and both
-   against that step in float64, logged), 50 steps on synthetic CIFAR-10
+   augmentation, dropout and grouped AdamW) per-sweep and fused: launch
+   counts read around one step at B = 64, the loss and every gradient
+   held against the same step on the plain versions at B = 64 and 256
+   (and both against that step in float64, logged), 50 steps on synthetic CIFAR-10
    with a falling loss, images/s by CUDA events, the
    device's busy share of a step; then the train CLI on cuda;
 7. the grayscale family (mnist): serving per-sweep (30 K1 a forward) and
@@ -49,7 +49,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``--preset mnist`` on cuda; then fashion_mnist the same way, served at
    B in {1, 128, 1024} (12 K1 or 1 K6 a forward) and trained at B = 128
    (12 K1 + 12 K3, or 1 K7 + 1 K8 a step), without its CLIs;
-8. times of each kernel and its plain version beside the least time the
+8. the AMP grade (hoisted sweep operators) and SVHN: K1 as the operator
+   builder (``tridiag_inverse_operator``, the identity as a right-hand
+   side of batch N) on the flagship's largest stack against its plain
+   version, timed (float32 and bf16 X) beside the plain version, the
+   bound and torch.linalg.inv; one bf16 operator sweep against the
+   float32 one; one sweep's apply at the flagship's B = 64 and 1024 by
+   each GEMM route (float32, bmm with a float32 result, bf16-rounded
+   operands in a float32 GEMM), device time in a CUDA graph and call
+   time by CUDA events;
+   the flagship served (operators cached: 6 K1 launches, none a request)
+   at B in {1, 64, 1024} and trained (6 K1 a step, no K3) at B = 64, with
+   images/s and the busy share at 64 and 256, in both grades: float32
+   hoisted against the per-sweep path (logits 1e-4, every ADI layer's
+   output 1e-5, the train step's loss and gradients 1e-4 of their
+   largest entry), bf16 (bmm with bf16 operands and a float32 result)
+   against the same grade on its plain versions (bf16-rounded operands in
+   a float32 GEMM: 4e-3 of the largest entry on logits, 6e-3 on
+   gradients, layer outputs 4e-4 in the RMS and two bf16 steps, 2^-6, of
+   the largest entry element by element), with its distance from float32
+   logged, and a control that must fail those limits: the same requests
+   with every bf16 GEMM returning bf16 (a bmm without ``out_dtype``);
+   serving rates of the float32 grade, the bf16 grade and the bf16 grade
+   on the rounded-operand route taken in turns, each profiled at the
+   largest B; mnist the same way at B = 128 (2 K1); SVHN per-sweep (30 K1 a forward, 30 K1 and
+   30 K3 a step) served at B in {1, 256} and trained at B = 256 against
+   its plain versions (50 steps, falling loss), and its two hoisted
+   grades the same way (2 K1); the serve CLI with --preset svhn --amp and
+   the train CLI with --preset svhn --amp --bf16-moments on cuda;
+9. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
    points in a CUDA graph and by CUDA events around wrapper calls; K6 at
@@ -60,13 +88,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layer's at B = 128 and 1024), in a CUDA graph, L2-warm and cold, with
    the wrapper's call time, the plain version, the bound and
    torch.linalg.solve on the dense system as the library yardstick;
-9. the ``kernels`` JSON line, then the contract line.
+10. the ``kernels`` JSON line (K1's row also carries the operator build's
+   figures and its hoisted launch counts), then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -81,7 +111,8 @@ from cnn_pde_tpu_torch.data.synthetic import make_synthetic
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
 from cnn_pde_tpu_torch.ops import kernels
-from cnn_pde_tpu_torch.ops.adi import _neumann_b
+from cnn_pde_tpu_torch.ops import tridiag as tridiag_module
+from cnn_pde_tpu_torch.ops.adi import _neumann_b, apply_sweep, sweep_operator
 from cnn_pde_tpu_torch.ops.fused_channel import _ARGTYPES as FWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_channel import (
     _dt_factors, fused_channel_diffusion_fwd, fused_channel_diffusion_plain,
@@ -109,12 +140,15 @@ from cnn_pde_tpu_torch.ops.tridiag import _ADJOINT_ARGTYPES, _ARGTYPES
 from cnn_pde_tpu_torch.ops.tridiag import _bind as bind_thomas
 from cnn_pde_tpu_torch.ops.tridiag import _line_shape
 from cnn_pde_tpu_torch.ops.tridiag import _plan as tridiag_plan
-from cnn_pde_tpu_torch.ops.tridiag import (tridiag_adjoint,
+from cnn_pde_tpu_torch.ops.tridiag import (gemm_route, tridiag_adjoint,
                                            tridiag_adjoint_plain,
+                                           tridiag_inverse_operator,
                                            tridiag_solve, tridiag_solve_plain)
-from cnn_pde_tpu_torch.pde.diffusion import _coeff_at, _substep_times_np
+from cnn_pde_tpu_torch.pde import enable_amp, iter_adi_layers
+from cnn_pde_tpu_torch.pde.diffusion import (_coeff_at, _coeff_at_times,
+                                             _substep_times_np)
 from cnn_pde_tpu_torch.presets import PRESETS
-from cnn_pde_tpu_torch.serve import make_predict_fn
+from cnn_pde_tpu_torch.serve import cache_hoisted_operators, make_predict_fn
 from cnn_pde_tpu_torch.train import (cross_entropy, make_train_step,
                                      train_steps)
 
@@ -195,9 +229,8 @@ def rel_err(x, y):
                  / y.abs().max().clamp_min(1e-30))
 
 
-def check_rel(label, err, tol):
-    log(f"  {label}: max err {err:.3e} of its largest entry "
-        f"(tolerance {tol:.0e})")
+def check_rel(label, err, tol, measure="max err", of="its largest entry"):
+    log(f"  {label}: {measure} {err:.3e} of {of} (tolerance {tol:.0e})")
     if not err <= tol:
         raise AssertionError(f"{label}: {err} > {tol}")
     return err
@@ -540,11 +573,14 @@ def device_busy(fn, reps, device):
     # cudaLaunchKernelExC for the grayscale kernels' dependent launches
     launches = sum(r.count for r in host
                    if r.key.startswith("cudaLaunchKernel"))
+    # and by the driver API (cuLaunchKernel, cuLaunchKernelEx), which
+    # cuBLAS may use
+    driver = sum(r.count for r in host if r.key.startswith("cuLaunchKernel"))
     return (device_us / wall_us, wall_us / reps,
             "; ".join(f"{k[:48]} {100 * t / device_us:.0f}%" for k, t in top),
             "; ".join(f"{r.key[:40]} x{r.count // reps} "
                       f"{r.self_cpu_time_total / reps / 1e3:.2f} ms"
-                      for r in host[:6]), launches / reps)
+                      for r in host[:6]), launches / reps, driver / reps)
 
 
 def serve_family(tag, device, make_model, shape, batches, expected, reps,
@@ -625,10 +661,12 @@ def log_busy(tag, label, busy, what):
             "recorded no kernel)")
     else:
         log(f"[{tag}] {label}: device busy {100 * busy[0]:.1f}% of "
-            f"{busy[1]:.0f} us a {what} (profiler on); top kernels: "
+            f"{busy[1]:.0f} us a {what} (profiler on), device time "
+            f"{busy[0] * busy[1]:.0f} us; top kernels: "
             f"{busy[2]}; top host ops a {what} (calls, self CPU time): "
             f"{busy[3]}; kernel launch calls (cudaLaunchKernel and "
-            f"cudaLaunchKernelExC) a {what}: {busy[4]:g}")
+            f"cudaLaunchKernelExC) a {what}: {busy[4]:g}, and by the "
+            f"driver API (cuLaunchKernel): {busy[5]:g}")
 
 
 def phase_profile(device):
@@ -1021,6 +1059,551 @@ def phase_grayscale(device):
         # biases that feed a train-mode BatchNorm
         zero_names={"fc1.bias", "fc2.bias"})
     return (launches, rates), train, fashion_serve, fashion_train
+
+
+# ---- the AMP grade (hoisted sweep operators) and SVHN -----------------------
+
+AMP_OUT_TOL = 4e-3    # bf16 grade, card route against its plain versions
+AMP_GRAD_TOL = 6e-3   # (outputs, gradients; of the largest entry)
+# An ADI layer's output, element by element: the two routes sum in another
+# order, and a state value within that rounding of a bf16 midpoint rounds
+# the other way, one bf16 step (2^-8 to 2^-7 of the value) that later
+# sweeps carry on; so the layer is held at two bf16 steps of its largest
+# entry element by element, and in the RMS, where such flips are rare, at
+# about five times the largest reading of the three families on an H100
+# (5.5e-05 to 8.3e-05): a GEMM that rounds its outputs to bf16 rounds
+# every element of the layer, about 2^-9 / sqrt(3) = 1.1e-3 in the RMS.
+AMP_LAYER_MAX_TOL = 2.0 ** -6
+AMP_LAYER_RMS_TOL = 4e-4
+SVHN_TRAIN = PRESETS["svhn"]["train"]
+# biases that feed a train-mode BatchNorm in the SVHN head
+SVHN_ZERO = {f"fc{i}.bias" for i in (1, 2, 3, 4)}
+
+
+def amp_switch(model, grade):
+    """``model``'s ADI layers on the hoisted path: 'f32' (float32
+    operators) or 'bf16' (``enable_amp``)."""
+    if grade == "bf16":
+        enable_amp(model)
+    else:
+        for layer in iter_adi_layers(model):
+            layer.hoisted = True
+    return model
+
+
+def adi_outputs(model):
+    """Forward hooks that keep each ADI layer's latest output; returns
+    (outputs list, hooks)."""
+    outs, hooks = [], []
+    for layer in iter_adi_layers(model):
+        hooks.append(layer.register_forward_hook(
+            lambda mod, inp, out: outs.append(out.detach().clone())))
+    return outs, hooks
+
+
+def svhn_model(device, dropout_rate=None):
+    """SVHN's classifier from a seeded generator, its ChannelCoupledDiffusion
+    fields replaced by seeded ones that move over the horizon (bases
+    0.1 ± 0.05, time coefficients N(0, 1), coupling I + 0.1·N(0, 1))."""
+    model = build_model("svhn", device=device,
+                        generator=torch.Generator().manual_seed(SEED),
+                        **({} if dropout_rate is None
+                           else {"dropout_rate": dropout_rate}))
+    USED_DEVICES.add(next(model.parameters()).device)
+    rng = np.random.default_rng(SEED + 13)
+    shape = (3, 32, 32)
+    values = {"alpha_base": 0.1 + 0.05 * rng.standard_normal(shape),
+              "beta_base": 0.1 + 0.05 * rng.standard_normal(shape),
+              "alpha_time_coeff": rng.standard_normal(shape),
+              "beta_time_coeff": rng.standard_normal(shape),
+              "channel_coupling": np.eye(3) + 0.1 * rng.standard_normal(
+                  (3, 3))}
+    with torch.no_grad():
+        for key, value in values.items():
+            getattr(model.diff, key).copy_(torch.tensor(value))
+    return model
+
+
+@contextlib.contextmanager
+def bf16_gemm_outputs():
+    """The control for the bf16 checks: every GEMM on bf16 operators
+    returns bf16 (``torch.bmm`` on bf16 operands without ``out_dtype``),
+    which rounds each of its outputs to bf16 before the float32 state
+    takes it: a worse grade than the JAX one, which the checks must
+    refuse."""
+    bmm = tridiag_module._bmm
+
+    def rounded(a, b):
+        if b.dtype != torch.bfloat16:
+            return bmm(a, b)
+        return torch.bmm(a.to(torch.bfloat16), b).float()
+
+    tridiag_module._bmm = rounded
+    try:
+        yield
+    finally:
+        tridiag_module._bmm = bmm
+
+
+def bf16_readings(batches, big, logits, plain, layers, plain_layers):
+    """The bf16 grade's readings against its plain versions, each (label,
+    error, limit, measure, scale): logits of each B and every ADI layer's
+    output at ``big``, in the RMS and element by element."""
+    out = [(f"B={B} logits", rel_err(logits[B], plain[B]), AMP_OUT_TOL,
+            "max err", "its largest entry") for B in batches]
+    for i, (o, p) in enumerate(zip(layers, plain_layers)):
+        rms = float((o.double() - p.double()).norm() / p.double().norm())
+        out.append((f"B={big} ADI layer {i}", rms, AMP_LAYER_RMS_TOL, "RMS",
+                    "the RMS"))
+        out.append((f"B={big} ADI layer {i}, element by element",
+                    rel_err(o, p), AMP_LAYER_MAX_TOL, "max err",
+                    "its largest entry"))
+    return out
+
+
+def forward_with_layers(model, predict, batches, images):
+    """Logits of one request of each B and every ADI layer's output at the
+    last (largest) B."""
+    outs, hooks = adi_outputs(model)
+    logits = {B: predict(images[B]) for B in batches}
+    for h in hooks:
+        h.remove()
+    return logits, outs[-len(hooks):]
+
+
+def amp_serve(tag, device, make_model, shape, batches, builds, reps, seed):
+    """The f32 and bf16 hoisted grades served by ``make_predict_fn`` with
+    the operators cached (``cache_hoisted_operators``), against the
+    per-sweep model (``make_model()``) on the same seeded requests.  Counts
+    reset before the cache is built and read after one request of each B:
+    ``builds`` K1 launches (two a layer) and nothing else.  f32: logits
+    within LOGIT_TOL and every ADI layer's output within KERNEL_TOL of
+    per-sweep.  bf16: logits within AMP_OUT_TOL of the largest entry
+    against the same grade on its plain versions (bf16-rounded operands in
+    a float32 GEMM, the grade the CPU tests hold against the JAX one), and
+    layer outputs within AMP_LAYER_RMS_TOL in the RMS and
+    AMP_LAYER_MAX_TOL element by element; their distance from per-sweep
+    float32 is logged: the grade's own rounding, which grows with the
+    sweeps (no bound).  The control (``bf16_gemm_outputs``) must exceed at
+    least one of those limits.  Then images/s a B (host clock) of three
+    routes taken in turns, three rounds of ``reps[B]`` requests each, the
+    median: 'f32', 'bf16' (the card's route) and 'bf16_rounded_f32' (the
+    bf16 model inside ``plain_versions()``, which with the operators
+    cached changes only the GEMM route), and the busy share of each at the
+    largest B.  Returns {route: (counts, rates)}."""
+    rng = np.random.default_rng(seed)
+    images = {B: torch.from_numpy(rng.random((B, *shape)).astype(
+        np.float32)).to(device) for B in batches}
+    big = max(batches)
+    ref_model = make_model()
+    ref, ref_layers = forward_with_layers(
+        ref_model, make_predict_fn(ref_model), batches, images)
+    result, predicts = {}, {}
+    for grade in ("f32", "bf16"):
+        model = amp_switch(make_model(), grade)
+        predict = make_predict_fn(model)
+        reset_counts()
+        cached = cache_hoisted_operators(model)
+        logits, layers = forward_with_layers(model, predict, batches, images)
+        torch.cuda.synchronize()
+        got = counts()
+        log(f"[{tag}] {grade}: {cached} layers cached, launches {got} over "
+            f"the cache and {len(batches)} requests; GEMM route "
+            f"{gemm_route(model_operator_dtype(model), device)}")
+        if got != only(K1=builds):
+            raise AssertionError(f"{tag} {grade}: expected {builds} K1")
+        for B in batches:
+            if logits[B].shape != (B, 10) or not torch.isfinite(
+                    logits[B]).all():
+                raise AssertionError(f"{tag} {grade} B={B}: bad logits")
+        if grade == "f32":
+            for B in batches:
+                check(f"{grade} B={B} logits vs per-sweep (K1)",
+                      max_err(logits[B], ref[B]), LOGIT_TOL)
+            for i, (o, r) in enumerate(zip(layers, ref_layers)):
+                check(f"{grade} B={big} ADI layer {i} vs per-sweep",
+                      max_err(o, r), KERNEL_TOL)
+        else:
+            with kernels.plain_versions():
+                plain, plain_layers = forward_with_layers(
+                    model, predict, batches, images)
+            for label, err, tol, measure, of in bf16_readings(
+                    batches, big, logits, plain, layers, plain_layers):
+                check_rel(f"bf16 {label} vs its plain versions (bf16-"
+                          "rounded operands, float32 GEMM)", err, tol,
+                          measure, of)
+            for B in batches:
+                log(f"  bf16 B={B} logits vs per-sweep float32: "
+                    f"{rel_err(logits[B], ref[B]):.3e} of the largest")
+            for i, (o, r) in enumerate(zip(layers, ref_layers)):
+                log(f"  bf16 B={big} ADI layer {i} vs per-sweep float32: "
+                    f"{rel_err(o, r):.3e} of the largest")
+            with bf16_gemm_outputs():
+                trap, trap_layers = forward_with_layers(
+                    model, predict, batches, images)
+            failed = 0
+            for label, err, tol, measure, of in bf16_readings(
+                    batches, big, trap, plain, trap_layers, plain_layers):
+                failed += not err <= tol
+                log(f"  control (every bf16 GEMM returns bf16) {label} vs "
+                    f"the plain versions: {measure} {err:.3e} of {of} "
+                    f"(limit {tol:.0e}{'' if err <= tol else ', exceeded'})")
+            if not failed:
+                raise AssertionError(f"{tag}: the control passed every "
+                                     "bf16 limit")
+        predicts[grade] = predict
+        result[grade] = (got, {})
+    result["bf16_rounded_f32"] = (result["bf16"][0], {})
+    routes = {"f32": (predicts["f32"], contextlib.nullcontext),
+              "bf16": (predicts["bf16"], contextlib.nullcontext),
+              "bf16_rounded_f32": (predicts["bf16"], kernels.plain_versions)}
+    for B in batches:
+        x = images[B]
+        runs = {route: [] for route in routes}
+        for _ in range(3):
+            for route, (predict, ctx) in routes.items():
+                with ctx():
+                    predict(x)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(reps[B]):
+                        predict(x)
+                    torch.cuda.synchronize()
+                runs[route].append(B * reps[B] / (time.perf_counter() - t0))
+        for route, rates in runs.items():
+            rate = statistics.median(rates)
+            result[route][1][f"B{B}"] = rate
+            log(f"[{tag}] {route} B={B}: {rate:.1f} images/s (host clock, "
+                f"median of 3 rounds of {reps[B]} requests, routes in "
+                f"turns; rounds {', '.join(f'{r:.1f}' for r in rates)})")
+    for route, (predict, ctx) in routes.items():
+        with ctx():
+            busy = device_busy(lambda: predict(images[big]), 5, device)
+        log_busy(tag, f"{route} B={big}", busy, "request")
+        if busy is not None:
+            result[route][1][f"B{big}_busy"] = busy[0]
+            result[route][1][f"B{big}_device_us_per_request"] = \
+                busy[0] * busy[1]
+            result[route][1][f"B{big}_launch_calls_per_request"] = busy[4]
+    return result
+
+
+def model_operator_dtype(model):
+    return next(iter_adi_layers(model)).operator_dtype
+
+
+def compare_grads(label, got, ref, tol, zero_names, rel_check=True):
+    """Worst of the loss and every gradient of ``got`` = (loss, grads)
+    against ``ref``, relative to each one's largest entry; a gradient of
+    ``zero_names`` (zero in exact arithmetic) must be within GRAD_TOL of
+    0 on both sides instead.  Held at ``tol`` unless ``rel_check`` is
+    False (then logged).  Returns the worst error."""
+    worst, where = rel_err(got[0], ref[0]), "loss"
+    for name, g in got[1].items():
+        if name in zero_names:
+            size = max(g.abs().max().item(), ref[1][name].abs().max().item())
+            if not size <= GRAD_TOL:
+                raise AssertionError(f"{label} {name}: {size}")
+            continue
+        err = rel_err(g, ref[1][name])
+        if err > worst:
+            worst, where = err, name
+    if rel_check:
+        check_rel(f"{label} (worst: {where})", worst, tol)
+    else:
+        log(f"  {label}: {worst:.3e} of its largest entry (worst: {where})")
+    return worst
+
+
+def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
+              builds, zero_names, rng, steps=12):
+    """The f32 and bf16 hoisted grades trained by ``make_train_step``:
+    counts reset before one step at ``batch`` and read after it: ``builds``
+    K1 launches (the operators are built in every training forward) and
+    no K3 (the backward is GEMMs); the loss and every gradient of a
+    train-mode step (dropout 0, the reference's ReLU masks) within
+    GRAD_TOL of the per-sweep step (f32), or within AMP_GRAD_TOL of the
+    same grade on its plain versions (bf16, with its distance from
+    per-sweep float32 logged); ``steps`` steps with a falling loss; then
+    images/s (CUDA events) at each B of ``rate_batches`` and the busy
+    share there.  Returns {grade: (counts, rates,
+    losses)}."""
+    device = data[0].device
+    steps_per_epoch = max(data[0].shape[0] // batch, 1)
+    xs, ys = inputs(batch)
+    masks = {}
+    ref = train_grads(make_model(0.0), xs, ys, values["label_smoothing"],
+                      masks)
+    result = {}
+    for grade in ("f32", "bf16"):
+        model = amp_switch(make_model(None), grade)
+        step = make_train_step(model, values, steps_per_epoch,
+                               torch.Generator(device).manual_seed(SEED))
+        x, y = data[0][:batch], data[1][:batch]
+        step(x, y)
+        sync(device)
+        reset_counts()
+        loss, _ = step(x, y)
+        sync(device)
+        got = counts()
+        log(f"[{tag}] {grade}: launches in one train step at B={batch}: "
+            f"{got}; GEMM route "
+            f"{gemm_route(model_operator_dtype(model), device)}")
+        if got != only(K1=builds):
+            raise AssertionError(f"{tag} {grade}: expected {builds} K1")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{tag} {grade}: loss {loss}")
+        run = train_grads(amp_switch(make_model(0.0), grade), xs, ys,
+                          values["label_smoothing"], masks)
+        if grade == "f32":
+            compare_grads(f"f32 B={batch} loss and every gradient vs the "
+                          "per-sweep step (K1, K3)", run, ref, GRAD_TOL,
+                          zero_names)
+        else:
+            with kernels.plain_versions():
+                plain = train_grads(amp_switch(make_model(0.0), grade), xs,
+                                    ys, values["label_smoothing"], masks)
+            compare_grads(f"bf16 B={batch} loss and every gradient vs its "
+                          "plain versions", run, plain, AMP_GRAD_TOL,
+                          zero_names)
+            compare_grads(f"bf16 B={batch} vs the per-sweep float32 step",
+                          run, ref, None, zero_names, rel_check=False)
+        model = amp_switch(make_model(None), grade)
+        step = make_train_step(model, values, steps_per_epoch,
+                               torch.Generator(device).manual_seed(SEED))
+        losses = train_steps(step, data, steps, batch, seed=SEED)
+        log(f"[{tag}] {grade}: {steps} steps at B={batch}, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} (means of the first and "
+            f"last 5: {np.mean(losses[:5]):.4f} -> "
+            f"{np.mean(losses[-5:]):.4f})")
+        if not (all(np.isfinite(losses))
+                and np.mean(losses[-5:]) < np.mean(losses[:5])):
+            raise AssertionError(f"{tag} {grade}: loss did not fall")
+        rates = {}
+        for B in rate_batches:
+            idx = torch.from_numpy(rng.integers(0, data[0].shape[0], B))
+            xb, yb = data[0][idx.to(device)], data[1][idx.to(device)]
+            ms = time_ms(lambda: step(xb, yb), groups=3, per_group=10)
+            rates[f"B{B}"] = 1e3 * B / ms
+            log(f"[{tag}] {grade} B={B}: {1e3 * B / ms:.1f} images/s "
+                f"({ms:.3f} ms a step, CUDA events, median of 3 groups of "
+                "10 steps after warm-up)")
+            busy = device_busy(lambda: step(xb, yb), 5, device)
+            log_busy(tag, f"{grade} B={B}", busy, "step")
+            if busy is not None:
+                rates[f"B{B}_busy"] = busy[0]
+                rates[f"B{B}_device_us_per_step"] = busy[0] * busy[1]
+                rates[f"B{B}_launch_calls_per_step"] = busy[4]
+        result[grade] = (got, rates, (losses[0], losses[-1]))
+    return result
+
+
+def phase_amp_kernels(device, peak_bytes, peak_flops):
+    """K1 as the operator builder: ``tridiag_inverse_operator`` on the
+    flagship's largest stack (the 8-step branch's x stack: 8 steps × 2
+    substeps × 3 channels × 32 rows of N = 32, one launch of batch 32)
+    against its plain version, then timed (in a CUDA graph of calls, and
+    by CUDA events around calls) beside the plain version, the bound and
+    torch.linalg.inv on the dense matrices, and X built in bf16; one bf16
+    sweep of the flagship at B = 64 against the float32 sweep, within
+    AMP_OUT_TOL of the largest entry (bf16 rounds X and the state once
+    each, by at most 2⁻⁸ of the value; the JAX record's figure for one
+    solve is 4e-3); and one sweep's apply at B = 64 and 1024 by each GEMM
+    route, timed."""
+    rng = np.random.default_rng(SEED + 14)
+    f = fields(rng, device)
+    scale = SCALES[1]
+    ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
+                      dtype=torch.float32, device=device)
+    alpha = _coeff_at_times(f["alpha_base"], f["alpha_time_coeff"],
+                            ts[:, [0, 2]], EPS, CMAX)
+    a, b, c, _ = sweep_operator(alpha, scale["dt"] / 2, scale["dx"],
+                                eps=EPS)
+    n = alpha.shape[-1]
+    rows = alpha.numel() // n
+    log(f"[amp-kernels] K1 builds the operators of the 8-step branch's x "
+        f"stack {tuple(alpha.shape)}: {rows} lines of N = {n}, batch {n}")
+    reset_counts()
+    X = tridiag_inverse_operator(a, b, c)
+    torch.cuda.synchronize()
+    if counts() != only(K1=1):
+        raise AssertionError(f"operator build: {counts()}")
+    with kernels.plain_versions():
+        X_plain = tridiag_inverse_operator(a, b, c)
+    err = check("K1 operator build vs its plain version", max_err(X, X_plain),
+                KERNEL_TOL)
+    T = (torch.diag_embed(b.reshape(rows, n))
+         + torch.diag_embed(a.reshape(rows, n)[:, 1:], -1)
+         + torch.diag_embed(c.reshape(rows, n)[:, :-1], 1))
+    inv = torch.linalg.inv(T).transpose(-1, -2).reshape(X.shape)
+    log(f"  K1 operator vs torch.linalg.inv of the dense matrices: "
+        f"{max_err(X, inv):.3e}")
+    # The function reads the bands and writes X, at X's dtype; per element
+    # of X the recurrence's 5 flops, per band element 3.  The build moves
+    # more: K1 reads the identity and writes its solutions (N, R, N) in
+    # float32, and a copy reads them and writes X row-major.
+    elems = rows * n * n
+    flops = 5 * elems + 3 * rows * n
+    build = dict(
+        at=f"flagship 8-step x stack {tuple(alpha.shape)}", err=err,
+        ms=graph_ms(lambda: [lambda: tridiag_inverse_operator(a, b, c)],
+                    walks=20),
+        call_ms=time_ms(lambda: tridiag_inverse_operator(a, b, c)),
+        plain_ms=time_ms(lambda: tridiag_inverse_operator_plain(a, b, c),
+                         groups=5, per_group=2),
+        library_ms=time_ms(lambda: torch.linalg.inv(T), groups=10,
+                           per_group=5))
+    build["bound_ms"], build["bound_by"] = bound(
+        4 * (elems + 3 * rows * n), flops, peak_bytes, peak_flops)
+    build["moved_bytes"] = 4 * (4 * elems + 3 * rows * n)
+    build["bf16_ms"] = graph_ms(lambda: [
+        lambda: tridiag_inverse_operator(a, b, c, torch.bfloat16)], walks=20)
+    build["bf16_bound_ms"] = bound(2 * elems + 12 * rows * n, flops,
+                                   peak_bytes, peak_flops)[0]
+    log(f"[amp-kernels] operator build: {build['ms']:.4f} ms in a CUDA "
+        f"graph of calls (its K1 launch and the copy to X), "
+        f"{build['call_ms']:.4f} ms a call (CUDA events, host included); "
+        f"plain {build['plain_ms']:.4f} ms; bound {build['bound_ms']:.4f} "
+        f"ms ({build['bound_by']}: bands in, X out); the build moves "
+        f"{build['moved_bytes']} bytes, "
+        f"{build['moved_bytes'] / (4 * (elems + 3 * rows * n)):.2f}x the "
+        f"bound's; library torch.linalg.inv {build['library_ms']:.4f} ms; "
+        f"X in bf16 {build['bf16_ms']:.4f} ms in a graph (bound "
+        f"{build['bf16_bound_ms']:.4f} ms)")
+
+    field = alpha[0, 0]
+    ops = {dtype: sweep_operator(field, scale["dt"] / 2, scale["dx"],
+                                 eps=EPS, dtype=dtype)
+           for dtype in (torch.float32, torch.bfloat16)}
+    u = torch.rand((64, *field.shape), device=device)
+    outs = {dtype: apply_sweep(op, u) for dtype, op in ops.items()}
+    exact = tridiag_solve(*sweep_bands(field, scale["dt"] / 2, scale["dx"],
+                                       -1), u)
+    check("f32 operator sweep vs K1's solve", max_err(outs[torch.float32],
+                                                       exact), KERNEL_TOL)
+    check_rel(f"bf16 operator sweep ({gemm_route(torch.bfloat16, device)}) "
+              "vs the float32 one", rel_err(outs[torch.bfloat16],
+                                            outs[torch.float32]),
+              AMP_OUT_TOL)
+    # one sweep's apply by each GEMM route: the device's time in a CUDA
+    # graph and a call's by CUDA events (host included)
+    routes = {"f32": (torch.float32, contextlib.nullcontext),
+              "bmm_out_dtype": (torch.bfloat16, contextlib.nullcontext),
+              "bf16_rounded_f32": (torch.bfloat16, kernels.plain_versions)}
+    build["sweep_apply"] = {}
+    for B in (64, 1024):
+        u = torch.rand((B, *field.shape), device=device)
+        for route, (dtype, ctx) in routes.items():
+            with ctx():
+                if gemm_route(dtype, device) != route:
+                    raise AssertionError(f"route {route}: "
+                                         f"{gemm_route(dtype, device)}")
+                ms = graph_ms(lambda: [lambda: apply_sweep(ops[dtype], u)],
+                              walks=20)
+                call = time_ms(lambda: apply_sweep(ops[dtype], u))
+            build["sweep_apply"][f"{route}_B{B}"] = {"ms": ms,
+                                                     "call_ms": call}
+            log(f"[amp-kernels] one x-sweep apply (3, 32, 32) B={B} by "
+                f"{route}: {ms:.4f} ms in a CUDA graph, {call:.4f} ms a "
+                "call (CUDA events)")
+    return build
+
+
+def tridiag_inverse_operator_plain(a, b, c):
+    with kernels.plain_versions():
+        return tridiag_inverse_operator(a, b, c)
+
+
+def phase_amp(device):
+    """The AMP grade and SVHN: the flagship served at B in {1, 64, 1024}
+    and trained at B = 64 (rates at 64 and 256); mnist served and trained
+    at B = 128; SVHN per-sweep (K1, K3) served at B in {1, 256} and
+    trained at B = 256 through ``serve_family`` and ``train_family``, and
+    its hoisted grades the same way; the serve CLI with --amp and the
+    train CLI with --amp --bf16-moments (svhn) on cuda."""
+    out = {}
+    rng = np.random.default_rng(SEED + 15)
+    out["flagship_serve"] = timed(
+        "flagship AMP serving", amp_serve, "amp-serve", device,
+        lambda: flagship(device), (3, 32, 32), (1, 64, 1024), 6,
+        {1: 30, 64: 20, 1024: 5}, SEED + 16)
+    images, labels, _, _ = make_synthetic("cifar10")
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+    def cifar_inputs(B):
+        return (torch.from_numpy(spiked_images(rng, B)).to(device),
+                torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    def flagship_rate(rate):
+        return flagship(device,
+                        **({} if rate is None else {"dropout_rate": rate}))
+
+    out["flagship_train"] = timed(
+        "flagship AMP training", amp_train, "amp-train", flagship_rate,
+        TRAIN, data, 64, (64, 256), cifar_inputs, 6,
+        ZERO_IN_EXACT_ARITHMETIC, rng)
+
+    out["mnist_serve"] = timed(
+        "mnist AMP serving", amp_serve, "amp-mnist-serve", device,
+        lambda: grayscale_model(device), (1, 28, 28), (128,), 2, {128: 20},
+        SEED + 17)
+    images, labels, _, _ = make_synthetic("mnist", train_per_class=64)
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+    def gray_inputs(B):
+        return (torch.from_numpy(rng.random((B, 1, 28, 28)).astype(
+                    np.float32)).to(device),
+                torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    out["mnist_train"] = timed(
+        "mnist AMP training", amp_train, "amp-mnist-train",
+        lambda rate: grayscale_model(device, dropout_rate=rate), GRAY_TRAIN,
+        data, 128, (128,), gray_inputs, 2, (), rng)
+
+    out["svhn_serve"] = timed(
+        "svhn serving", serve_family, "svhn-serve", device,
+        lambda config: svhn_model(device), (3, 32, 32), (1, 256),
+        {"per_sweep": {"K1": 30}}, {1: 30, 256: 20}, SEED + 18)
+    images, labels, _, _ = make_synthetic("svhn", train_per_class=64)
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+    def svhn_inputs(B):
+        return (torch.from_numpy(rng.random((B, 3, 32, 32)).astype(
+                    np.float32)).to(device),
+                torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    out["svhn_train"] = timed(
+        "svhn training", train_family, "svhn-train",
+        lambda config, rate: svhn_model(device, rate), SVHN_TRAIN, data,
+        {"per_sweep": {"K1": 30, "K3": 30}}, 256, svhn_inputs, (256,),
+        (256,), rng, SVHN_ZERO)
+    out["svhn_amp_serve"] = timed(
+        "svhn AMP serving", amp_serve, "svhn-amp-serve", device,
+        lambda: svhn_model(device), (3, 32, 32), (1, 256), 2,
+        {1: 30, 256: 20}, SEED + 19)
+    out["svhn_amp_train"] = timed(
+        "svhn AMP training", amp_train, "svhn-amp-train",
+        lambda rate: svhn_model(device, rate), SVHN_TRAIN, data, 256,
+        (256,), svhn_inputs, 2, SVHN_ZERO, rng)
+
+    summary = run_cli("cnn_pde_tpu_torch.serve", "svhn", "--amp")
+    if summary["amp_cached_layers"] != 1 or len(summary["predictions"]) != 8:
+        raise AssertionError(f"serve --amp CLI on cuda: {summary}")
+    log(f"[amp] python -m cnn_pde_tpu_torch.serve --preset svhn --amp "
+        f"(default device cuda): {summary}")
+    summary = run_cli("cnn_pde_tpu_torch.train", "svhn", "--synthetic",
+                      "--steps", "5", "--amp", "--bf16-moments")
+    if summary["amp_layers"] != 1 or summary["gemm_route"] \
+            != gemm_route(torch.bfloat16, device) \
+            or not summary["device"].startswith(device.type) \
+            or not np.isfinite(summary["last_loss"]):
+        raise AssertionError(f"train --amp CLI on cuda: {summary}")
+    log(f"[amp] python -m cnn_pde_tpu_torch.train --preset svhn --amp "
+        f"--bf16-moments (default device cuda): {summary}")
+    return out
 
 
 def phase_times(device, peak_bytes, peak_flops):
@@ -1541,26 +2124,41 @@ KERNELS = [
 ]
 
 
+def timed(label, fn, *args):
+    """``fn(*args)``, logging its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     name, card = phase_device()
     torch.manual_seed(SEED)
     peak_bytes, peak_flops = card_peaks(name)
     device = torch.device("cuda", 0)
-    phase_build()
-    errs = phase_kernels(device)
-    gray_errs = phase_gray_kernels(device)
+    timed("build", phase_build)
+    errs = timed("kernels", phase_kernels, device)
+    gray_errs = timed("grayscale kernels", phase_gray_kernels, device)
     errs["K1"] = max(errs["K1"], gray_errs.pop("K1"))
     k3 = gray_errs.pop("K3")
     errs["K3"] = (max(errs["K3"][0], k3[0]), max(errs["K3"][1], k3[1]))
     errs.update(gray_errs)
-    serve_launches, serve_rates = phase_slice(device)
-    phase_profile(device)
-    train_launches, train_rates, losses = phase_train(device)
+    operator_build = timed("operator build", phase_amp_kernels, device,
+                           peak_bytes, peak_flops)
+    serve_launches, serve_rates = timed("flagship serving", phase_slice,
+                                        device)
+    timed("flagship profile", phase_profile, device)
+    train_launches, train_rates, losses = timed("flagship training",
+                                                phase_train, device)
     ((gray_serve, gray_serve_rates), (gray_train, gray_train_rates,
                                       gray_losses), fashion_serve,
-     fashion_train) = phase_grayscale(device)
-    times = phase_times(device, peak_bytes, peak_flops)
-    times.update(times_grayscale(device, peak_bytes, peak_flops))
+     fashion_train) = timed("grayscale family", phase_grayscale, device)
+    amp = timed("AMP grade and SVHN", phase_amp, device)
+    times = timed("kernel times", phase_times, device, peak_bytes,
+                  peak_flops)
+    times.update(timed("grayscale kernel times", times_grayscale, device,
+                       peak_bytes, peak_flops))
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         " MiB")
     # launches: K1 and K2 over the flagship's serving run (3 forwards a
@@ -1579,11 +2177,24 @@ def main():
                   "launches_per_train_step": train_launches["per_sweep"]["K1"],
                   "mnist_launches_per_forward": 30,
                   "mnist_launches_per_train_step":
-                      gray_train["per_sweep"]["K1"]},
+                      gray_train["per_sweep"]["K1"],
+                  "svhn_launches_per_train_step":
+                      amp["svhn_train"][0]["per_sweep"]["K1"],
+                  "hoisted_launches_per_train_step": {
+                      "flagship": amp["flagship_train"]["bf16"][0]["K1"],
+                      "mnist": amp["mnist_train"]["bf16"][0]["K1"],
+                      "svhn": amp["svhn_amp_train"]["bf16"][0]["K1"]},
+                  "hoisted_launches_per_cache": {
+                      "flagship": amp["flagship_serve"]["bf16"][0]["K1"],
+                      "mnist": amp["mnist_serve"]["bf16"][0]["K1"],
+                      "svhn": amp["svhn_amp_serve"]["bf16"][0]["K1"]},
+                  "operator_build": operator_build},
            "K2": {"launches_per_forward": 3},
            "K3": {"launches_per_train_step": 51,
                   "mnist_launches_per_train_step":
-                      gray_train["per_sweep"]["K3"]},
+                      gray_train["per_sweep"]["K3"],
+                  "svhn_launches_per_train_step":
+                      amp["svhn_train"][0]["per_sweep"]["K3"]},
            "K4": {"launches_per_train_step": 3},
            "K5": {"launches_per_train_step": 3},
            "K6": {"mnist_launches_per_forward": 1},
@@ -1609,7 +2220,16 @@ def main():
               "mnist_train_loss_50_steps": gray_losses,
               "fashion_mnist_serve_images_per_s": fashion_serve[1],
               "fashion_mnist_train_images_per_s": fashion_train[1],
-              "fashion_mnist_train_loss_50_steps": fashion_train[2]}
+              "fashion_mnist_train_loss_50_steps": fashion_train[2],
+              "svhn_serve_images_per_s": amp["svhn_serve"][1],
+              "svhn_train_images_per_s": amp["svhn_train"][1],
+              "svhn_train_loss_50_steps": amp["svhn_train"][2],
+              "amp_gemm_route": gemm_route(torch.bfloat16, device),
+              "amp": {key: {grade: value[1]
+                            for grade, value in amp[key].items()}
+                      for key in ("flagship_serve", "flagship_train",
+                                  "mnist_serve", "mnist_train",
+                                  "svhn_amp_serve", "svhn_amp_train")}}
     log(f"card: {card}")
     log(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ grayscale family (MNIST, Fashion-MNIST), with eight hand-written CUDA kernels
 adjoint; K2, a whole MixedChannelDiffusion layer in one launch (eval), and
 K4 and K5, the trainable whole layer forward and backward; K6, a whole
 GrayscaleDiffusion layer in one launch (eval), and K7 and K8, its trainable
-forward and backward.  The port imports torch and numpy, never jax and
-nothing of cnn_pde_tpu.
+forward and backward.  Slice 7 adds SVHN (ChannelCoupledDiffusion, on K1
+and K3) and the AMP grade (``pde.enable_amp``): every sweep's operator of an
+evolution built by K1 once a forward and applied as a bf16 GEMM with float32
+accumulation.  The port imports torch and numpy, never jax and nothing of
+cnn_pde_tpu.
 """
 
 __version__ = "0.3.0"

@@ -21,6 +21,12 @@ __all__ = ["state_dict_from_jax", "load_torch_checkpoint"]
 
 # per preset: JAX dotted param path → reference state_dict key
 KEY_REWRITES = {
+    # SVHN.py:234-298: five fc/bn pairs
+    "svhn": [(r"^head\.1\.", "fc1."), (r"^head\.2\.", "bn1."),
+             (r"^head\.5\.", "fc2."), (r"^head\.6\.", "bn2."),
+             (r"^head\.9\.", "fc3."), (r"^head\.10\.", "bn3."),
+             (r"^head\.13\.", "fc4."), (r"^head\.14\.", "bn4."),
+             (r"^head\.17\.", "fc5.")],
     # cifar10.py:215-361: SpatialAttention.attention_fc, EnhancedFC.network
     "cifar10_noconv": [(r"\.fc\.", ".attention_fc."),
                        (r"^classifier\.", "classifier.network.")],

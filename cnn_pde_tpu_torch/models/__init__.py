@@ -1,6 +1,6 @@
-"""Model registry of the port: the CIFAR-10 no-conv flagship and the
-grayscale family (MNIST, Fashion-MNIST); every other preset of the JAX
-package raises until its slice lands."""
+"""Model registry of the port: the CIFAR-10 no-conv flagship, the
+grayscale family (MNIST, Fashion-MNIST) and SVHN; every other preset of the
+JAX package raises until its slice lands."""
 
 from __future__ import annotations
 
@@ -9,18 +9,20 @@ import torch
 from .attention import SpatialAttention
 from .cifar10_noconv import (CIFAR10PDENoConv, EnhancedFC,
                              MultiScaleExtractor, set_dropout_generator)
-from .mlp_models import FashionClassifier, MNISTClassifier
+from .mlp_models import FashionClassifier, MNISTClassifier, SVHNClassifier
 
 __all__ = ["MODEL_REGISTRY", "build_model", "SpatialAttention",
            "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor",
-           "MNISTClassifier", "FashionClassifier", "set_dropout_generator"]
+           "MNISTClassifier", "FashionClassifier", "SVHNClassifier",
+           "set_dropout_generator"]
 
 MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv,
                   "mnist": MNISTClassifier,
-                  "fashion_mnist": FashionClassifier}
+                  "fashion_mnist": FashionClassifier,
+                  "svhn": SVHNClassifier}
 
 # JAX model families still to port, with their ROADMAP.md queue-A items
-NOT_YET_PORTED = {"svhn": "A8", "emotion": "A9", "tiny_imagenet": "A10",
+NOT_YET_PORTED = {"emotion": "A9", "tiny_imagenet": "A10",
                   "cifar10_hybrid": "A11"}
 
 

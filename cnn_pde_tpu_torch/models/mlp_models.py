@@ -1,13 +1,16 @@
-"""The grayscale PDE→MLP classifiers — port of
-``cnn_pde_tpu/models/mlp_models.py::{MNISTClassifier, FashionClassifier}``.
+"""The PDE→MLP classifiers — port of
+``cnn_pde_tpu/models/mlp_models.py::{MNISTClassifier, FashionClassifier,
+SVHNClassifier}``.
 
 Attribute names follow the reference's ``state_dict`` namespace (``diff.*``,
 ``fc1``/``fc2`` for MNIST; ``fc1``/``bn1``/``fc2``/``bn2``/``fc3`` for
-Fashion-MNIST), so a reference checkpoint loads with
-``load_state_dict(strict=True)``.  ``fused_inference`` and ``fused`` are the
-GrayscaleDiffusion layer's own flags (one K6 launch in eval; one K7 and one
-K8 launch in training).  Linears take torch's default init (U(±1/√fan_in)
-for weight and bias) from an explicit generator, as the JAX layers draw it.
+Fashion-MNIST; ``fc1``-``fc5`` and ``bn1``-``bn4`` for SVHN), so a reference
+checkpoint loads with ``load_state_dict(strict=True)``.  ``fused_inference``
+and ``fused`` are the GrayscaleDiffusion layer's own flags (one K6 launch in
+eval; one K7 and one K8 launch in training); SVHN's ChannelCoupledDiffusion
+has no fused configuration (K1 and K3 a sweep, or hoisted).  Linears take
+torch's default init (U(±1/√fan_in) for weight and bias) from an explicit
+generator, as the JAX layers draw it.
 """
 
 from __future__ import annotations
@@ -17,10 +20,10 @@ import math
 import torch
 from torch import nn
 
-from ..pde import GrayscaleDiffusion
+from ..pde import ChannelCoupledDiffusion, GrayscaleDiffusion
 from .cifar10_noconv import Dropout
 
-__all__ = ["MNISTClassifier", "FashionClassifier"]
+__all__ = ["MNISTClassifier", "FashionClassifier", "SVHNClassifier"]
 
 
 def _reset_head(module, generator):
@@ -92,3 +95,38 @@ class FashionClassifier(nn.Module):
         x = self.dropout(self.relu1(self.bn1(self.fc1(x))))
         x = self.dropout(self.relu2(self.bn2(self.fc2(x))))
         return self.fc3(x)
+
+
+class SVHNClassifier(nn.Module):
+    """diff (ChannelCoupledDiffusion: 3 channels, 32 × 32, 10 Strang steps
+    at dt 0.01) → flatten 3072 → [fc 2048, 1024, 512, 256, each with BN,
+    ReLU, dropout(0.5)] → fc5 10."""
+
+    WIDTHS = (2048, 1024, 512, 256)
+
+    def __init__(self, dropout_rate=0.5, device=None):
+        super().__init__()
+        self.diff = ChannelCoupledDiffusion(32, 3, dt=0.01, num_steps=10,
+                                            device=device)
+        prev = 32 * 32 * 3
+        for i, width in enumerate(self.WIDTHS, start=1):
+            self.add_module(f"fc{i}", nn.Linear(prev, width, device=device))
+            self.add_module(f"bn{i}", nn.BatchNorm1d(width, device=device))
+            self.add_module(f"relu{i}", nn.ReLU())
+            prev = width
+        self.fc5 = nn.Linear(prev, 10, device=device)
+        self.dropout = Dropout(dropout_rate)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.diff.reset_parameters(generator)
+        _reset_head(self, generator)
+
+    def forward(self, x):
+        x = self.diff(x)
+        x = x.reshape(x.shape[0], -1)
+        for i in range(1, len(self.WIDTHS) + 1):
+            x = getattr(self, f"fc{i}")(x)
+            x = getattr(self, f"bn{i}")(x)
+            x = self.dropout(getattr(self, f"relu{i}")(x))
+        return self.fc5(x)

@@ -27,7 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "function", "plain_versions", "use_kernel",
+__all__ = ["build", "function", "plain_versions", "in_plain_versions",
+           "use_kernel",
            "check_float32", "KERNEL_SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -111,10 +112,15 @@ def plain_versions():
         _plain.on = prev
 
 
+def in_plain_versions() -> bool:
+    """Whether this thread is inside ``plain_versions()``."""
+    return getattr(_plain, "on", False)
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True: launch the kernel (CUDA tensor).  False: run the plain version
     (CPU tensor, or inside ``plain_versions``).  Any other device raises."""
-    if getattr(_plain, "on", False) or t.device.type == "cpu":
+    if in_plain_versions() or t.device.type == "cpu":
         return False
     if t.is_cuda:
         return True

@@ -32,6 +32,18 @@ grad_b = −Σ_batch λ∘x, grad_a[i] = −Σ λ[i]x[i−1], grad_c[i] = −Σ 
 with grad_a[0] = grad_c[N−1] = 0.  Whether the kernels or the plain versions
 run is decided in the forward, from ``d``'s device and ``plain_versions()``,
 and the backward follows that choice (it may run on another thread).
+
+The inverse-operator solves (the AMP grade's, ROADMAP.md A6):
+``tridiag_inverse_operator`` builds X with X[..., k, i] = (T⁻¹)[i, k] for
+batch-free bands, once, by one K1 launch on the identity (the bands' lines
+as rows, the batch N); a solve is then one batched GEMM over the bands'
+rows, x = d·X (``tridiag_solve_precomputed``, backward λ = X·g by one more
+GEMM and the band sums; ``tridiag_solve_with_operator`` adds one
+Richardson refinement).  A bf16 X takes bf16 operands with float32
+accumulation and a float32 result; the route (``gemm_route``) is chosen
+once per device by the torch version, not by trying.
+``set_default_impl('matinv' | 'matinv_bf16')`` sends ``tridiag_solve``
+itself through an operator built at each call.
 """
 
 from __future__ import annotations
@@ -45,7 +57,9 @@ from . import kernels
 
 __all__ = ["tridiag_solve", "tridiag_solve_plain", "tridiag_solve_pcr",
            "pcr_factor", "pcr_apply", "tridiag_adjoint",
-           "tridiag_adjoint_plain", "MAX_N"]
+           "tridiag_adjoint_plain", "tridiag_inverse_operator",
+           "tridiag_solve_precomputed", "tridiag_solve_with_operator",
+           "set_default_impl", "gemm_route", "MAX_N"]
 
 # A line is one warp, one row a lane or two past 32, and its PCR factors
 # (at most 2·6 + 1 a row) live in that warp's registers (csrc/thomas.cu).
@@ -262,8 +276,15 @@ class _TridiagSolve(torch.autograd.Function):
 def tridiag_solve(a, b, c, d, dim=-1):
     """x = T⁻¹d along axis ``dim`` of the band shape: K1 on a CUDA tensor,
     the plain version on a CPU tensor; differentiable in all four inputs
-    (K3 or its plain version)."""
-    return _TridiagSolve.apply(a, b, c, d, dim)
+    (K3 or its plain version).  Under ``set_default_impl('matinv')`` or
+    ``'matinv_bf16'`` the solve is an inverse operator built from the
+    bands at this call and applied by a GEMM, as the JAX impls do."""
+    if _DEFAULT_IMPL == "auto":
+        return _TridiagSolve.apply(a, b, c, d, dim)
+    dtype = torch.bfloat16 if _DEFAULT_IMPL == "matinv_bf16" else d.dtype
+    a, b, c, d = (t.movedim(dim, -1) for t in (a, b, c, d))
+    X = tridiag_inverse_operator(a, b, c, dtype)
+    return tridiag_solve_precomputed(a, b, c, d, X).movedim(-1, dim)
 
 
 tridiag_solve.launches = 0
@@ -361,3 +382,182 @@ def _sum_band_partials(partials, slices=8):
     for acc in sums[1:]:
         total = total + acc
     return tuple(-total[j] for j in range(3))
+
+
+# ---- inverse-operator solves (the AMP grade) --------------------------------
+
+_DEFAULT_IMPL = "auto"
+_IMPLS = ("auto", "matinv", "matinv_bf16")
+_UNPORTED_IMPLS = ("scan", "pcr", "pcr2", "pallas")
+# aten::bmm.dtype (bf16 operands, a float32 result) has a CUDA kernel from
+# torch 2.8 on; no CPU kernel
+_BMM_OUT_DTYPE_FROM = (2, 8)
+
+
+def set_default_impl(impl: str) -> str:
+    """The solver ``tridiag_solve`` runs: 'auto' (K1 and K3, or their plain
+    versions), 'matinv' (an inverse operator at the RHS's dtype, built at
+    each call, applied by one GEMM; the backward one transposed GEMM) or
+    'matinv_bf16' (the operator and the GEMM's operands in bf16, float32
+    accumulation: the grade ``enable_amp`` gives the ADI layers; it leaves
+    this default as it is).  The JAX package's 'scan', 'pcr', 'pcr2' and
+    'pallas' are not ported (ROADMAP.md A14).  Returns the previous
+    setting."""
+    global _DEFAULT_IMPL
+    if impl in _UNPORTED_IMPLS:
+        raise NotImplementedError(
+            f"set_default_impl({impl!r}) is not ported: ROADMAP.md A14")
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS}")
+    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
+    return prev
+
+
+def _torch_version():
+    return tuple(int(p) for p in
+                 torch.__version__.split("+")[0].split(".")[:2])
+
+
+def gemm_route(dtype, device) -> str:
+    """How an operator of ``dtype`` is applied on ``device``: 'f32' (a
+    float32 GEMM, full float32: the port never enables TF32),
+    'bmm_out_dtype' (a CUDA device: bf16 operands on the tensor cores,
+    float32 accumulation and result) or 'bf16_rounded_f32' (the operands
+    rounded to bf16, then a float32 GEMM: every product is exact in
+    float32, so it computes the same sums; the CPU's route, the plain
+    version inside ``plain_versions()``, and a torch without
+    ``bmm(out_dtype=)``)."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    if (torch.device(device).type == "cuda"
+            and not kernels.in_plain_versions()
+            and _torch_version() >= _BMM_OUT_DTYPE_FROM):
+        return "bmm_out_dtype"
+    return "bf16_rounded_f32"
+
+
+def _bmm(a, b):
+    """a @ b over a leading batch, at ``b``'s grade (``gemm_route``)."""
+    route = gemm_route(b.dtype, a.device)
+    if route == "f32":
+        return torch.bmm(a, b)
+    a = a.to(torch.bfloat16)
+    if route == "bmm_out_dtype":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _inv_apply(X, d, transpose):
+    """Σ_k d[..., k]·X[..., k, i] (or, ``transpose``, Σ_i X[..., k, i]·
+    d[..., i]) along the last axis: X (*rows, N, N) is batch-free and d
+    (*batch, *rows, N); one GEMM a row, (batch, N) by (N, N), in one bmm.
+    The result is float32 at d's shape."""
+    n = X.shape[-1]
+    rows = X.shape[:-2]
+    if tuple(d.shape[d.ndim - 1 - len(rows):-1]) != tuple(rows) \
+            or d.shape[-1] != n:
+        raise ValueError(f"operator {tuple(X.shape)} does not fit "
+                         f"{tuple(d.shape)}")
+    R = math.prod(rows)
+    Xm = X.reshape(R, n, n)
+    if transpose:
+        Xm = Xm.transpose(-1, -2)
+    dm = d.reshape(-1, R, n).transpose(0, 1)
+    return _bmm(dm, Xm).transpose(0, 1).reshape(d.shape)
+
+
+_IDENTITY: dict = {}
+
+
+def _identity_rhs(n, rows, device):
+    """The identity as K1's right-hand side, (N, rows, N) with
+    [k, r, i] = δ(k, i): made once for each (device, N, rows) and kept,
+    since every build of a stack of that shape reads the same one."""
+    key = (torch.device(device), n, rows)
+    if key not in _IDENTITY:
+        eye = torch.eye(n, dtype=torch.float32, device=device)
+        _IDENTITY[key] = eye[:, None, :].expand(n, rows, n).contiguous()
+    return _IDENTITY[key]
+
+
+def tridiag_inverse_operator(a, b, c, dtype=torch.float32):
+    """X (*S, N, N) with X[..., k, i] = (T⁻¹)[i, k] for the bands (*S, N),
+    solved along the last axis in float32 and stored at ``dtype``.  On a
+    CUDA tensor one K1 launch: the bands as (R, N) lines and the identity
+    (N, R, N) as the right-hand side of batch N; on a CPU tensor the plain
+    Thomas recurrence.  K1 writes the solutions image-major, (N, R, N); one
+    copy puts them row-major and casts them to ``dtype``.  X carries no
+    gradient (the solves that use it take their band gradients from the
+    bands)."""
+    shape, n = tuple(b.shape), b.shape[-1]
+    with torch.no_grad():
+        a, b, c = (t.detach().reshape(-1, n).float().contiguous()
+                   for t in (a, b, c))
+        rhs = _identity_rhs(n, b.shape[0], b.device)
+        x = (_thomas_kernel(a, b, c, rhs, -1) if kernels.use_kernel(rhs)
+             else tridiag_solve_plain(a, b, c, rhs))
+        # x[k, r, i] = (T_r⁻¹)[i, k] = X[r, k, i]
+        X = torch.empty((*shape, n), dtype=dtype, device=b.device)
+        X.view(-1, n, n).copy_(x.transpose(0, 1))
+        return X
+
+
+def _band_product(a, b, c, x):
+    """T·x along the last axis (a[0] and c[N−1] outside the matrix)."""
+    zero = torch.zeros_like(x[..., :1])
+    x_lo = torch.cat([zero, x[..., :-1]], dim=-1)
+    x_hi = torch.cat([x[..., 1:], zero], dim=-1)
+    return b * x + a * x_lo + c * x_hi
+
+
+class _SolvePrecomputed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c, d, X):
+        x = _inv_apply(X, d, transpose=False)
+        ctx.save_for_backward(a, b, c, x, X)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, c, x, X = ctx.saved_tensors
+        lam = _inv_apply(X, g, transpose=True)  # λ = T⁻ᵀg, one GEMM
+        ga, gb, gc = _adjoint_band_grads(a, b, c, x, lam)
+        # X gets a zero gradient: the exact solve's derivative depends on
+        # the bands, not on the inverse's representation
+        gX = torch.zeros_like(X) if ctx.needs_input_grad[4] else None
+        return ga, gb, gc, lam, gX
+
+
+def tridiag_solve_precomputed(a, b, c, d, X):
+    """x = T⁻¹d along the last axis with X from ``tridiag_inverse_operator``
+    of the same bands (b with its eps): one GEMM forward; backward one
+    transposed GEMM for λ = T⁻ᵀg and the band gradients from λ and x,
+    summed over the batch onto the bands' shapes; X's gradient is zero.
+    The port of the JAX ``tridiag_solve_precomputed`` and its custom VJP."""
+    return _SolvePrecomputed.apply(a, b, c, d, X)
+
+
+class _ApplyInverse(torch.autograd.Function):
+    """x = X·d, differentiable in d alone (grad_d = Xᵀ·g, one GEMM)."""
+
+    @staticmethod
+    def forward(ctx, X, d):
+        ctx.save_for_backward(X)
+        return _inv_apply(X, d, transpose=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (X,) = ctx.saved_tensors
+        return None, _inv_apply(X, g, transpose=True)
+
+
+def tridiag_solve_with_operator(a, b, c, d, X):
+    """The implicit-function form with one Richardson refinement, x₀ = X·d
+    and x = x₀ + X·(d − T·x₀), with X and x₀ detached: two GEMMs forward,
+    gradients by autograd through the residual (grad_d and the bands'
+    from λ = Xᵀg), none into X.  The port of the JAX
+    ``tridiag_solve_with_operator`` (``hoisted_refine=True``)."""
+    X = X.detach()
+    with torch.no_grad():
+        x0 = _inv_apply(X, d, transpose=False)
+    return x0 + _ApplyInverse.apply(X, d - _band_product(a, b, c, x0))

@@ -1,6 +1,11 @@
-"""PDE layers of the port: MixedChannelDiffusion (the CIFAR-10 flagship's)
-and GrayscaleDiffusion (the MNIST and Fashion-MNIST front end)."""
+"""PDE layers of the port: MixedChannelDiffusion (the CIFAR-10 flagship's),
+GrayscaleDiffusion (the MNIST and Fashion-MNIST front end) and
+ChannelCoupledDiffusion (SVHN's), and the one-switch AMP grade."""
 
-from .diffusion import GrayscaleDiffusion, MixedChannelDiffusion
+from .amp import enable_amp, iter_adi_layers, iter_modules
+from .diffusion import (ChannelCoupledDiffusion, GrayscaleDiffusion,
+                        MixedChannelDiffusion)
 
-__all__ = ["GrayscaleDiffusion", "MixedChannelDiffusion"]
+__all__ = ["ChannelCoupledDiffusion", "GrayscaleDiffusion",
+           "MixedChannelDiffusion", "enable_amp", "iter_adi_layers",
+           "iter_modules"]

@@ -9,12 +9,13 @@ __all__ = ["PRESETS", "SYNTHETIC_SPECS", "NORMALIZATION", "get_preset"]
 
 # dataset name: (channels, size, num_classes)
 SYNTHETIC_SPECS = {"mnist": (1, 28, 10), "fashion_mnist": (1, 28, 10),
-                   "cifar10": (3, 32, 10)}
+                   "svhn": (3, 32, 10), "cifar10": (3, 32, 10)}
 
 # torchvision normalisation constants (mean, std) of the reference scripts;
 # the MNIST script applies none (ToTensor only)
 NORMALIZATION = {
     "fashion_mnist": ((0.2860,), (0.3530,)),
+    "svhn": ((0.4377, 0.4438, 0.4728), (0.1980, 0.2010, 0.1970)),
     "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
 }
 
@@ -48,6 +49,21 @@ PRESETS = {
                 "rotation": 10.0, "translate": 0.1, "hflip": 0.5,
                 "mean": NORMALIZATION["fashion_mnist"][0],
                 "std": NORMALIZATION["fashion_mnist"][1]},
+        },
+    },
+    # SVHN.py:300-406: 15 epochs, batch 256, AdamW 1e-2 / wd 1e-4,
+    # OneCycleLR (max 1e-2) stepped per batch, cross-entropy without
+    # smoothing, normalisation only
+    "svhn": {
+        "name": "svhn", "model": "svhn", "dataset": "svhn",
+        "model_kwargs": {},
+        "train": {
+            "epochs": 15, "batch_size": 256, "lr": 1e-2,
+            "weight_decay": 1e-4, "schedule": "onecycle",
+            "schedule_kwargs": {"max_lr": 1e-2}, "label_smoothing": 0.0,
+            "clip_norm": 1.0, "default_lr_scale": 1.0, "param_groups": (),
+            "augment": {"mean": NORMALIZATION["svhn"][0],
+                        "std": NORMALIZATION["svhn"][1]},
         },
     },
     # cifar10.py:400-527: 20 epochs, batch 64, two-group AdamW (α/β at lr

@@ -2,9 +2,12 @@
 
 ``make_predict_fn(model)`` returns a callable from a batch of NCHW float32
 images (numpy or tensor) to logits, probabilities or labels, computed in
-eval mode under ``torch.inference_mode()`` on the model's device.  Data
-parallelism, weight binding, operator caches, linearized serving and export
-are later slices (ROADMAP.md A13).
+eval mode under ``torch.inference_mode()`` on the model's device.
+``cache_hoisted_operators(model)`` pins the sweep operators of every
+hoisted ADI layer for serving with frozen weights (the AMP grade's serving
+path, ``--amp``); ``clear_operator_cache`` unpins them.  Data parallelism,
+weight binding, linearized serving and export are later slices
+(ROADMAP.md A13).
 
     python -m cnn_pde_tpu_torch.serve --preset cifar10_noconv [--device cpu]
 """
@@ -14,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["make_predict_fn"]
+__all__ = ["make_predict_fn", "cache_hoisted_operators",
+           "clear_operator_cache"]
 
 OUTPUTS = ("logits", "probs", "labels")
 
@@ -48,6 +52,39 @@ def make_predict_fn(model, output="logits", buckets=None):
         return logits
 
     return predict
+
+
+def cache_hoisted_operators(model):
+    """Build and pin the sweep operators of every ADI layer of ``model``
+    whose eval forward takes the hoisted branch, for serving with frozen
+    weights: the operators are batch-free and the weights do not change,
+    so a request then runs only the GEMMs (two K1 launches a layer here,
+    none a request).  Training with a cache pinned raises, and a cache
+    built before the weights change is stale: ``clear_operator_cache``
+    undoes it.  Returns the number of layers cached."""
+    from .pde.amp import iter_adi_layers
+    from .pde.diffusion import runs_hoisted
+
+    n = 0
+    with torch.no_grad():
+        for layer in iter_adi_layers(model):
+            if runs_hoisted(layer):
+                layer.operator_cache = layer.hoisted_operators()
+                n += 1
+    return n
+
+
+def clear_operator_cache(model):
+    """Unpin the operators ``cache_hoisted_operators`` pinned (e.g. to
+    resume training).  Returns the number of layers cleared."""
+    from .pde.amp import iter_adi_layers
+
+    n = 0
+    for layer in iter_adi_layers(model):
+        if getattr(layer, "operator_cache", None) is not None:
+            layer.operator_cache = None
+            n += 1
+    return n
 
 
 if __name__ == "__main__":

@@ -1,11 +1,16 @@
 """Serving CLI of the port — counterpart of ``cnn_pde_tpu/serve_cli.py``.
 
     python -m cnn_pde_tpu_torch.serve --preset cifar10_noconv \
-        [--torch-checkpoint model.pth] [--input batch.npy] [--device cuda]
+        [--torch-checkpoint model.pth] [--input batch.npy] [--amp] \
+        [--device cuda]
 
 Runs on the card unless ``--device cpu`` is given; without CUDA it exits
 non-zero rather than carry on on the CPU.  With no ``--input`` it predicts on
-the JAX CLI's smoke batch and prints the same summary line.
+the JAX CLI's smoke batch and prints the same summary line.  ``--amp``
+serves the bf16 AMP grade (``pde.enable_amp``) with every hoisted layer's
+sweep operators built once and pinned (``serve.cache_hoisted_operators``);
+``amp_cached_layers`` counts them, and a line on stderr says how the
+device applies them (``ops/tridiag.py::gemm_route``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ def main(argv=None):
                     choices=["labels", "probs", "logits"])
     ap.add_argument("--batch-size", type=int, default=8,
                     help="smoke batch size when no --input is given")
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 sweep operators (pde.enable_amp), built "
+                         "once and pinned for frozen-weights serving")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
     args = ap.parse_args(argv)
@@ -36,8 +44,10 @@ def main(argv=None):
 
     from .compat import load_torch_checkpoint
     from .models import build_model
+    from .ops.tridiag import gemm_route
+    from .pde import enable_amp
     from .presets import SYNTHETIC_SPECS, get_preset
-    from .serve import make_predict_fn
+    from .serve import cache_hoisted_operators, make_predict_fn
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -63,6 +73,14 @@ def main(argv=None):
         images = np.random.default_rng(0).random(
             (args.batch_size, channels, size, size)).astype(np.float32)
 
+    n_cached = 0
+    if args.amp:
+        enable_amp(model)
+        n_cached = cache_hoisted_operators(model)
+        # the summary's keys are the JAX CLI's; the route goes to stderr
+        print(f"amp: {n_cached} layers, bf16 GEMM route "
+              f"{gemm_route(torch.bfloat16, device)}", file=sys.stderr)
+
     predict = make_predict_fn(model, output=args.output)
     out = predict(images).cpu().numpy()
 
@@ -71,7 +89,7 @@ def main(argv=None):
         "restored": restored,
         "batch": int(images.shape[0]),
         "output": args.output,
-        "amp_cached_layers": 0,
+        "amp_cached_layers": n_cached,
         "linearized_layers": 0,
         "linearize_grade": None,
         "devices": 1,

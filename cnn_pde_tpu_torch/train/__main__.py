@@ -2,13 +2,16 @@
 for the ported presets.
 
     python -m cnn_pde_tpu_torch.train --preset cifar10_noconv --synthetic \\
-        [--steps 20] [--batch-size 64] [--seed 0] \\
+        [--steps 20] [--batch-size 64] [--seed 0] [--amp] [--bf16-moments] \\
         [--init-from-torch model.pth] [--device cuda]
 
 Runs on the card unless ``--device cpu`` is given; without CUDA it exits
 non-zero rather than carry on on the CPU.  ``--synthetic`` is required: no
-dataset loader is ported yet (ROADMAP.md A12).  Prints one summary JSON
-line: preset, steps, first and last loss and images/s.
+dataset loader is ported yet (ROADMAP.md A12).  ``--amp`` trains the bf16
+AMP grade (``pde.enable_amp``: hoisted bf16 sweep operators); with
+``--bf16-moments`` AdamW keeps its moments in bf16.  Prints one summary
+JSON line: preset, steps, first and last loss, images/s, the ADI layers
+``--amp`` switched and the GEMM route of their operators.
 """
 
 from __future__ import annotations
@@ -33,6 +36,12 @@ def main(argv=None):
     ap.add_argument("--init-from-torch", default=None, metavar="PTH",
                     help="warm-start from a reference model.state_dict() "
                          "checkpoint; the optimizer starts fresh")
+    ap.add_argument("--amp", action="store_true",
+                    help="pde.enable_amp: hoisted sweep operators in bf16, "
+                         "applied with float32 accumulation")
+    ap.add_argument("--bf16-moments", action="store_true",
+                    help="store AdamW's m and v in bf16 (float32 "
+                         "arithmetic)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
     args = ap.parse_args(argv)
@@ -42,6 +51,8 @@ def main(argv=None):
     from ..compat import load_torch_checkpoint
     from ..data import make_synthetic
     from ..models import build_model
+    from ..ops.tridiag import gemm_route
+    from ..pde import enable_amp
     from ..presets import get_preset
     from .step import make_train_step, train_steps
 
@@ -68,8 +79,11 @@ def main(argv=None):
         model.load_state_dict(load_torch_checkpoint(args.init_from_torch),
                               strict=True)
         restored = True
+    amp_layers = enable_amp(model) if args.amp else 0
     generator = torch.Generator(device).manual_seed(args.seed)
-    step = make_train_step(model, values, steps_per_epoch, generator)
+    step = make_train_step(
+        model, values, steps_per_epoch, generator,
+        moment_dtype=torch.bfloat16 if args.bf16_moments else None)
     data = (torch.from_numpy(images).to(device),
             torch.from_numpy(labels).to(device))
 
@@ -85,6 +99,10 @@ def main(argv=None):
         "first_loss": losses[0] if losses else None,
         "last_loss": losses[-1] if losses else None,
         "images_per_s": batch_size * args.steps / seconds,
+        "amp_layers": amp_layers,
+        "gemm_route": (gemm_route(torch.bfloat16, device) if args.amp
+                       else None),
+        "bf16_moments": args.bf16_moments,
     }))
 
 

@@ -8,7 +8,10 @@ param group carries its ``lr_scale``: the train step sets its lr to
 schedule(step)·lr_scale before every update, as optax evaluates the schedule
 at the update's count.  ``torch.optim.AdamW`` (decoupled weight decay, bias
 corrections, eps outside the square root) computes optax's ``adamw``
-update.
+update.  ``moment_dtype=torch.bfloat16`` (``--bf16-moments``) takes
+``AdamWLowPrecision`` instead: the port of ``scale_by_adam_low_precision``,
+float32 arithmetic with both moments stored in bf16, in optax's chain
+order.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Sequence
 import torch
 
 __all__ = ["ParamGroup", "group_labels", "build_optimizer",
-           "clip_by_global_norm_", "set_learning_rates"]
+           "AdamWLowPrecision", "clip_by_global_norm_",
+           "set_learning_rates"]
 
 
 @dataclass(frozen=True)
@@ -40,11 +44,56 @@ def group_labels(model, groups: Sequence[ParamGroup]) -> dict:
     return {name: label(name) for name, _ in model.named_parameters()}
 
 
+class AdamWLowPrecision(torch.optim.Optimizer):
+    """AdamW with Adam's m and v stored in ``moment_dtype``: each update
+    reads them into float32, m ← b1·m + (1 − b1)·g, v ← b2·v + (1 − b2)·g²,
+    u = (m/(1 − b1ᵗ))/(√(v/(1 − b2ᵗ)) + eps), then adds the decayed weight
+    wd·p and steps p ← p − lr·u (optax's scale_by_adam →
+    add_decayed_weights → scale_by_learning_rate), and stores m and v back
+    at ``moment_dtype``.  Not torch's semantics, which keep float32
+    moments: an opt-in."""
+
+    def __init__(self, params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=1e-4, moment_dtype=torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay,
+                                      moment_dtype=moment_dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamWLowPrecision takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        state[key] = torch.zeros_like(
+                            p, dtype=group["moment_dtype"])
+                g = p.grad.float()
+                m = b1 * state["exp_avg"].float() + (1 - b1) * g
+                v = b2 * state["exp_avg_sq"].float() + (1 - b2) * g * g
+                state["step"] += 1
+                t = state["step"]
+                update = (m / (1 - b1 ** t)) / (
+                    (v / (1 - b2 ** t)).sqrt() + group["eps"])
+                update += group["weight_decay"] * p
+                p.sub_(group["lr"] * update)
+                state["exp_avg"].copy_(m)
+                state["exp_avg_sq"].copy_(v)
+
+
 def build_optimizer(model, *, groups: Sequence[ParamGroup] = (),
                     default_weight_decay=1e-4, default_lr_scale=1.0,
-                    b1=0.9, b2=0.999, eps=1e-8):
+                    b1=0.9, b2=0.999, eps=1e-8, moment_dtype=None):
     """AdamW over ``model``'s parameters in the groups' order, then the
-    default group.  Learning rates start at 0 and are set per step."""
+    default group.  Learning rates start at 0 and are set per step.
+    ``moment_dtype``: None keeps float32 moments (``torch.optim.AdamW``);
+    ``torch.bfloat16`` stores them in bf16 (``AdamWLowPrecision``)."""
     labels = group_labels(model, groups)
     settings = [(str(gi), g.lr_scale, g.weight_decay)
                 for gi, g in enumerate(groups)]
@@ -55,6 +104,9 @@ def build_optimizer(model, *, groups: Sequence[ParamGroup] = (),
         if params:
             param_groups.append({"params": params, "lr_scale": lr_scale,
                                  "weight_decay": wd, "name": key})
+    if moment_dtype is not None:
+        return AdamWLowPrecision(param_groups, betas=(b1, b2), eps=eps,
+                                 moment_dtype=moment_dtype)
     return torch.optim.AdamW(param_groups, lr=0.0, betas=(b1, b2), eps=eps)
 
 

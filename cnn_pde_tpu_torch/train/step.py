@@ -19,7 +19,7 @@ from ..models import set_dropout_generator
 from .losses import cross_entropy
 from .optim import (ParamGroup, build_optimizer, clip_by_global_norm_,
                     set_learning_rates)
-from .schedules import constant, cosine_annealing
+from .schedules import constant, cosine_annealing, onecycle
 
 __all__ = ["make_schedule", "make_train_step", "train_steps"]
 
@@ -31,15 +31,18 @@ def make_schedule(train_values, steps_per_epoch):
         return cosine_annealing(train_values["lr"],
                                 kw.get("t_max", train_values["epochs"]),
                                 steps_per_epoch, kw.get("eta_min", 0.0))
+    if train_values["schedule"] == "onecycle":
+        kw = train_values.get("schedule_kwargs", {})
+        return onecycle(kw.get("max_lr", train_values["lr"]),
+                        total_steps=train_values["epochs"] * steps_per_epoch,
+                        pct_start=kw.get("pct_start", 0.3))
     if train_values["schedule"] == "constant":
         return constant(train_values["lr"])
-    raise NotImplementedError(
-        f"schedule {train_values['schedule']!r} is not ported yet "
-        "(onecycle: ROADMAP.md A8)")
+    raise ValueError(f"unknown schedule {train_values['schedule']!r}")
 
 
 def make_train_step(model, train_values, steps_per_epoch, generator, *,
-                    optimizer=None):
+                    optimizer=None, moment_dtype=None):
     """``step(images, labels) -> (loss, acc)``, both 0-d tensors on the
     model's device.
 
@@ -47,7 +50,8 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
     ``augment`` may be None for no augmentation.  ``generator``: a
     ``torch.Generator`` on the model's device, for the augmentation draws
     and the dropout masks.  ``optimizer``: by default the preset's grouped
-    AdamW; any torch optimizer whose param groups carry ``lr_scale`` may
+    AdamW (``moment_dtype``: its moments' storage dtype, None for
+    float32); any torch optimizer whose param groups carry ``lr_scale`` may
     stand in (the tests' SGD trajectories)."""
     device = next(model.parameters()).device
     if optimizer is None:
@@ -55,7 +59,8 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
             model, groups=[ParamGroup(*g)
                            for g in train_values["param_groups"]],
             default_weight_decay=train_values["weight_decay"],
-            default_lr_scale=train_values["default_lr_scale"])
+            default_lr_scale=train_values["default_lr_scale"],
+            moment_dtype=moment_dtype)
     schedule = make_schedule(train_values, steps_per_epoch)
     spec = (AugmentSpec(**train_values["augment"])
             if train_values.get("augment") else None)

@@ -76,11 +76,10 @@ def test_mixed_channel_diffusion_matches_jax(layer_case, branch, config):
 
 
 def test_unported_options_raise():
-    for kw, item in (({"hoisted": True}, "A6"), ({"remat": True}, "A12")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            MixedChannelDiffusion(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        build_model("svhn")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
+        MixedChannelDiffusion(remat=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+        build_model("emotion")
 
 
 @pytest.fixture(scope="module")

@@ -142,6 +142,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                        torch.Generator())\n"
         "gx = np.random.default_rng(1).random((2, 1, 28, 28), np.float32)\n"
         "assert bool(torch.isfinite(gstep(gx, np.array([3, 4]))[0]))\n"
+        "from cnn_pde_tpu_torch.pde import enable_amp\n"
+        "from cnn_pde_tpu_torch.serve import cache_hoisted_operators\n"
+        "s = build_model('svhn', device='cpu')\n"
+        "assert enable_amp(s) == 1 and cache_hoisted_operators(s) == 1\n"
+        "sx = np.random.default_rng(2).random((2, 3, 32, 32), np.float32)\n"
+        "assert make_predict_fn(s)(sx).shape == (2, 10)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'cnn_pde_tpu' or k.startswith('cnn_pde_tpu.')]\n"
         "assert not bad, bad\n"
