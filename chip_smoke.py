@@ -6,7 +6,8 @@ hold its kernels against their plain versions.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
-1. device: the card's name and power limit from nvidia-smi; TF32 off;
+1. device: the card's name and power limit from nvidia-smi; TF32 off
+   (phase 9 turns cuDNN's flag back on for Tiny-ImageNet);
 2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu),
    K5 (csrc/fused_channel_vjp.cu), K6 and K7 (csrc/fused_grayscale.cu) and
    K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
@@ -77,7 +78,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    its plain versions (50 steps, falling loss), and its two hoisted
    grades the same way (2 K1); the serve CLI with --preset svhn --amp and
    the train CLI with --preset svhn --amp --bf16-moments on cuda;
-9. times of each kernel and its plain version beside the least time the
+9. the explicit-stencil families: emotion (48 x 48, FTCS; no kernel of
+   ours) served at B in {1, 64, 1024} with logits within 1e-4 of their
+   largest entry against the same model in float64, trained at B = 64
+   with the loss and every gradient within 1e-4 of its largest entry
+   against the float64 step (the six FTCS weights as one vector), 50 steps
+   with a falling loss, images/s and the busy share, and both CLIs; then
+   Tiny-ImageNet (64 x 64, ResNet-18, 200 classes) with cuDNN's TF32 flag
+   at torch's default (on), so that the port's guard is what keeps the
+   exact grade off TF32: served at B in {1, 32, 256} (logits within 1e-4
+   of float64) and trained at B = 32 and 128 (every gradient within 1e-4
+   of its largest entry against the float64 step, ReLU and max-pool
+   decisions replayed), a control with the guard bypassed that must miss
+   a limit, 50 steps, images/s and the busy share; ``pde_implicit=True``
+   (2 K1 a forward, 2 K1 + 2 K3 a step, against the plain versions); the
+   AMP grade (each kind of bf16 convolution of the backbone and its
+   gradients against its plain version, within one bf16 step of the
+   largest entry; the model within sqrt(2) times the plain
+   grade's distance from the exact grade plus 2^-8; with ``pde_implicit``
+   2 K1 a forward and a step, no K3); the serve CLI with --preset
+   tiny_imagenet --amp and the train CLI with --synthetic --steps 20;
+10. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
    points in a CUDA graph and by CUDA events around wrapper calls; K6 at
@@ -88,8 +109,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layer's at B = 128 and 1024), in a CUDA graph, L2-warm and cold, with
    the wrapper's call time, the plain version, the bound and
    torch.linalg.solve on the dense system as the library yardstick;
-10. the ``kernels`` JSON line (K1's row also carries the operator build's
-   figures and its hoisted launch counts), then the contract line.
+11. the ``kernels`` JSON line (K1's row also carries the operator build's
+   figures and its hoisted and Tiny-ImageNet launch counts), then the
+   contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -97,6 +119,7 @@ Exits non-zero without a result when CUDA is unavailable.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import statistics
@@ -107,6 +130,7 @@ import time
 import numpy as np
 import torch
 
+import cnn_pde_tpu_torch.layers as layers_module
 from cnn_pde_tpu_torch.data.synthetic import make_synthetic
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
@@ -584,14 +608,14 @@ def device_busy(fn, reps, device):
 
 
 def serve_family(tag, device, make_model, shape, batches, expected, reps,
-                 seed):
+                 seed, classes=10):
     """``make_predict_fn`` on ``make_model(config)`` for each configuration
     of ``expected`` ({config: {kernel: launches a forward}}), over one
     request of each batch in ``batches`` of seeded images of ``shape``: the
-    launch counts of that run, logits within LOGIT_TOL of the same model on
-    its plain versions with equal labels, then images/s (host clock,
-    ``reps[B]`` requests after one warm-up).  Returns (counts a config,
-    rates)."""
+    launch counts of that run, logits (``classes`` a row) within LOGIT_TOL
+    of the same model on its plain versions with equal labels, then
+    images/s (host clock, ``reps[B]`` requests after one warm-up).
+    Returns (counts a config, rates)."""
     rng = np.random.default_rng(seed)
     images = {B: rng.random((B, *shape)).astype(np.float32)
               for B in batches}
@@ -610,25 +634,33 @@ def serve_family(tag, device, make_model, shape, batches, expected, reps,
             plain = {B: predict(images[B]) for B in batches}
         for B in batches:
             out = logits[B]
-            if out.shape != (B, 10) or not torch.isfinite(out).all():
+            if out.shape != (B, classes) or not torch.isfinite(out).all():
                 raise AssertionError(f"{config} B={B}: bad logits {out.shape}")
             check(f"{config} B={B} logits vs plain versions",
                   max_err(out, plain[B]), LOGIT_TOL)
             if not torch.equal(out.argmax(-1), plain[B].argmax(-1)):
                 raise AssertionError(f"{config} B={B}: labels differ")
         for B in batches:
-            x = torch.from_numpy(images[B]).to(device)
-            predict(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps[B]):
-                predict(x)
-            torch.cuda.synchronize()
-            rate = B * reps[B] / (time.perf_counter() - t0)
-            rates[f"{config}_B{B}"] = rate
-            log(f"[{tag}] {config} B={B}: {rate:.1f} images/s "
-                f"(host clock, {reps[B]} requests after one warm-up)")
+            rates[f"{config}_B{B}"] = request_rate(
+                tag, config, predict, torch.from_numpy(images[B]).to(device),
+                reps[B])
     return launches, rates
+
+
+def request_rate(tag, label, predict, x, reps):
+    """images/s of ``predict`` on ``x`` (host clock, ``reps`` requests
+    after one warm-up)."""
+    B = x.shape[0]
+    predict(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        predict(x)
+    torch.cuda.synchronize()
+    rate = B * reps / (time.perf_counter() - t0)
+    log(f"[{tag}] {label} B={B}: {rate:.1f} images/s (host clock, {reps} "
+        "requests after one warm-up)")
+    return rate
 
 
 def run_cli(module, preset, *args):
@@ -696,22 +728,45 @@ def spiked_images(rng, B):
     return x.astype(np.float32)
 
 
+def _record_pool(masks, name):
+    def hook(mod, inp, out):
+        masks[name] = torch.nn.functional.max_pool2d(
+            inp[0].detach(), mod.kernel_size, mod.stride, mod.padding,
+            return_indices=True)[1]
+    return hook
+
+
+def _replay_pool(masks, name):
+    def hook(mod, inp, out):
+        return inp[0].flatten(2).gather(2, masks[name].flatten(2)).view_as(
+            out)
+    return hook
+
+
 def train_grads(model, x, y, smoothing, relu_masks=None):
-    """Loss and gradients of one train-mode forward and backward.  Every
-    ReLU's mask (output > 0) is recorded into ``relu_masks`` when it is an
-    empty dict, and replayed from it otherwise: a pre-activation within
-    rounding of 0 would flip between two runs and move whole gradient rows,
-    so the reference run takes the kernel run's ReLU decisions."""
+    """Loss and gradients of one train-mode forward and backward (a
+    parameter the forward did not read at zero).  Every ReLU's mask (output
+    > 0) and every MaxPool2d's argmax is recorded into ``relu_masks`` when
+    it is an empty dict, and replayed from it otherwise: a pre-activation
+    within rounding of 0, or a window's near tie, would flip between two
+    runs and move whole gradient rows, so the reference run takes the
+    kernel run's decisions."""
     hooks = []
     for name, m in model.named_modules():
+        if relu_masks is None:
+            break
         if isinstance(m, torch.nn.ReLU):
-            if relu_masks is not None and name in relu_masks:
+            if name in relu_masks:
                 hooks.append(m.register_forward_hook(
                     lambda mod, inp, out, k=name: inp[0] * relu_masks[k]))
-            elif relu_masks is not None:
+            else:
                 hooks.append(m.register_forward_hook(
                     lambda mod, inp, out, k=name: relu_masks.__setitem__(
                         k, (out > 0).to(out.dtype))))
+        elif isinstance(m, torch.nn.MaxPool2d):
+            hooks.append(m.register_forward_hook(
+                (_replay_pool if name in relu_masks else _record_pool)(
+                    relu_masks, name)))
     model.train()
     model.zero_grad(set_to_none=True)
     try:
@@ -720,7 +775,8 @@ def train_grads(model, x, y, smoothing, relu_masks=None):
     finally:
         for h in hooks:
             h.remove()
-    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+    return loss.detach(), {n: torch.zeros_like(p) if p.grad is None
+                           else p.grad for n, p in model.named_parameters()}
 
 
 def train_family(tag, make_model, values, data, expected, batch, inputs,
@@ -799,32 +855,12 @@ def train_family(tag, make_model, values, data, expected, batch, inputs,
                     f"{path} {err:.3e} ({name})"
                     for path, (err, name) in far.items()))
 
-        model = make_model(config, None)
-        step = make_train_step(model, values, steps_per_epoch,
-                               torch.Generator(device).manual_seed(SEED))
-        run = train_steps(step, data, 50, batch, seed=SEED)
-        losses[config] = (run[0], run[-1])
-        log(f"[{tag}] {config}: 50 steps at B={batch}, loss {run[0]:.4f} -> "
-            f"{run[-1]:.4f} (means of the first and last 5: "
-            f"{np.mean(run[:5]):.4f} -> {np.mean(run[-5:]):.4f})")
-        if not (all(np.isfinite(run))
-                and np.mean(run[-5:]) < np.mean(run[:5])):
-            raise AssertionError(f"{config}: loss did not fall: {run}")
-
+        step, losses[config] = train_falling(
+            tag, config, lambda rate: make_model(config, rate), values, data,
+            batch)
         for B in rate_batches:
-            model = make_model(config, None)
-            step = make_train_step(model, values, steps_per_epoch,
-                                   torch.Generator(device).manual_seed(SEED))
-            idx = torch.from_numpy(rng.integers(0, data[0].shape[0], B))
-            xb, yb = data[0][idx.to(device)], data[1][idx.to(device)]
-            reps = 20
-            ms = time_ms(lambda: step(xb, yb), groups=3, per_group=reps)
-            rates[f"{config}_B{B}"] = 1e3 * B / ms
-            log(f"[{tag}] {config} B={B}: {1e3 * B / ms:.1f} images/s "
-                f"({ms:.3f} ms a step, CUDA events, median of 3 groups of "
-                f"{reps} steps after warm-up)")
-            log_busy(tag, f"{config} B={B}",
-                     device_busy(lambda: step(xb, yb), 5, device), "step")
+            rates.update({f"{config}_{k}": v for k, v in step_rates(
+                tag, config, step, data, B, rng).items()})
     return launches, rates, losses
 
 
@@ -1292,27 +1328,37 @@ def model_operator_dtype(model):
     return next(iter_adi_layers(model)).operator_dtype
 
 
-def compare_grads(label, got, ref, tol, zero_names, rel_check=True):
+def compare_grads(label, got, ref, tol, zero_names, rel_check=True,
+                  vectors=()):
     """Worst of the loss and every gradient of ``got`` = (loss, grads)
-    against ``ref``, relative to each one's largest entry; a gradient of
-    ``zero_names`` (zero in exact arithmetic) must be within GRAD_TOL of
-    0 on both sides instead.  Held at ``tol`` unless ``rel_check`` is
-    False (then logged).  Returns the worst error."""
+    against ``ref``, relative to each one's largest entry (the names of
+    each group in ``vectors`` as one vector); a gradient of ``zero_names``
+    (zero in exact arithmetic) must be within GRAD_TOL of 0 on both sides
+    instead.  Held at ``tol`` unless ``rel_check`` is False (then
+    logged).  Returns the worst error and where."""
     worst, where = rel_err(got[0], ref[0]), "loss"
+    grouped = {n for group in vectors for n in group}
     for name, g in got[1].items():
         if name in zero_names:
             size = max(g.abs().max().item(), ref[1][name].abs().max().item())
             if not size <= GRAD_TOL:
                 raise AssertionError(f"{label} {name}: {size}")
             continue
+        if name in grouped:
+            continue
         err = rel_err(g, ref[1][name])
         if err > worst:
             worst, where = err, name
+    for group in vectors:
+        err = rel_err(torch.stack([got[1][n] for n in group]),
+                      torch.stack([ref[1][n] for n in group]))
+        if err > worst:
+            worst, where = err, "+".join(group)
     if rel_check:
         check_rel(f"{label} (worst: {where})", worst, tol)
     else:
         log(f"  {label}: {worst:.3e} of its largest entry (worst: {where})")
-    return worst
+    return worst, where
 
 
 def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
@@ -1368,33 +1414,13 @@ def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
                           zero_names)
             compare_grads(f"bf16 B={batch} vs the per-sweep float32 step",
                           run, ref, None, zero_names, rel_check=False)
-        model = amp_switch(make_model(None), grade)
-        step = make_train_step(model, values, steps_per_epoch,
-                               torch.Generator(device).manual_seed(SEED))
-        losses = train_steps(step, data, steps, batch, seed=SEED)
-        log(f"[{tag}] {grade}: {steps} steps at B={batch}, loss "
-            f"{losses[0]:.4f} -> {losses[-1]:.4f} (means of the first and "
-            f"last 5: {np.mean(losses[:5]):.4f} -> "
-            f"{np.mean(losses[-5:]):.4f})")
-        if not (all(np.isfinite(losses))
-                and np.mean(losses[-5:]) < np.mean(losses[:5])):
-            raise AssertionError(f"{tag} {grade}: loss did not fall")
+        step, losses = train_falling(
+            tag, grade, lambda rate: amp_switch(make_model(rate), grade),
+            values, data, batch, steps)
         rates = {}
         for B in rate_batches:
-            idx = torch.from_numpy(rng.integers(0, data[0].shape[0], B))
-            xb, yb = data[0][idx.to(device)], data[1][idx.to(device)]
-            ms = time_ms(lambda: step(xb, yb), groups=3, per_group=10)
-            rates[f"B{B}"] = 1e3 * B / ms
-            log(f"[{tag}] {grade} B={B}: {1e3 * B / ms:.1f} images/s "
-                f"({ms:.3f} ms a step, CUDA events, median of 3 groups of "
-                "10 steps after warm-up)")
-            busy = device_busy(lambda: step(xb, yb), 5, device)
-            log_busy(tag, f"{grade} B={B}", busy, "step")
-            if busy is not None:
-                rates[f"B{B}_busy"] = busy[0]
-                rates[f"B{B}_device_us_per_step"] = busy[0] * busy[1]
-                rates[f"B{B}_launch_calls_per_step"] = busy[4]
-        result[grade] = (got, rates, (losses[0], losses[-1]))
+            rates.update(step_rates(tag, grade, step, data, B, rng, reps=10))
+        result[grade] = (got, rates, losses)
     return result
 
 
@@ -1604,6 +1630,541 @@ def phase_amp(device):
     log(f"[amp] python -m cnn_pde_tpu_torch.train --preset svhn --amp "
         f"--bf16-moments (default device cuda): {summary}")
     return out
+
+
+# ---- the explicit-stencil families: emotion and Tiny-ImageNet --------------
+
+EMOTION_TRAIN = PRESETS["emotion"]["train"]
+TINY_TRAIN = PRESETS["tiny_imagenet"]["train"]
+# biases that feed a train-mode BatchNorm in the emotion head
+EMOTION_ZERO = {f"classifier.{i}.bias" for i in (1, 5, 9)}
+# the FTCS layer's six weights, one coefficient field's parameters: held
+# as one vector (a weight whose gradient cancels to near 0 has no float32
+# digits of its own to compare; each one's own error is logged)
+FTCS_WEIGHTS = tuple(f"pde.{k}_w{i}" for k in ("alpha", "beta")
+                     for i in (1, 2, 3))
+# ResidualDiffusion's beta_base, which the explicit forward never reads
+TINY_ZERO = {"diff.beta_base"}
+# batches: emotion served at these and trained at the preset's 64;
+# Tiny-ImageNet served at these, trained at the preset's 32 and at 128
+EMOTION_SERVE = (1, 64, 1024)
+EMOTION_BATCH = 64
+TINY_SERVE = (1, 32, 256)
+TINY_TRAIN_BATCHES = (32, 128)
+
+
+def emotion_model(device, dropout_rate=None):
+    """The emotion classifier with init from a seeded generator (the FTCS
+    weights' init constants, CFL-unstable: values grow about 1e6x over the
+    10 steps)."""
+    model = build_model("emotion", device=device,
+                        generator=torch.Generator().manual_seed(SEED),
+                        **({} if dropout_rate is None
+                           else {"dropout_rate": dropout_rate}))
+    USED_DEVICES.add(next(model.parameters()).device)
+    return model
+
+
+def tiny_model(device, dropout_rate=None, **kwargs):
+    """The Tiny-ImageNet classifier with init from a seeded generator, its
+    front end's fields and every BatchNorm's affine parameters and
+    statistics moved off their init by seeded draws."""
+    model = build_model("tiny_imagenet", device=device,
+                        generator=torch.Generator().manual_seed(SEED),
+                        **kwargs, **({} if dropout_rate is None
+                                     else {"dropout_rate": dropout_rate}))
+    USED_DEVICES.add(next(model.parameters()).device)
+    rng = np.random.default_rng(SEED + 21)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(t(1 + 0.1 * rng.standard_normal(n)))
+                m.bias.copy_(t(0.1 * rng.standard_normal(n)))
+                m.running_mean.copy_(t(0.1 * rng.standard_normal(n)))
+                m.running_var.copy_(t(1 + 0.1 * np.abs(
+                    rng.standard_normal(n))))
+        if model.use_pde:
+            model.diff.alpha_base.copy_(t([0.03, 0.08, 0.12]))
+            model.diff.beta_base.copy_(t([0.04, 0.06, 0.09]))
+            model.diff.channel_scaling.copy_(t(
+                1 + 0.1 * rng.standard_normal(3)))
+    return model
+
+
+def float64_logits(model, x):
+    """``model``'s eval logits in float64 on the plain versions (a copy)."""
+    with kernels.plain_versions(), torch.inference_mode():
+        return copy.deepcopy(model).double().eval()(x.double())
+
+
+def grad_l2(got, ref):
+    """‖got − ref‖ / ‖ref‖ over every gradient taken as one vector."""
+    a = torch.cat([g.double().flatten() for g in got[1].values()])
+    b = torch.cat([ref[1][n].double().flatten() for n in got[1]])
+    return float((a - b).norm() / b.norm())
+
+
+def against_float64(tag, label, make_model, xs, ys, smoothing, zero_names,
+                    vectors=(), limit=GRAD_TOL):
+    """One train-mode step of ``make_model(0.0)`` (dropout off) against the
+    same step in float64 on the plain versions, the float32 run's ReLU and
+    max-pool decisions replayed: (worst, where, loss and gradients)."""
+    masks = {}
+    got = train_grads(make_model(0.0), xs, ys, smoothing, masks)
+    with kernels.plain_versions():
+        ref = train_grads(make_model(0.0).double(), xs.double(), ys,
+                          smoothing, masks)
+    worst, where = compare_grads(
+        f"[{tag}] {label} loss and every gradient vs the float64 step", got,
+        ref, limit, zero_names, limit is not None, vectors)
+    return worst, where, got, ref
+
+
+def step_rates(tag, label, step, data, B, rng, reps=20):
+    """images/s of a train ``step`` at B on a draw from ``data`` (CUDA
+    events) and the device's busy share of a step."""
+    device = data[0].device
+    idx = torch.from_numpy(rng.integers(0, data[0].shape[0], B))
+    xb, yb = data[0][idx.to(device)], data[1][idx.to(device)]
+    ms = time_ms(lambda: step(xb, yb), groups=3, per_group=reps)
+    log(f"[{tag}] {label} B={B}: {1e3 * B / ms:.1f} images/s ({ms:.3f} ms "
+        f"a step, CUDA events, median of 3 groups of {reps} steps after "
+        "warm-up)")
+    busy = device_busy(lambda: step(xb, yb), 5, device)
+    log_busy(tag, f"{label} B={B}", busy, "step")
+    out = {f"B{B}": 1e3 * B / ms}
+    if busy is not None:
+        out.update({f"B{B}_busy": busy[0],
+                    f"B{B}_device_us_per_step": busy[0] * busy[1],
+                    f"B{B}_launch_calls_per_step": busy[4]})
+    return out
+
+
+def serve_rates(tag, label, predict, images, reps, device):
+    """``request_rate`` at each B of ``images`` and the busy share at the
+    largest B."""
+    out = {f"B{B}": request_rate(tag, label, predict, x, reps[B])
+           for B, x in images.items()}
+    big = max(images)
+    busy = device_busy(lambda: predict(images[big]), 5, device)
+    log_busy(tag, f"{label} B={big}", busy, "request")
+    if busy is not None:
+        out[f"B{big}_busy"] = busy[0]
+        out[f"B{big}_launch_calls_per_request"] = busy[4]
+    return out
+
+
+def train_falling(tag, label, make_model, values, data, batch, steps=50):
+    """``steps`` ``make_train_step`` steps of ``make_model(None)`` at
+    ``batch`` on ``data`` with a falling loss; returns the step (for the
+    rates) and the first and last loss."""
+    step = make_train_step(make_model(None), values,
+                           max(data[0].shape[0] // batch, 1),
+                           torch.Generator(data[0].device).manual_seed(SEED))
+    run = train_steps(step, data, steps, batch, seed=SEED)
+    log(f"[{tag}] {label}: {steps} steps at B={batch}, loss {run[0]:.4f} -> "
+        f"{run[-1]:.4f} (means of the first and last 5: "
+        f"{np.mean(run[:5]):.4f} -> {np.mean(run[-5:]):.4f})")
+    if not (all(np.isfinite(run)) and np.mean(run[-5:]) < np.mean(run[:5])):
+        raise AssertionError(f"{tag} {label}: loss did not fall: {run}")
+    return step, (run[0], run[-1])
+
+
+def phase_emotion(device):
+    """Emotion at full width (48 x 48): served at B in {1, 64, 1024} with
+    logits within 1e-4 of their largest entry against the same model in
+    float64 and no kernel launched; trained at B = 64 with the loss and
+    every gradient within 1e-4 of its largest entry against the float64
+    step (the six FTCS weights as one vector, each one's own error
+    logged); 50 steps on synthetic data with a falling loss; images/s and
+    the busy share; both CLIs on cuda."""
+    tag, out = "emotion", {}
+    rng = np.random.default_rng(SEED + 22)
+    model = emotion_model(device)
+    predict = make_predict_fn(model)
+    images = {B: torch.from_numpy(rng.random((B, 1, 48, 48)).astype(
+        np.float32)).to(device) for B in EMOTION_SERVE}
+    reset_counts()
+    logits = {B: predict(x) for B, x in images.items()}
+    sync(device)
+    if counts() != only():
+        raise AssertionError(f"emotion launched a kernel: {counts()}")
+    for B, x in images.items():
+        if logits[B].shape != (B, 7) or not torch.isfinite(logits[B]).all():
+            raise AssertionError(f"emotion B={B}: bad logits")
+        check_rel(f"[{tag}] B={B} logits vs float64 (largest "
+                  f"{logits[B].abs().max().item():.4g})",
+                  rel_err(logits[B], float64_logits(model, x)), LOGIT_TOL)
+    out["serve"] = serve_rates(tag, "serve", predict, images,
+                               dict(zip(EMOTION_SERVE, (30, 20, 5))), device)
+
+    images, labels, _, _ = make_synthetic("emotion", train_per_class=64)
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+    idx = torch.from_numpy(rng.permutation(images.shape[0])[:EMOTION_BATCH])
+    worst, where, got, ref = against_float64(
+        tag, f"B={EMOTION_BATCH}", lambda rate: emotion_model(device, rate),
+        data[0][idx.to(device)], data[1][idx.to(device)], EMOTION_TRAIN["label_smoothing"], EMOTION_ZERO,
+        (FTCS_WEIGHTS,))
+    log(f"  each FTCS weight's own gradient error vs float64: " + "; ".join(
+        f"{n[4:]} {rel_err(got[1][n], ref[1][n]):.3e} (of its "
+        f"{ref[1][n].item():.4g})" for n in FTCS_WEIGHTS))
+    out["grad_vs_float64"] = worst
+    step, out["loss_50_steps"] = train_falling(
+        tag, "train", lambda rate: emotion_model(device, rate),
+        EMOTION_TRAIN, data, EMOTION_BATCH)
+    out["train"] = step_rates(tag, "train", step, data, EMOTION_BATCH, rng)
+    summary = run_cli("cnn_pde_tpu_torch.serve", "emotion")
+    if len(summary["predictions"]) != 8 or summary["amp_cached_layers"]:
+        raise AssertionError(f"serve CLI on cuda: {summary}")
+    log(f"[{tag}] python -m cnn_pde_tpu_torch.serve --preset emotion "
+        f"(default device cuda): {summary}")
+    check_train_cli(tag, "emotion")
+    return out
+
+
+@contextlib.contextmanager
+def tf32_guard_bypassed():
+    """The control for the exact grade: the port's convolutions without
+    their TF32 guard (``layers.no_tf32`` a no-op), under cuDNN's TF32 flag
+    as the process has it (torch's default, on, in this phase)."""
+    guard = layers_module.no_tf32
+    layers_module.no_tf32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        layers_module.no_tf32 = guard
+
+
+def bf16_steps(x, y):
+    """max |x − y| in bf16 steps of the largest entry: units in the last
+    place of bf16 (8 significant bits) at the larger of the two largest
+    magnitudes."""
+    m = torch.maximum(x.abs().max(), y.abs().max()).float()
+    ulp = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+    return float((x.float() - y.float()).abs().max() / ulp)
+
+
+def record_io(model, names, store):
+    """Forward hooks that keep, for each module of ``names`` in ``model``,
+    its input, its output and, once the backward has run, its output's
+    cotangent in ``store[name]``; returns the handles."""
+    modules = dict(model.named_modules())
+
+    def hook(name):
+        def keep(mod, inp, out):
+            store[name] = [inp[0].detach(), out.detach(), None]
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g: store[name].__setitem__(2, g.detach()))
+        return keep
+    return [modules[n].register_forward_hook(hook(n)) for n in names]
+
+
+def replay(module, x, g):
+    """``module`` run on ``x`` and given the output cotangent ``g``: its
+    output, the input's gradient and each parameter's gradient."""
+    module.zero_grad(set_to_none=True)
+    xs = x.clone().requires_grad_()
+    y = module(xs)
+    y.backward(g)
+    return y.detach(), xs.grad, {
+        n: torch.zeros_like(p) if p.grad is None else p.grad
+        for n, p in module.named_parameters()}
+
+
+def replay_against_plain(tag, label, module, x, g, out_tol):
+    """``replay`` of ``module`` on its card route against its plain versions
+    on the same input and cotangent: the output within ``out_tol`` of its
+    largest entry (None, for a bf16 convolution: on the bf16 grid and
+    within one bf16 step of it, 2^-8 to 2^-7 by where it lies in its
+    binade), the input's and
+    every parameter's gradient within AMP_GRAD_TOL of its largest entry.
+    Returns the worst (output, gradient) readings relative to the largest
+    entry."""
+    got = replay(module, x, g)
+    with kernels.plain_versions():
+        plain = replay(module, x, g)
+    if out_tol is None and not torch.equal(
+            got[0], got[0].to(torch.bfloat16).float()):
+        raise AssertionError(f"{label}: output off the bf16 grid")
+    out_err, steps = rel_err(got[0], plain[0]), bf16_steps(got[0], plain[0])
+    if not (steps <= 1.0 if out_tol is None else out_err <= out_tol):
+        raise AssertionError(f"{label} output: {out_err} of the largest "
+                             f"entry, {steps} bf16 steps")
+    grads = {"input": (got[1], plain[1])}
+    grads.update({n: (a, plain[2][n]) for n, a in got[2].items()})
+    errs = {n: (rel_err(a, b), bf16_steps(a, b)) for n, (a, b) in
+            grads.items()}
+    log(f"  [{tag}] {label} vs its plain versions, of the largest entry "
+        f"(bf16 steps of it): output {out_err:.3e} ({steps:g}); " + "; ".join(
+            f"{n} gradient {e:.3e} ({st:g})" for n, (e, st) in errs.items()))
+    for n, (e, _) in errs.items():
+        if not e <= AMP_GRAD_TOL:
+            raise AssertionError(f"{label} {n} gradient: {e} > "
+                                 f"{AMP_GRAD_TOL}")
+    return out_err, max(e for e, _ in errs.values())
+
+
+def amp_against_plain(tag, label, make_amp, make_exact, images, batch,
+                      smoothing, replayed, out_tol, zero_names):
+    """The AMP model ``make_amp(rate)`` against its plain versions: the
+    train-mode loss at ``batch`` within AMP_OUT_TOL; each module of
+    ``replayed``, run again on the input and output cotangent that the
+    plain step gave it, held by ``replay_against_plain``; the grade
+    measurably away from the exact grade ``make_exact(rate)`` (logits and
+    gradients over 1e-3); ``zero_names`` as for ``compare_grads``.
+
+    The model's eval logits (at each B of ``images``) and its gradients
+    are logged against AMP_OUT_TOL and AMP_GRAD_TOL, not held: the two
+    pipelines round a float32 value near a bf16 midpoint apart now and
+    then, later convolutions carry that step, and the logits then read
+    about one bf16 step (2^-8) of their largest entry apart, on either
+    side of 4e-3 by the draw (3.1e-3 to 4.1e-3 on an H100); the gradients,
+    which train-mode BatchNorm cancels down to the bf16 cotangents'
+    rounding, further.  Each convolution, replayed, is what is held."""
+    out = {}
+    predict = make_predict_fn(make_amp(None))
+    exact_predict = make_predict_fn(make_exact(None))
+    for B, x in images.items():
+        got = predict(x)
+        if got.shape != (B, 200) or not torch.isfinite(got).all():
+            raise AssertionError(f"{label} B={B}: bad logits")
+        with kernels.plain_versions():
+            plain = predict(x)
+        err = out[f"logits_B{B}"] = rel_err(got, plain)
+        log(f"  [{tag}] {label} B={B} logits vs its plain versions: "
+            f"{err:.3e} of the largest entry, "
+            f"{'within' if err <= AMP_OUT_TOL else 'OVER'} the issue's "
+            f"{AMP_OUT_TOL:.0e} (logged, not held)")
+        away = rel_err(got, exact_predict(x))
+        log(f"  {label} B={B} logits vs the exact grade: {away:.3e} of the "
+            "largest entry")
+        if not away > 1e-3:
+            raise AssertionError(f"{label}: logits at the exact grade's")
+    xb, yb = batch
+    masks, io = {}, {}
+    got = train_grads(make_amp(0.0), xb, yb, smoothing, masks)
+    plain_model = make_amp(0.0)
+    hooks = record_io(plain_model, replayed, io)
+    try:
+        with kernels.plain_versions():
+            plain = train_grads(plain_model, xb, yb, smoothing, masks)
+    finally:
+        for h in hooks:
+            h.remove()
+    exact = train_grads(make_exact(0.0), xb, yb, smoothing, masks)
+    out["loss"] = check_rel(
+        f"[{tag}] {label} B={xb.shape[0]} train-mode loss vs its plain "
+        "versions", rel_err(got[0], plain[0]), AMP_OUT_TOL)
+    worst, where = compare_grads(
+        f"{label} B={xb.shape[0]} every gradient of the model vs its plain "
+        f"versions (logged, not held; the issue's {AMP_GRAD_TOL:.0e})", got,
+        plain, None, zero_names, False)
+    out.update({"grad_l2_vs_plain": grad_l2(got, plain),
+                "worst_grad_vs_plain": worst,
+                "grad_l2_plain_vs_exact": grad_l2(plain, exact),
+                "grad_l2_vs_exact": grad_l2(got, exact)})
+    log(f"  {label} B={xb.shape[0]} gradients (L2 over all): vs its plain "
+        f"versions {out['grad_l2_vs_plain']:.3e}; vs the exact grade "
+        f"{out['grad_l2_vs_exact']:.3e}; the plain versions vs the exact "
+        f"grade {out['grad_l2_plain_vs_exact']:.3e}")
+    if not out["grad_l2_vs_exact"] > 1e-3:
+        raise AssertionError(f"{label}: gradients at the exact grade's")
+    modules = dict(plain_model.named_modules())
+    worst = (0.0, 0.0)
+    for name in replayed:
+        x, _, g = io[name]
+        errs = replay_against_plain(tag, f"{label} {name}", modules[name],
+                                    x, g, out_tol)
+        worst = tuple(map(max, worst, errs))
+    out["replay_worst_output"], out["replay_worst_grad"] = worst
+    return out
+
+
+def phase_tiny(device):
+    """Tiny-ImageNet at full width (64 x 64, ResNet-18, 200 classes), with
+    cuDNN's TF32 flag at torch's default (on), so that the port's own guard
+    is what keeps the exact grade off TF32: the exact grade served at B in
+    {1, 32, 256} (logits within 1e-4 of float64) and its train step at
+    B = 32 and 128 (loss and every gradient within 1e-4 of its largest
+    entry against the float64 step, the ReLU and max-pool decisions
+    replayed); the control, the same with the guard bypassed, which must
+    miss a limit; 50 steps with a falling loss, images/s and the busy
+    share; ``pde_implicit=True`` (2 K1 a forward, 2 K1 + 2 K3 a step,
+    against the plain versions); the AMP grade against its plain
+    versions (``amp_against_plain``: logits and loss within 4e-3, each of
+    the 20 convolutions replayed on the plain step's input and cotangent,
+    its output within one bf16 step and its gradients within 6e-3 of the
+    largest entry; away from the exact grade), and with ``pde_implicit``
+    (2 K1 a forward and a step, no K3; the front end replayed, 4e-3 and
+    6e-3); both CLIs."""
+    tag, out = "tiny", {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _phase_tiny(tag, out, device)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _phase_tiny(tag, out, device):
+    log(f"[{tag}] cuDNN TF32 flag {torch.backends.cudnn.allow_tf32} (torch's "
+        "default) for this phase")
+    rng = np.random.default_rng(SEED + 23)
+    model = tiny_model(device)
+    predict = make_predict_fn(model)
+    images = {B: torch.from_numpy(rng.random((B, 3, 64, 64)).astype(
+        np.float32)).to(device) for B in TINY_SERVE}
+    reps = dict(zip(TINY_SERVE, (30, 20, 5)))
+    reset_counts()
+    logits = {B: predict(x) for B, x in images.items()}
+    sync(device)
+    if counts() != only():
+        raise AssertionError(f"tiny exact grade launched a kernel: "
+                             f"{counts()}")
+    ref = {B: float64_logits(model, x) for B, x in images.items()}
+    for B in images:
+        if logits[B].shape != (B, 200) or not torch.isfinite(
+                logits[B]).all():
+            raise AssertionError(f"tiny B={B}: bad logits")
+        check(f"[{tag}] exact B={B} logits vs float64",
+              max_err(logits[B], ref[B]), LOGIT_TOL)
+    with tf32_guard_bypassed():
+        control = {B: predict(x) for B, x in images.items()}
+    control_logits = max(max_err(control[B], ref[B]) for B in images)
+    log(f"  control (TF32 guard bypassed, TF32 on): logits vs float64 "
+        f"{control_logits:.3e} (limit {LOGIT_TOL:.0e})")
+    out["serve"] = serve_rates(tag, "exact serve", predict, images, reps,
+                               device)
+
+    images, labels, _, _ = make_synthetic("tiny_imagenet")
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+    smoothing = TINY_TRAIN["label_smoothing"]
+
+    def make(rate, **kw):
+        return tiny_model(device, rate, **kw)
+
+    def batch(B):
+        idx = torch.from_numpy(rng.integers(0, images.shape[0], B))
+        return data[0][idx.to(device)], data[1][idx.to(device)]
+
+    readings = {}
+    small, big = TINY_TRAIN_BATCHES
+    for B in TINY_TRAIN_BATCHES:
+        xs, ys = batch(B)
+        readings[B] = against_float64(tag, f"exact B={B}", make, xs, ys,
+                                      smoothing, TINY_ZERO)[0]
+        if B == small:
+            with tf32_guard_bypassed():
+                worst = against_float64(
+                    tag, f"control (TF32 guard bypassed, TF32 on; limit "
+                    f"{GRAD_TOL:.0e}) B={B}", make, xs, ys, smoothing,
+                    TINY_ZERO, limit=None)[0]
+            out["tf32_control"] = {"logits": control_logits, "grads": worst}
+            if control_logits <= LOGIT_TOL and worst <= GRAD_TOL:
+                raise AssertionError("the TF32 control passed every limit: "
+                                     "the checks cannot see TF32")
+    out["grad_vs_float64"] = readings
+    step, out["loss_50_steps"] = train_falling(
+        tag, "exact train", make, TINY_TRAIN, data, small)
+    out["train"] = step_rates(tag, "exact train", step, data, small, rng)
+    out["train"].update(step_rates(tag, "exact train", step, data, big, rng,
+                                   reps=10))
+
+    # pde_implicit: K1 a sweep forward, K3 a sweep backward
+    out["implicit_serve"] = serve_family(
+        f"{tag}-implicit", device,
+        lambda config: make(None, pde_implicit=True), (3, 64, 64),
+        TINY_SERVE, {"implicit": {"K1": 2}}, reps, SEED + 24, classes=200)
+    out["implicit_train"] = train_family(
+        f"{tag}-implicit", lambda config, rate: make(rate, pde_implicit=True),
+        TINY_TRAIN, data, {"implicit": {"K1": 2, "K3": 2}}, small, batch,
+        (small,), (small,), rng)
+
+    # the AMP grade: bf16 convolutions, checked against its plain versions
+    # and conv by conv
+    xs = {B: torch.from_numpy(rng.random((B, 3, 64, 64)).astype(
+        np.float32)).to(device) for B in TINY_SERVE[1:]}
+    convs = [n for n, m in make(None).named_modules()
+             if isinstance(m, layers_module.Conv2d)]
+    out["amp"] = amp_against_plain(
+        tag, "AMP", lambda rate: enable_amp_checked(make(rate)), make, xs,
+        batch(small), smoothing, convs, None, TINY_ZERO)
+    step, out["amp"]["loss_50_steps"] = train_falling(
+        f"{tag}-amp", "train", lambda rate: enable_amp_checked(make(rate)),
+        TINY_TRAIN, data, small)
+    out["amp"]["train"] = step_rates(f"{tag}-amp", "train", step, data,
+                                     small, rng)
+    out["amp"]["serve"] = serve_rates(
+        f"{tag}-amp", "serve", make_predict_fn(enable_amp_checked(
+            make(None))), xs, {B: reps[B] for B in xs}, device)
+    # AMP with pde_implicit: the front end's sweeps on bf16 operators built
+    # at the call, one K1 each, no K3; against its plain versions, the
+    # front end replayed
+    implicit = enable_amp_checked(make(None, pde_implicit=True))
+    step = make_train_step(implicit, TINY_TRAIN, data[0].shape[0] // small,
+                           torch.Generator(device).manual_seed(SEED))
+    xb, yb = batch(small)
+    step(xb, yb)
+    reset_counts()
+    make_predict_fn(implicit)(xb)
+    sync(device)
+    forward = counts()
+    reset_counts()
+    step(xb, yb)
+    sync(device)
+    train = counts()
+    log(f"[{tag}] AMP pde_implicit: launches a forward {forward}, a train "
+        f"step {train}")
+    if forward != only(K1=2) or train != only(K1=2):
+        raise AssertionError("AMP pde_implicit: expected 2 K1 a forward "
+                             "and a step, no K3")
+    out["amp_implicit"] = amp_against_plain(
+        tag, "AMP pde_implicit", lambda rate: enable_amp_checked(
+            make(rate, pde_implicit=True)),
+        lambda rate: make(rate, pde_implicit=True),
+        {small: xs[small]}, (xb, yb), smoothing, ["diff"], AMP_OUT_TOL, ())
+
+    summary = run_cli("cnn_pde_tpu_torch.serve", "tiny_imagenet", "--amp")
+    if summary["amp_cached_layers"] != 0 or len(summary["predictions"]) != 8:
+        raise AssertionError(f"serve --amp CLI on cuda: {summary}")
+    log(f"[{tag}] python -m cnn_pde_tpu_torch.serve --preset tiny_imagenet "
+        f"--amp (default device cuda): {summary}")
+    summary = run_cli("cnn_pde_tpu_torch.train", "tiny_imagenet",
+                      "--synthetic", "--steps", "20")
+    if summary["steps"] != 20 or not summary["device"].startswith("cuda") \
+            or not np.isfinite(summary["last_loss"]):
+        raise AssertionError(f"train CLI on cuda: {summary}")
+    log(f"[{tag}] python -m cnn_pde_tpu_torch.train --preset tiny_imagenet "
+        f"--synthetic --steps 20 (default device cuda): {summary}")
+    return out
+
+
+def enable_amp_checked(model):
+    """``enable_amp`` on a model with no ADI layer (0): every port Conv2d
+    in bf16, the front end's solves on the bf16 operator route and the
+    global solver default left alone."""
+    if enable_amp(model) != 0 or tridiag_module._DEFAULT_IMPL != "auto":
+        raise AssertionError("enable_amp on tiny_imagenet")
+    convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    if len(convs) != 20 or any(m.compute_dtype != torch.bfloat16
+                               for m in convs):
+        raise AssertionError("enable_amp left a convolution out of bf16")
+    if model.use_pde and model.diff.solve_impl != "matinv_bf16":
+        raise AssertionError("enable_amp left the front end's solves")
+    return model
+
+
+def phase_stencil(device):
+    """The explicit-stencil families: emotion, then Tiny-ImageNet."""
+    return {"emotion": timed("emotion", phase_emotion, device),
+            "tiny_imagenet": timed("tiny_imagenet", phase_tiny, device)}
 
 
 def phase_times(device, peak_bytes, peak_flops):
@@ -2155,6 +2716,8 @@ def main():
                                       gray_losses), fashion_serve,
      fashion_train) = timed("grayscale family", phase_grayscale, device)
     amp = timed("AMP grade and SVHN", phase_amp, device)
+    stencil = timed("emotion and Tiny-ImageNet", phase_stencil, device)
+    tiny = stencil["tiny_imagenet"]
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
@@ -2180,6 +2743,10 @@ def main():
                       gray_train["per_sweep"]["K1"],
                   "svhn_launches_per_train_step":
                       amp["svhn_train"][0]["per_sweep"]["K1"],
+                  "tiny_imagenet_implicit_launches_per_forward":
+                      tiny["implicit_serve"][0]["implicit"]["K1"] // 3,
+                  "tiny_imagenet_implicit_launches_per_train_step":
+                      tiny["implicit_train"][0]["implicit"]["K1"],
                   "hoisted_launches_per_train_step": {
                       "flagship": amp["flagship_train"]["bf16"][0]["K1"],
                       "mnist": amp["mnist_train"]["bf16"][0]["K1"],
@@ -2194,7 +2761,9 @@ def main():
                   "mnist_launches_per_train_step":
                       gray_train["per_sweep"]["K3"],
                   "svhn_launches_per_train_step":
-                      amp["svhn_train"][0]["per_sweep"]["K3"]},
+                      amp["svhn_train"][0]["per_sweep"]["K3"],
+                  "tiny_imagenet_implicit_launches_per_train_step":
+                      tiny["implicit_train"][0]["implicit"]["K3"]},
            "K4": {"launches_per_train_step": 3},
            "K5": {"launches_per_train_step": 3},
            "K6": {"mnist_launches_per_forward": 1},
@@ -2224,6 +2793,14 @@ def main():
               "svhn_serve_images_per_s": amp["svhn_serve"][1],
               "svhn_train_images_per_s": amp["svhn_train"][1],
               "svhn_train_loss_50_steps": amp["svhn_train"][2],
+              "emotion": stencil["emotion"],
+              "tiny_imagenet": {key: value for key, value in tiny.items()
+                                if key not in ("implicit_serve",
+                                               "implicit_train")},
+              "tiny_imagenet_implicit_serve_images_per_s":
+                  tiny["implicit_serve"][1],
+              "tiny_imagenet_implicit_train_images_per_s":
+                  tiny["implicit_train"][1],
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -9,7 +9,10 @@ GrayscaleDiffusion layer in one launch (eval), and K7 and K8, its trainable
 forward and backward.  Slice 7 adds SVHN (ChannelCoupledDiffusion, on K1
 and K3) and the AMP grade (``pde.enable_amp``): every sweep's operator of an
 evolution built by K1 once a forward and applied as a bf16 GEMM with float32
-accumulation.  The port imports torch and numpy, never jax and nothing of
+accumulation.  Slice 8 adds emotion (the FTCS layer) and Tiny-ImageNet
+(ResidualDiffusion, on K1 and K3 when implicit, and a ResNet-18 whose
+convolutions never take TF32 in the exact grade and are bf16 in the AMP
+grade).  The port imports torch and numpy, never jax and nothing of
 cnn_pde_tpu.
 """
 

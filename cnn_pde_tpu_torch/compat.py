@@ -6,12 +6,16 @@ reference checkpoint loads as it is.  ``state_dict_from_jax`` turns the JAX
 model's ``(params, state)`` (nested dicts of numpy arrays) into that
 namespace: the preset's key rewrites, the leaf map (``w``/``scale`` →
 ``weight``, ``b`` → ``bias``, ``mean``/``var`` → ``running_*``), the Linear
-transpose (JAX keeps (in, out), torch (out, in)) and zero
-``num_batches_tracked`` counters beside each BatchNorm.
+transpose (JAX keeps (in, out), torch (out, in); convolution kernels are
+OIHW on both sides) and zero ``num_batches_tracked`` counters beside each
+BatchNorm.  The emotion layer's coordinate grids, which the JAX layer makes
+from its hyperparameters and keeps out of its params, are added as the
+reference's ``pde.x`` and ``pde.y`` buffers.
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
@@ -36,6 +40,11 @@ KEY_REWRITES = {
     "fashion_mnist": [(r"^head\.1\.", "fc1."), (r"^head\.2\.", "bn1."),
                       (r"^head\.5\.", "fc2."), (r"^head\.6\.", "bn2."),
                       (r"^head\.9\.", "fc3.")],
+    # emotion_recognition.py:16-140: PDELayer 'pde', head 'classifier'
+    "emotion": [(r"^diff\.", "pde."), (r"^head\.", "classifier.")],
+    # tiny_imagenet.py:237-331: a BasicBlock's downsample Sequential
+    "tiny_imagenet": [(r"\.sc_conv\.", ".shortcut.0."),
+                      (r"\.sc_bn\.", ".shortcut.1.")],
 }
 
 
@@ -79,6 +88,12 @@ def state_dict_from_jax(params, state, preset="cifar10_noconv"):
         sd[key] = torch.tensor(np.asarray(leaf))
         sd.setdefault(f"{key.rsplit('.', 1)[0]}.num_batches_tracked",
                       torch.zeros((), dtype=torch.int64))
+    if preset == "emotion":
+        # the grids of FourierFTCSLayer(Nx=Ny=n) on [0, 1]², n² the head's
+        # input width
+        n = math.isqrt(np.shape(params["head"]["1"]["w"])[0])
+        sd["pde.x"] = torch.linspace(0.0, 1.0, n)
+        sd["pde.y"] = torch.linspace(0.0, 1.0, n)
     return sd
 
 

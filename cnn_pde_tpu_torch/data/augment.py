@@ -1,7 +1,8 @@
-"""On-device batch augmentation for the CIFAR and grayscale specs — port of
-``cnn_pde_tpu/data/augment.py`` (crop-pad, hflip, the rotation and
-translation warp, colour jitter, normalisation, random erasing after
-normalisation).
+"""On-device batch augmentation of the ported presets — port of
+``cnn_pde_tpu/data/augment.py`` (Resize + RandomCrop as one resampling,
+crop-pad, hflip, the rotation and translation warp, colour jitter,
+normalisation, random erasing after normalisation), in the JAX chain's
+order.
 
 Each op is split into a draw and an apply.  ``draw`` takes every random
 number of a batch from one ``torch.Generator``; the ``apply_*`` functions
@@ -20,7 +21,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-__all__ = ["AugmentSpec", "draw", "apply", "augment", "apply_crop_pad",
+__all__ = ["AugmentSpec", "draw", "apply", "augment", "apply_resize_crop",
+           "apply_crop_pad",
            "apply_hflip", "apply_rotation", "apply_affine",
            "apply_color_jitter", "apply_normalize", "apply_erasing"]
 
@@ -30,9 +32,11 @@ ERASE_RATIO = (0.3, 3.3)
 
 @dataclass(frozen=True)
 class AugmentSpec:
-    """The torchvision chain of a preset (the JAX ``AugmentSpec`` fields the
-    CIFAR and grayscale presets use)."""
+    """The torchvision chain of a preset (the JAX ``AugmentSpec``'s fields;
+    ``resize_crop`` R > 0 is Resize(R) then RandomCrop back to the image's
+    size)."""
 
+    resize_crop: int = 0
     crop_padding: int = 0
     hflip: float = 0.0
     rotation: float = 0.0
@@ -62,6 +66,9 @@ def draw(spec: AugmentSpec, shape, generator: torch.Generator,
                              device=device)
 
     d = {}
+    if spec.resize_crop:
+        d["resize_oy"] = randint(spec.resize_crop - height + 1)
+        d["resize_ox"] = randint(spec.resize_crop - width + 1)
     if spec.crop_padding:
         d["crop_oy"] = randint(2 * spec.crop_padding + 1)
         d["crop_ox"] = randint(2 * spec.crop_padding + 1)
@@ -86,6 +93,29 @@ def draw(spec: AugmentSpec, shape, generator: torch.Generator,
         d["erase_oy"] = randint(height)
         d["erase_ox"] = randint(width)
     return d
+
+
+def _tri(coords, n):
+    """Bilinear tap weights max(0, 1 − |coord − k|) of fractional source
+    coordinates (..., M) against the taps k < n: (..., M, n)."""
+    taps = torch.arange(n, dtype=coords.dtype, device=coords.device)
+    return (1.0 - (coords[..., None] - taps).abs()).clamp_min(0.0)
+
+
+def apply_resize_crop(images, oy, ox, resize_to):
+    """Resize(``resize_to``) (bilinear) then RandomCrop back to the size
+    (H, W) at the integer offsets (oy, ox) of each image, as one separable
+    resampling: output pixel (i, j) reads the input at ((i + oy)·H/R,
+    (j + ox)·H/R) through the per-axis tri weights, the JAX
+    ``_resize_crop``."""
+    B, C, H, W = images.shape
+    scale = H / resize_to
+    ys = (torch.arange(H, dtype=torch.float32, device=images.device)
+          + oy[:, None].float()) * scale
+    xs = (torch.arange(W, dtype=torch.float32, device=images.device)
+          + ox[:, None].float()) * scale
+    return torch.einsum("bik,bckl,bjl->bcij", _tri(ys, H), images,
+                        _tri(xs, W))
 
 
 def apply_crop_pad(images, oy, ox, padding):
@@ -223,6 +253,9 @@ def apply_erasing(images, erase, area, log_ratio, oy, ox):
 def apply(spec: AugmentSpec, images, d: dict):
     """The spec's chain on ``images`` with the draws ``d``."""
     x = images
+    if spec.resize_crop:
+        x = apply_resize_crop(x, d["resize_oy"], d["resize_ox"],
+                              spec.resize_crop)
     if spec.crop_padding:
         x = apply_crop_pad(x, d["crop_oy"], d["crop_ox"], spec.crop_padding)
     if spec.hflip:

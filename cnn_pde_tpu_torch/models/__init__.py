@@ -1,6 +1,6 @@
 """Model registry of the port: the CIFAR-10 no-conv flagship, the
-grayscale family (MNIST, Fashion-MNIST) and SVHN; every other preset of the
-JAX package raises until its slice lands."""
+grayscale family (MNIST, Fashion-MNIST), SVHN, emotion and Tiny-ImageNet;
+the hybrid preset of the JAX package raises until its slice lands."""
 
 from __future__ import annotations
 
@@ -9,21 +9,25 @@ import torch
 from .attention import SpatialAttention
 from .cifar10_noconv import (CIFAR10PDENoConv, EnhancedFC,
                              MultiScaleExtractor, set_dropout_generator)
-from .mlp_models import FashionClassifier, MNISTClassifier, SVHNClassifier
+from .mlp_models import (EmotionClassifier, FashionClassifier,
+                         MNISTClassifier, SVHNClassifier)
+from .tiny_imagenet import BasicBlock, TinyImageNetClassifier
 
 __all__ = ["MODEL_REGISTRY", "build_model", "SpatialAttention",
            "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor",
            "MNISTClassifier", "FashionClassifier", "SVHNClassifier",
+           "EmotionClassifier", "BasicBlock", "TinyImageNetClassifier",
            "set_dropout_generator"]
 
 MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv,
                   "mnist": MNISTClassifier,
                   "fashion_mnist": FashionClassifier,
-                  "svhn": SVHNClassifier}
+                  "svhn": SVHNClassifier,
+                  "emotion": EmotionClassifier,
+                  "tiny_imagenet": TinyImageNetClassifier}
 
 # JAX model families still to port, with their ROADMAP.md queue-A items
-NOT_YET_PORTED = {"emotion": "A9", "tiny_imagenet": "A10",
-                  "cifar10_hybrid": "A11"}
+NOT_YET_PORTED = {"cifar10_hybrid": "A11"}
 
 
 def build_model(name, *, device="cuda", generator=None, **kwargs):

@@ -1,11 +1,12 @@
 """The PDE→MLP classifiers — port of
 ``cnn_pde_tpu/models/mlp_models.py::{MNISTClassifier, FashionClassifier,
-SVHNClassifier}``.
+SVHNClassifier, EmotionClassifier}``.
 
 Attribute names follow the reference's ``state_dict`` namespace (``diff.*``,
 ``fc1``/``fc2`` for MNIST; ``fc1``/``bn1``/``fc2``/``bn2``/``fc3`` for
-Fashion-MNIST; ``fc1``-``fc5`` and ``bn1``-``bn4`` for SVHN), so a reference
-checkpoint loads with ``load_state_dict(strict=True)``.  ``fused_inference``
+Fashion-MNIST; ``fc1``-``fc5`` and ``bn1``-``bn4`` for SVHN; ``pde.*`` and
+the ``classifier`` Sequential for emotion), so a reference checkpoint
+loads with ``load_state_dict(strict=True)``.  ``fused_inference``
 and ``fused`` are the GrayscaleDiffusion layer's own flags (one K6 launch in
 eval; one K7 and one K8 launch in training); SVHN's ChannelCoupledDiffusion
 has no fused configuration (K1 and K3 a sweep, or hoisted).  Linears take
@@ -20,10 +21,12 @@ import math
 import torch
 from torch import nn
 
-from ..pde import ChannelCoupledDiffusion, GrayscaleDiffusion
+from ..pde import (ChannelCoupledDiffusion, FourierFTCSLayer,
+                   GrayscaleDiffusion)
 from .cifar10_noconv import Dropout
 
-__all__ = ["MNISTClassifier", "FashionClassifier", "SVHNClassifier"]
+__all__ = ["MNISTClassifier", "FashionClassifier", "SVHNClassifier",
+           "EmotionClassifier"]
 
 
 def _reset_head(module, generator):
@@ -130,3 +133,34 @@ class SVHNClassifier(nn.Module):
             x = getattr(self, f"bn{i}")(x)
             x = self.dropout(getattr(self, f"relu{i}")(x))
         return self.fc5(x)
+
+
+class EmotionClassifier(nn.Module):
+    """pde (FourierFTCSLayer: 10 FTCS steps on img_size²) → flatten →
+    [512, 256, 128, each Linear, BN, ReLU, dropout(0.3)] → num_classes.
+    ``classifier`` is one Sequential, its indices the reference's (the
+    Linears at 1, 5, 9, 13; the BNs at 2, 6, 10)."""
+
+    WIDTHS = (512, 256, 128)
+
+    def __init__(self, img_size=48, num_classes=7, dropout_rate=0.3,
+                 device=None):
+        super().__init__()
+        self.pde = FourierFTCSLayer(Nx=img_size, Ny=img_size, device=device)
+        layers = [nn.Flatten()]
+        prev = img_size * img_size
+        for width in self.WIDTHS:
+            layers += [nn.Linear(prev, width, device=device),
+                       nn.BatchNorm1d(width, device=device), nn.ReLU(),
+                       Dropout(dropout_rate)]
+            prev = width
+        layers.append(nn.Linear(prev, num_classes, device=device))
+        self.classifier = nn.Sequential(*layers)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.pde.reset_parameters(generator)
+        _reset_head(self.classifier, generator)
+
+    def forward(self, x):
+        return self.classifier(self.pde(x))

@@ -46,28 +46,33 @@ def _neumann_b(r, dim=-1):
     return b.movedim(-1, dim).contiguous()
 
 
-def _sweep(u, coeff_field, dt, dh, eps, dim, smooth):
+def _sweep(u, coeff_field, dt, dh, eps, dim, smooth, impl):
     if smooth:
         coeff_field = smooth3(coeff_field, dim)
     r = coeff_field * (dt / (dh * dh))
-    return tridiag_solve(-r, _neumann_b(r, dim) + eps, -r, u, dim)
+    return tridiag_solve(-r, _neumann_b(r, dim) + eps, -r, u, dim,
+                         impl=impl)
 
 
-def sweep_last_axis(u, coeff_field, dt, dx, *, eps, smooth=False):
+def sweep_last_axis(u, coeff_field, dt, dx, *, eps, smooth=False,
+                    impl=None):
     """One implicit sweep along the trailing axis of u (..., N); the field
-    has u's trailing shape and is shared by the leading (batch) axes."""
-    return _sweep(u, coeff_field, dt, dx, eps, -1, smooth)
+    has u's trailing shape and is shared by the leading (batch) axes.
+    ``impl``: ``tridiag_solve``'s solver for this sweep (None: the global
+    default)."""
+    return _sweep(u, coeff_field, dt, dx, eps, -1, smooth, impl)
 
 
-def sweep_x(u, alpha, dt, dx, *, eps, smooth=False):
+def sweep_x(u, alpha, dt, dx, *, eps, smooth=False, impl=None):
     """Sweep along W of (..., H, W) with α of shape (..., H, W) sans batch."""
-    return sweep_last_axis(u, alpha, dt, dx, eps=eps, smooth=smooth)
+    return sweep_last_axis(u, alpha, dt, dx, eps=eps, smooth=smooth,
+                           impl=impl)
 
 
-def sweep_y(u, beta, dt, dy, *, eps, smooth=False):
+def sweep_y(u, beta, dt, dy, *, eps, smooth=False, impl=None):
     """Sweep along H of (..., H, W), down the columns, with no transpose;
     with ``smooth`` the field is smoothed along H."""
-    return _sweep(u, beta, dt, dy, eps, -2, smooth)
+    return _sweep(u, beta, dt, dy, eps, -2, smooth, impl)
 
 
 def sweep_operator(coeff_field, dt, dh, *, eps, smooth=False,

@@ -273,15 +273,20 @@ class _TridiagSolve(torch.autograd.Function):
         return ga, gb, gc, lam, None
 
 
-def tridiag_solve(a, b, c, d, dim=-1):
+def tridiag_solve(a, b, c, d, dim=-1, impl=None):
     """x = T⁻¹d along axis ``dim`` of the band shape: K1 on a CUDA tensor,
     the plain version on a CPU tensor; differentiable in all four inputs
     (K3 or its plain version).  Under ``set_default_impl('matinv')`` or
     ``'matinv_bf16'`` the solve is an inverse operator built from the
-    bands at this call and applied by a GEMM, as the JAX impls do."""
-    if _DEFAULT_IMPL == "auto":
+    bands at this call and applied by a GEMM, as the JAX impls do.
+    ``impl`` (one of ``set_default_impl``'s) chooses the solver for this
+    call alone; None takes the global default."""
+    impl = _DEFAULT_IMPL if impl is None else impl
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS}")
+    if impl == "auto":
         return _TridiagSolve.apply(a, b, c, d, dim)
-    dtype = torch.bfloat16 if _DEFAULT_IMPL == "matinv_bf16" else d.dtype
+    dtype = torch.bfloat16 if impl == "matinv_bf16" else d.dtype
     a, b, c, d = (t.movedim(dim, -1) for t in (a, b, c, d))
     X = tridiag_inverse_operator(a, b, c, dtype)
     return tridiag_solve_precomputed(a, b, c, d, X).movedim(-1, dim)

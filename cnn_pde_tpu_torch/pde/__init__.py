@@ -1,11 +1,14 @@
 """PDE layers of the port: MixedChannelDiffusion (the CIFAR-10 flagship's),
-GrayscaleDiffusion (the MNIST and Fashion-MNIST front end) and
-ChannelCoupledDiffusion (SVHN's), and the one-switch AMP grade."""
+GrayscaleDiffusion (the MNIST and Fashion-MNIST front end),
+ChannelCoupledDiffusion (SVHN's), FourierFTCSLayer (emotion's),
+ResidualDiffusion (Tiny-ImageNet's), and the one-switch AMP grade."""
 
 from .amp import enable_amp, iter_adi_layers, iter_modules
 from .diffusion import (ChannelCoupledDiffusion, GrayscaleDiffusion,
                         MixedChannelDiffusion)
+from .residual import ResidualDiffusion
+from .spectral import FourierFTCSLayer
 
 __all__ = ["ChannelCoupledDiffusion", "GrayscaleDiffusion",
-           "MixedChannelDiffusion", "enable_amp", "iter_adi_layers",
-           "iter_modules"]
+           "MixedChannelDiffusion", "FourierFTCSLayer", "ResidualDiffusion",
+           "enable_amp", "iter_adi_layers", "iter_modules"]

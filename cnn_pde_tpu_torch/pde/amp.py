@@ -1,22 +1,31 @@
 """The one-switch AMP grade — port of ``cnn_pde_tpu/pde/amp.py``.
 
-``enable_amp(model)`` puts every ADI layer of ``model`` on the hoisted bf16
-path (``hoisted=True, operator_dtype=torch.bfloat16, hoisted_refine=False``:
-every sweep's inverse operator built once a forward in float32 and stored in
-bf16, each sweep one GEMM with bf16 operands and float32 accumulation,
-``ops/tridiag.py::gemm_route``).  The JAX ``enable_amp`` also sets the
-global solver default to 'matinv_bf16', for the solves its unported
-callers run outside an ADI layer (the multiscale fused path and the
-distributed solve, ROADMAP.md A14); no ported solve reads that default on
-this path, so here it stays as it is and ``tridiag_solve`` keeps K1 for
-every per-sweep layer in the process.  The bands, boundary rows, clamps,
-mixing and everything outside the solves stay float32, and so do the plain
-Linears (the JAX grade measured a loss from casting them).  Nothing runs under ``torch.autocast``: it would cast
-those Linears.
+``enable_amp(model)`` switches three things:
 
-The JAX grade's dense half casts Conv2d and SymmetricLayer operands to
-bf16; no ported family has either, and a model with an ``nn.Conv2d``
-raises (ROADMAP.md A10) rather than run a grade the JAX package does not.
+* every ADI layer of ``model`` to the hoisted bf16 path (``hoisted=True,
+  operator_dtype=torch.bfloat16, hoisted_refine=False``): every sweep's
+  inverse operator of the evolution built once a forward in float32 and
+  stored in bf16, each sweep one GEMM with bf16 operands and float32
+  accumulation (``ops/tridiag.py::gemm_route``);
+* every ``ResidualDiffusion`` to ``solve_impl='matinv_bf16'``: its
+  implicit sweeps (``use_implicit=True``) build their operator at the call
+  and apply it in bf16 by one GEMM.  The JAX ``enable_amp`` reaches this
+  layer through the global solver default ('matinv_bf16'), which also
+  serves its unported callers outside an ADI layer (the multiscale fused
+  path and the distributed solve, ROADMAP.md A14).  Here the route is the
+  layer's own and the global default stays as it is, so ``tridiag_solve``
+  keeps K1 for every other per-sweep layer in the process;
+* with ``dense=True`` (the default), every port ``Conv2d``
+  (``layers.py``) to ``compute_dtype=torch.bfloat16``: bf16 operands, a
+  bf16 output cast to float32.  A ``torch.nn.Conv2d`` that is not the
+  port's raises ``TypeError`` before anything changes: the grade casts
+  only the port's Conv2d.
+
+The bands, boundary rows, clamps, mixing, BatchNorm and everything outside
+the solves and convolutions stay float32, and so do the plain Linears (the
+JAX grade measured a loss from casting them).  Nothing runs under
+``torch.autocast``: it would cast those Linears.  The JAX grade also casts
+``SymmetricLayer``; no ported family has one (ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..layers import Conv2d
 from .diffusion import (ChannelCoupledDiffusion, GrayscaleDiffusion,
                         MixedChannelDiffusion)
+from .residual import ResidualDiffusion
 
 __all__ = ["enable_amp", "iter_adi_layers", "iter_modules"]
 
@@ -46,18 +57,27 @@ def iter_adi_layers(module):
 
 def enable_amp(model=None, dense=True):
     """Switch ``model`` to the bf16 AMP grade; returns the number of ADI
-    layers switched to the hoisted bf16 path.  ``dense=True`` would cast
-    convolutions to bf16 operands: a model that has one raises
-    ``NotImplementedError`` (ROADMAP.md A10) before anything is changed."""
-    if model is not None and dense and any(iter_modules(model, nn.Conv2d)):
-        raise NotImplementedError(
-            "enable_amp(dense=True) on a model with Conv2d layers is not "
-            "ported yet: ROADMAP.md A10")
+    layers switched to the hoisted bf16 path, as the JAX function does
+    (0 for a model without one).  ``dense=False`` leaves the convolutions
+    exact."""
+    if model is None:
+        return 0
+    if dense:
+        foreign = [type(m).__name__ for m in iter_modules(model, nn.Conv2d)
+                   if not isinstance(m, Conv2d)]
+        if foreign:
+            raise TypeError(
+                f"enable_amp(dense=True): the AMP grade casts only the "
+                f"port's Conv2d (cnn_pde_tpu_torch.layers.Conv2d); this "
+                f"model has {len(foreign)} other Conv2d ({foreign[0]})")
+        for conv in iter_modules(model, Conv2d):
+            conv.compute_dtype = torch.bfloat16
+    for layer in iter_modules(model, ResidualDiffusion):
+        layer.solve_impl = "matinv_bf16"
     n = 0
-    if model is not None:
-        for layer in iter_adi_layers(model):
-            layer.hoisted = True
-            layer.operator_dtype = torch.bfloat16
-            layer.hoisted_refine = False
-            n += 1
+    for layer in iter_adi_layers(model):
+        layer.hoisted = True
+        layer.operator_dtype = torch.bfloat16
+        layer.hoisted_refine = False
+        n += 1
     return n

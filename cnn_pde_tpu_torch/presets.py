@@ -9,14 +9,16 @@ __all__ = ["PRESETS", "SYNTHETIC_SPECS", "NORMALIZATION", "get_preset"]
 
 # dataset name: (channels, size, num_classes)
 SYNTHETIC_SPECS = {"mnist": (1, 28, 10), "fashion_mnist": (1, 28, 10),
-                   "svhn": (3, 32, 10), "cifar10": (3, 32, 10)}
+                   "svhn": (3, 32, 10), "cifar10": (3, 32, 10),
+                   "emotion": (1, 48, 7), "tiny_imagenet": (3, 64, 200)}
 
 # torchvision normalisation constants (mean, std) of the reference scripts;
-# the MNIST script applies none (ToTensor only)
+# the MNIST and emotion scripts apply none (ToTensor only)
 NORMALIZATION = {
     "fashion_mnist": ((0.2860,), (0.3530,)),
     "svhn": ((0.4377, 0.4438, 0.4728), (0.1980, 0.2010, 0.1970)),
     "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
+    "tiny_imagenet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
 }
 
 # Each preset: the reference script's training values, with label smoothing
@@ -85,6 +87,41 @@ PRESETS = {
                 "hue": 0.1, "erasing_p": 0.1,
                 "mean": NORMALIZATION["cifar10"][0],
                 "std": NORMALIZATION["cifar10"][1]},
+        },
+    },
+    # emotion_recognition.py:265-369: up to 70 epochs, batch 64, AdamW 1e-3
+    # / wd 1e-4, cosine with T_max = 70 and eta_min 1e-6 stepped per epoch,
+    # no label smoothing and no grad clip (its train loop is the one
+    # without), hflip and rotation with no normalisation
+    "emotion": {
+        "name": "emotion", "model": "emotion", "dataset": "emotion",
+        "model_kwargs": {},
+        "train": {
+            "epochs": 70, "batch_size": 64, "lr": 1e-3,
+            "weight_decay": 1e-4, "schedule": "cosine",
+            "schedule_kwargs": {"t_max": 70, "eta_min": 1e-6},
+            "label_smoothing": 0.0, "clip_norm": None,
+            "default_lr_scale": 1.0, "param_groups": (),
+            "augment": {"hflip": 0.5, "rotation": 10.0},
+        },
+    },
+    # tiny_imagenet.py:517-621: 10 epochs, batch 32, OneCycle (max 1e-2,
+    # pct_start 0.1) stepped per batch, Resize(72) + RandomCrop(64), hflip,
+    # colour jitter and ImageNet normalisation, 200 classes
+    "tiny_imagenet": {
+        "name": "tiny_imagenet", "model": "tiny_imagenet",
+        "dataset": "tiny_imagenet", "model_kwargs": {"num_classes": 200},
+        "train": {
+            "epochs": 10, "batch_size": 32, "lr": 1e-3,
+            "weight_decay": 1e-4, "schedule": "onecycle",
+            "schedule_kwargs": {"max_lr": 1e-2, "pct_start": 0.1},
+            "label_smoothing": 0.1, "clip_norm": 1.0,
+            "default_lr_scale": 1.0, "param_groups": (),
+            "augment": {
+                "resize_crop": 72, "hflip": 0.5, "brightness": 0.1,
+                "contrast": 0.1, "saturation": 0.1, "hue": 0.05,
+                "mean": NORMALIZATION["tiny_imagenet"][0],
+                "std": NORMALIZATION["tiny_imagenet"][1]},
         },
     },
 }

@@ -81,6 +81,12 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
         loss = cross_entropy(logits, y, smoothing)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for p in params:
+            # a parameter the forward does not read (ResidualDiffusion's
+            # beta_base) gets jax.grad's zero, so AdamW decays it as
+            # optax does, where torch would skip it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if clip is not None:
             clip_by_global_norm_(params, clip)
         set_learning_rates(optimizer, schedule(count))

@@ -36,6 +36,7 @@ from cnn_pde_tpu.nn import Ctx
 from cnn_pde_tpu.pde import ChannelCoupledDiffusion as JaxCoupled
 from cnn_pde_tpu.pde import GrayscaleDiffusion as JaxGrayscale
 from cnn_pde_tpu.pde import MixedChannelDiffusion as JaxMixed
+from cnn_pde_tpu_torch.layers import Conv2d
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.ops import tridiag
 from cnn_pde_tpu_torch.ops.adi import apply_sweep, sweep_operator
@@ -326,13 +327,18 @@ def test_enable_amp_wiring():
         assert enable_amp(build_model(preset, device="cpu")) == 1
     # no model: no layer is found, nothing changes
     assert enable_amp() == 0 and tridiag._DEFAULT_IMPL == "auto"
-    # the dense half (convolutions) is not ported: raise, change nothing
-    model = torch.nn.Sequential(torch.nn.Conv2d(1, 1, 3),
+    # the dense half: the port's Conv2d is cast to bf16 operands; a
+    # foreign nn.Conv2d raises and nothing changes; dense=False casts none
+    model = torch.nn.Sequential(Conv2d(1, 1, 3), GrayscaleDiffusion(size=8))
+    assert enable_amp(model) == 1
+    assert model[0].compute_dtype == torch.bfloat16 and model[1].hoisted
+    model = torch.nn.Sequential(torch.nn.Conv2d(1, 1, 3), Conv2d(1, 1, 3),
                                 GrayscaleDiffusion(size=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
+    with pytest.raises(TypeError, match="only the port's Conv2d"):
         enable_amp(model)
-    assert not model[1].hoisted
-    assert enable_amp(torch.nn.Conv2d(1, 1, 3), dense=False) == 0
+    assert not model[2].hoisted and model[1].compute_dtype is None
+    assert enable_amp(model, dense=False) == 1
+    assert model[1].compute_dtype is None
     # a per-sweep model beside an AMP one still solves by K1's route
     per_sweep = GrayscaleDiffusion(size=8, num_steps=2)
     u = torch.rand(2, 1, 8, 8)

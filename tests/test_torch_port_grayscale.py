@@ -190,8 +190,8 @@ def test_stability_info_matches_jax(layer_cases):
 def test_unported_grayscale_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
         GrayscaleDiffusion(remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        build_model("emotion")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+        build_model("cifar10_hybrid")
 
 
 @pytest.fixture(scope="module")

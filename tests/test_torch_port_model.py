@@ -78,8 +78,8 @@ def test_mixed_channel_diffusion_matches_jax(layer_case, branch, config):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
         MixedChannelDiffusion(remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        build_model("emotion")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+        build_model("cifar10_hybrid")
 
 
 @pytest.fixture(scope="module")

@@ -148,6 +148,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert enable_amp(s) == 1 and cache_hoisted_operators(s) == 1\n"
         "sx = np.random.default_rng(2).random((2, 3, 32, 32), np.float32)\n"
         "assert make_predict_fn(s)(sx).shape == (2, 10)\n"
+        "e = build_model('emotion', device='cpu')\n"
+        "ex = np.random.default_rng(3).random((2, 1, 48, 48), np.float32)\n"
+        "assert make_predict_fn(e)(ex).shape == (2, 7)\n"
+        "ti = build_model('tiny_imagenet', device='cpu', pde_implicit=True)\n"
+        "assert enable_amp(ti) == 0 and cache_hoisted_operators(ti) == 0\n"
+        "tx = np.random.default_rng(4).random((2, 3, 64, 64), np.float32)\n"
+        "assert make_predict_fn(ti)(tx).shape == (2, 200)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'cnn_pde_tpu' or k.startswith('cnn_pde_tpu.')]\n"
         "assert not bad, bad\n"
