@@ -4,7 +4,8 @@ hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
-Phases, each of which raises (and the script exits non-zero) on failure:
+Phases, each of which raises (and the script exits non-zero) on failure.
+A phase's CLI runs are queued and run in phase 12, four at a time:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off
    (phase 9 turns cuDNN's flag back on for Tiny-ImageNet);
@@ -98,7 +99,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    grade's distance from the exact grade plus 2^-8; with ``pde_implicit``
    2 K1 a forward and a step, no K3); the serve CLI with --preset
    tiny_imagenet --amp and the train CLI with --synthetic --steps 20;
-10. times of each kernel and its plain version beside the least time the
+10. the CIFAR-10 hybrid (``cifar10_hybrid``, bf16 K products by default):
+   its K products alone at B = 64 with both TF32 flags on (the exact
+   grade within 1e-5 of float64, a control with the guard bypassed that
+   must miss; the bf16 grade against its plain version with a control
+   whose products return bf16), each timed in a CUDA graph beside its
+   bound; served at B in {1, 64, 1024} in the exact grade (26 K1 a
+   forward; logits within 1e-4 of the plain versions and of float64),
+   the bf16 grade (26 K1; 4e-3) and the AMP grade (4 K1 for the cached
+   operators, none a request; 4e-3); trained at B = 64 and 256 in the
+   three grades (26 K1 + 26 K3 a step, or 4 K1): the exact grade's loss
+   and every gradient within 1e-4 of the plain versions and float64; the
+   bf16 and AMP grades' loss within 4e-3, their model gradients within
+   3e-2 of the plain versions', as the sound runs' (the plain versions
+   with every K product's float32 sum in another order) must be and the
+   bf16-output control's must not, and each
+   SymmetricLayer call replayed on the plain step's input and cotangent
+   (``replay_calls``, flipped ReLU decisions logged) with a bf16-output
+   control that must miss; 50 steps with a falling loss, images/s and
+   the busy share; the serve CLI with --amp;
+11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
    points in a CUDA graph and by CUDA events around wrapper calls; K6 at
@@ -109,19 +129,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layer's at B = 128 and 1024), in a CUDA graph, L2-warm and cold, with
    the wrapper's call time, the plain version, the bound and
    torch.linalg.solve on the dense system as the library yardstick;
-11. the ``kernels`` JSON line (K1's row also carries the operator build's
-   figures and its hoisted and Tiny-ImageNet launch counts), then the
-   contract line.
+12. every queued CLI run, four at a time, beside the Trainer through the
+   train CLI: the hybrid at B = 64 for 2 epochs with checkpoints and a metrics
+   file, a run stopped by SIGTERM in epoch 1 and resumed must end on the
+   uninterrupted run's weights bit for bit; emotion for up to 60 epochs
+   with its early stopping, then served from its checkpoint directory;
+13. the ``kernels`` JSON line (K1's row also carries the operator build's
+   figures and its hoisted, Tiny-ImageNet and hybrid launch counts, K3's
+   the hybrid's), then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -131,6 +159,7 @@ import numpy as np
 import torch
 
 import cnn_pde_tpu_torch.layers as layers_module
+import cnn_pde_tpu_torch.pde.ruthotto as ruthotto_module
 from cnn_pde_tpu_torch.data.synthetic import make_synthetic
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
@@ -168,13 +197,16 @@ from cnn_pde_tpu_torch.ops.tridiag import (gemm_route, tridiag_adjoint,
                                            tridiag_adjoint_plain,
                                            tridiag_inverse_operator,
                                            tridiag_solve, tridiag_solve_plain)
-from cnn_pde_tpu_torch.pde import enable_amp, iter_adi_layers
+from cnn_pde_tpu_torch.pde import (SymmetricLayer, enable_amp,
+                                   iter_adi_layers)
 from cnn_pde_tpu_torch.pde.diffusion import (_coeff_at, _coeff_at_times,
                                              _substep_times_np)
 from cnn_pde_tpu_torch.presets import PRESETS
-from cnn_pde_tpu_torch.serve import cache_hoisted_operators, make_predict_fn
-from cnn_pde_tpu_torch.train import (cross_entropy, make_train_step,
-                                     train_steps)
+from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
+                                     clear_operator_cache, make_predict_fn)
+from cnn_pde_tpu_torch.train import (cross_entropy,
+                                     hybrid_pde_regularization,
+                                     make_train_step, train_steps)
 
 SEED = 0
 EPS = 1e-6
@@ -195,6 +227,7 @@ GRAY_KEYS = ("alpha_base", "alpha_time_coeff", "beta_base",
 ZERO_IN_EXACT_ARITHMETIC = {"feature_bn.bias"} | {
     f"classifier.network.{i}.bias" for i in (0, 4, 8, 12)}
 USED_DEVICES = set()  # every device a model or kernel input was placed on
+BUSY_REPS = 2  # profiled calls a busy-share reading averages
 SCALES = MultiScaleExtractor.SCALES
 # K1 and K3's cases: the flagship's sweeps at these batches (RAGGED_B not a
 # multiple of the kernels' chunk), and bands (3, 5, N) and (3, N, 7) at
@@ -673,17 +706,36 @@ def run_cli(module, preset, *args):
     return json.loads(cli.stdout.strip().splitlines()[-1])
 
 
+# CLI runs the phases queue, each a function that runs its processes,
+# checks them and returns its log lines: phase_clis runs them together,
+# after every timed phase, so that no process competes with a timing
+CLI_JOBS = []
+CLI_WORKERS = 4
+
+
+def cli_later(tag, module, preset, *args, ok):
+    """Queue ``run_cli(module, preset, *args)``; ``ok(summary)`` says
+    whether its summary line is right."""
+    def job():
+        summary = run_cli(module, preset, *args)
+        if not ok(summary):
+            raise AssertionError(f"{module} --preset {preset} on cuda: "
+                                 f"{summary}")
+        return [f"[{tag}] python -m {module} --preset "
+                f"{' '.join((preset, *args))} (default device cuda): "
+                f"{summary}"]
+    job.__name__ = f"{module} --preset {preset}"
+    CLI_JOBS.append(job)
+
+
 def phase_slice(device):
     launches, rates = serve_family(
         "slice", device, lambda config: flagship(device, config == "fused"),
         (3, 32, 32), (1, 64, 1024),
         {"per_sweep": {"K1": 51}, "fused": {"K2": 3}},
         {1: 30, 64: 20, 1024: 5}, SEED + 2)
-    summary = run_cli("cnn_pde_tpu_torch.serve", "cifar10_noconv")
-    if len(summary["predictions"]) != 8:
-        raise AssertionError(f"serve CLI on cuda: {summary}")
-    log(f"[slice] python -m cnn_pde_tpu_torch.serve (default device cuda): "
-        f"{summary}")
+    cli_later("slice", "cnn_pde_tpu_torch.serve", "cifar10_noconv",
+              ok=lambda s: len(s["predictions"]) == 8)
     return launches, rates
 
 
@@ -711,7 +763,8 @@ def phase_profile(device):
             x = torch.from_numpy(
                 rng.random((B, 3, 32, 32)).astype(np.float32)).to(device)
             log_busy("profile", f"{config} B={B}",
-                     device_busy(lambda: predict(x), 5, device), "request")
+                     device_busy(lambda: predict(x), BUSY_REPS, device),
+                     "request")
 
 
 def spiked_images(rng, B):
@@ -728,49 +781,63 @@ def spiked_images(rng, B):
     return x.astype(np.float32)
 
 
-def _record_pool(masks, name):
-    def hook(mod, inp, out):
-        masks[name] = torch.nn.functional.max_pool2d(
-            inp[0].detach(), mod.kernel_size, mod.stride, mod.padding,
-            return_indices=True)[1]
-    return hook
+def _pool_indices(mod, x):
+    """The argmax of each window of a max pool ``mod`` on ``x``."""
+    if isinstance(mod, torch.nn.AdaptiveMaxPool2d):
+        return torch.nn.functional.adaptive_max_pool2d(
+            x, mod.output_size, return_indices=True)[1]
+    return torch.nn.functional.max_pool2d(
+        x, mod.kernel_size, mod.stride, mod.padding, return_indices=True)[1]
 
 
-def _replay_pool(masks, name):
-    def hook(mod, inp, out):
-        return inp[0].flatten(2).gather(2, masks[name].flatten(2)).view_as(
-            out)
-    return hook
-
-
-def train_grads(model, x, y, smoothing, relu_masks=None):
+def train_grads(model, x, y, smoothing, relu_masks=None, regularizer=None):
     """Loss and gradients of one train-mode forward and backward (a
-    parameter the forward did not read at zero).  Every ReLU's mask (output
-    > 0) and every MaxPool2d's argmax is recorded into ``relu_masks`` when
-    it is an empty dict, and replayed from it otherwise: a pre-activation
-    within rounding of 0, or a window's near tie, would flip between two
-    runs and move whole gradient rows, so the reference run takes the
-    kernel run's decisions."""
+    parameter the forward did not read at zero; ``regularizer``: the
+    alphas of ``hybrid_pde_regularization``, added to the loss).  Every
+    ReLU's mask (output > 0) and every max pool's argmax, at each call of
+    the module, is recorded into ``relu_masks`` when it is an empty dict,
+    and replayed from it otherwise: a pre-activation within rounding of 0,
+    or a window's near tie, would flip between two runs and move whole
+    gradient rows, so the reference run takes the kernel run's
+    decisions."""
     hooks = []
+    replay = bool(relu_masks)
+    calls = {}
+
+    def key(name):
+        calls[name] = calls.get(name, 0) + 1
+        return f"{name}#{calls[name]}"
+
+    def relu_hook(name):
+        def hook(mod, inp, out):
+            k = key(name)
+            if replay:
+                return inp[0] * relu_masks[k]
+            relu_masks[k] = (out > 0).to(out.dtype)
+        return hook
+
+    def pool_hook(name):
+        def hook(mod, inp, out):
+            k = key(name)
+            if replay:
+                return inp[0].flatten(2).gather(
+                    2, relu_masks[k].flatten(2)).view_as(out)
+            relu_masks[k] = _pool_indices(mod, inp[0].detach())
+        return hook
+
     for name, m in model.named_modules():
         if relu_masks is None:
             break
         if isinstance(m, torch.nn.ReLU):
-            if name in relu_masks:
-                hooks.append(m.register_forward_hook(
-                    lambda mod, inp, out, k=name: inp[0] * relu_masks[k]))
-            else:
-                hooks.append(m.register_forward_hook(
-                    lambda mod, inp, out, k=name: relu_masks.__setitem__(
-                        k, (out > 0).to(out.dtype))))
-        elif isinstance(m, torch.nn.MaxPool2d):
-            hooks.append(m.register_forward_hook(
-                (_replay_pool if name in relu_masks else _record_pool)(
-                    relu_masks, name)))
+            hooks.append(m.register_forward_hook(relu_hook(name)))
+        elif isinstance(m, (torch.nn.MaxPool2d, torch.nn.AdaptiveMaxPool2d)):
+            hooks.append(m.register_forward_hook(pool_hook(name)))
     model.train()
     model.zero_grad(set_to_none=True)
     try:
         loss = cross_entropy(model(x), y, smoothing)
+        if regularizer is not None:
+            loss = loss + hybrid_pde_regularization(model, *regularizer)
         loss.backward()
     finally:
         for h in hooks:
@@ -865,13 +932,13 @@ def train_family(tag, make_model, values, data, expected, batch, inputs,
 
 
 def check_train_cli(tag, preset):
-    summary = run_cli("cnn_pde_tpu_torch.train", preset, "--synthetic",
-                      "--steps", "5")
-    if summary["steps"] != 5 or not summary["device"].startswith("cuda") \
-            or not np.isfinite(summary["last_loss"]):
-        raise AssertionError(f"train CLI on cuda: {summary}")
-    log(f"[{tag}] python -m cnn_pde_tpu_torch.train --preset {preset} "
-        f"(default device cuda): {summary}")
+    """Queue the train CLI with ``preset`` on cuda: one epoch of 5 steps at
+    B = 16 (the synthetic sets hold 140 to 200 training images, so the
+    presets' batches of 64-256 make 0-3 steps an epoch)."""
+    cli_later(tag, "cnn_pde_tpu_torch.train", preset, "--synthetic",
+              "--epochs", "1", "--steps", "5", "--batch-size", "16",
+              ok=lambda s: s["steps"] == 5 and s["device"].startswith("cuda")
+              and np.isfinite(s["last_loss"]))
 
 
 def phase_train(device):
@@ -1051,12 +1118,10 @@ def phase_grayscale(device):
             x = torch.from_numpy(
                 rng.random((B, 1, 28, 28)).astype(np.float32)).to(device)
             log_busy("gray-serve", f"{config} B={B}",
-                     device_busy(lambda: predict(x), 5, device), "request")
-    summary = run_cli("cnn_pde_tpu_torch.serve", "mnist")
-    if len(summary["predictions"]) != 8:
-        raise AssertionError(f"serve CLI --preset mnist on cuda: {summary}")
-    log(f"[gray-serve] python -m cnn_pde_tpu_torch.serve --preset mnist "
-        f"(default device cuda): {summary}")
+                     device_busy(lambda: predict(x), BUSY_REPS, device),
+                     "request")
+    cli_later("gray-serve", "cnn_pde_tpu_torch.serve", "mnist",
+              ok=lambda s: len(s["predictions"]) == 8)
 
     # 640 synthetic images: 5 batches of 128 an epoch
     images, labels, _, _ = make_synthetic("mnist", train_per_class=64)
@@ -1314,7 +1379,8 @@ def amp_serve(tag, device, make_model, shape, batches, builds, reps, seed):
                 f"turns; rounds {', '.join(f'{r:.1f}' for r in rates)})")
     for route, (predict, ctx) in routes.items():
         with ctx():
-            busy = device_busy(lambda: predict(images[big]), 5, device)
+            busy = device_busy(lambda: predict(images[big]), BUSY_REPS,
+                               device)
         log_busy(tag, f"{route} B={big}", busy, "request")
         if busy is not None:
             result[route][1][f"B{big}_busy"] = busy[0]
@@ -1419,7 +1485,7 @@ def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
             values, data, batch, steps)
         rates = {}
         for B in rate_batches:
-            rates.update(step_rates(tag, grade, step, data, B, rng, reps=10))
+            rates.update(step_rates(tag, grade, step, data, B, rng))
         result[grade] = (got, rates, losses)
     return result
 
@@ -1615,20 +1681,16 @@ def phase_amp(device):
         lambda rate: svhn_model(device, rate), SVHN_TRAIN, data, 256,
         (256,), svhn_inputs, 2, SVHN_ZERO, rng)
 
-    summary = run_cli("cnn_pde_tpu_torch.serve", "svhn", "--amp")
-    if summary["amp_cached_layers"] != 1 or len(summary["predictions"]) != 8:
-        raise AssertionError(f"serve --amp CLI on cuda: {summary}")
-    log(f"[amp] python -m cnn_pde_tpu_torch.serve --preset svhn --amp "
-        f"(default device cuda): {summary}")
-    summary = run_cli("cnn_pde_tpu_torch.train", "svhn", "--synthetic",
-                      "--steps", "5", "--amp", "--bf16-moments")
-    if summary["amp_layers"] != 1 or summary["gemm_route"] \
-            != gemm_route(torch.bfloat16, device) \
-            or not summary["device"].startswith(device.type) \
-            or not np.isfinite(summary["last_loss"]):
-        raise AssertionError(f"train --amp CLI on cuda: {summary}")
-    log(f"[amp] python -m cnn_pde_tpu_torch.train --preset svhn --amp "
-        f"--bf16-moments (default device cuda): {summary}")
+    cli_later("amp", "cnn_pde_tpu_torch.serve", "svhn", "--amp",
+              ok=lambda s: s["amp_cached_layers"] == 1
+              and len(s["predictions"]) == 8)
+    route = gemm_route(torch.bfloat16, device)
+    cli_later("amp", "cnn_pde_tpu_torch.train", "svhn", "--synthetic",
+              "--epochs", "1", "--steps", "5", "--batch-size", "16", "--amp",
+              "--bf16-moments",
+              ok=lambda s: s["amp_layers"] == 1 and s["gemm_route"] == route
+              and s["device"].startswith(device.type)
+              and np.isfinite(s["last_loss"]))
     return out
 
 
@@ -1724,7 +1786,7 @@ def against_float64(tag, label, make_model, xs, ys, smoothing, zero_names,
     return worst, where, got, ref
 
 
-def step_rates(tag, label, step, data, B, rng, reps=20):
+def step_rates(tag, label, step, data, B, rng, reps=10):
     """images/s of a train ``step`` at B on a draw from ``data`` (CUDA
     events) and the device's busy share of a step."""
     device = data[0].device
@@ -1734,7 +1796,7 @@ def step_rates(tag, label, step, data, B, rng, reps=20):
     log(f"[{tag}] {label} B={B}: {1e3 * B / ms:.1f} images/s ({ms:.3f} ms "
         f"a step, CUDA events, median of 3 groups of {reps} steps after "
         "warm-up)")
-    busy = device_busy(lambda: step(xb, yb), 5, device)
+    busy = device_busy(lambda: step(xb, yb), BUSY_REPS, device)
     log_busy(tag, f"{label} B={B}", busy, "step")
     out = {f"B{B}": 1e3 * B / ms}
     if busy is not None:
@@ -1750,7 +1812,7 @@ def serve_rates(tag, label, predict, images, reps, device):
     out = {f"B{B}": request_rate(tag, label, predict, x, reps[B])
            for B, x in images.items()}
     big = max(images)
-    busy = device_busy(lambda: predict(images[big]), 5, device)
+    busy = device_busy(lambda: predict(images[big]), BUSY_REPS, device)
     log_busy(tag, f"{label} B={big}", busy, "request")
     if busy is not None:
         out[f"B{big}_busy"] = busy[0]
@@ -1818,11 +1880,9 @@ def phase_emotion(device):
         tag, "train", lambda rate: emotion_model(device, rate),
         EMOTION_TRAIN, data, EMOTION_BATCH)
     out["train"] = step_rates(tag, "train", step, data, EMOTION_BATCH, rng)
-    summary = run_cli("cnn_pde_tpu_torch.serve", "emotion")
-    if len(summary["predictions"]) != 8 or summary["amp_cached_layers"]:
-        raise AssertionError(f"serve CLI on cuda: {summary}")
-    log(f"[{tag}] python -m cnn_pde_tpu_torch.serve --preset emotion "
-        f"(default device cuda): {summary}")
+    cli_later(tag, "cnn_pde_tpu_torch.serve", "emotion",
+              ok=lambda s: len(s["predictions"]) == 8
+              and not s["amp_cached_layers"])
     check_train_cli(tag, "emotion")
     return out
 
@@ -2074,8 +2134,8 @@ def _phase_tiny(tag, out, device):
     step, out["loss_50_steps"] = train_falling(
         tag, "exact train", make, TINY_TRAIN, data, small)
     out["train"] = step_rates(tag, "exact train", step, data, small, rng)
-    out["train"].update(step_rates(tag, "exact train", step, data, big, rng,
-                                   reps=10))
+    out["train"].update(step_rates(tag, "exact train", step, data, big,
+                                   rng))
 
     # pde_implicit: K1 a sweep forward, K3 a sweep backward
     out["implicit_serve"] = serve_family(
@@ -2131,18 +2191,13 @@ def _phase_tiny(tag, out, device):
         lambda rate: make(rate, pde_implicit=True),
         {small: xs[small]}, (xb, yb), smoothing, ["diff"], AMP_OUT_TOL, ())
 
-    summary = run_cli("cnn_pde_tpu_torch.serve", "tiny_imagenet", "--amp")
-    if summary["amp_cached_layers"] != 0 or len(summary["predictions"]) != 8:
-        raise AssertionError(f"serve --amp CLI on cuda: {summary}")
-    log(f"[{tag}] python -m cnn_pde_tpu_torch.serve --preset tiny_imagenet "
-        f"--amp (default device cuda): {summary}")
-    summary = run_cli("cnn_pde_tpu_torch.train", "tiny_imagenet",
-                      "--synthetic", "--steps", "20")
-    if summary["steps"] != 20 or not summary["device"].startswith("cuda") \
-            or not np.isfinite(summary["last_loss"]):
-        raise AssertionError(f"train CLI on cuda: {summary}")
-    log(f"[{tag}] python -m cnn_pde_tpu_torch.train --preset tiny_imagenet "
-        f"--synthetic --steps 20 (default device cuda): {summary}")
+    cli_later(tag, "cnn_pde_tpu_torch.serve", "tiny_imagenet", "--amp",
+              ok=lambda s: s["amp_cached_layers"] == 0
+              and len(s["predictions"]) == 8)
+    cli_later(tag, "cnn_pde_tpu_torch.train", "tiny_imagenet", "--synthetic",
+              "--epochs", "1", "--steps", "20",
+              ok=lambda s: s["steps"] == 20 and s["device"].startswith("cuda")
+              and np.isfinite(s["last_loss"]))
     return out
 
 
@@ -2165,6 +2220,689 @@ def phase_stencil(device):
     """The explicit-stencil families: emotion, then Tiny-ImageNet."""
     return {"emotion": timed("emotion", phase_emotion, device),
             "tiny_imagenet": timed("tiny_imagenet", phase_tiny, device)}
+
+
+# ---- the CIFAR-10 hybrid (A11) and the Trainer ------------------------------
+
+HYBRID_TRAIN = PRESETS["cifar10_hybrid"]["train"]
+HYBRID_ALPHAS = HYBRID_TRAIN["regularizer"]
+HYBRID_SERVE = (1, 64, 1024)
+HYBRID_TRAIN_BATCHES = (64, 256)
+HYBRID_GRADES = {"exact": torch.float32, "bf16": torch.bfloat16}
+# a forward: 16 + 10 Lie sweeps of the two diffusion layers, one K1 each;
+# the hoisted (AMP) grade builds each layer's two operator stacks, 4 K1
+HYBRID_SWEEPS = 26
+HYBRID_BUILDS = 4
+# biases that feed a train-mode BatchNorm, and the feature BN's bias,
+# summed to zero over the batch through the BN1d head
+HYBRID_ZERO = {f"classifier.classifier.{i}.bias"
+               for i in (0, 4, 8, 12)} | {"feature_bn.bias"}
+# one K product, exact grade, against float64: a float32 sum of 3,072
+# terms is within a few 1e-7 of its largest term; TF32's 10-bit mantissa
+# is about 1e-3
+KPROD_TOL = 1e-5
+# the bf16 grade's sound runs beside the card's: the plain versions with
+# each K product's float32 sum cut into this many pieces
+HYBRID_SOUND_PARTS = (2, 4, 8)
+# the bf16 grades' loss and model gradients against their plain versions,
+# of each one's largest entry: the sound runs read 0.89-2.05e-02 and the
+# card 1.05-2.42e-02 (B = 64 and 256, bf16 and AMP), the control whose
+# products return bf16 4.03-8.54e-02
+HYBRID_BF16_GRAD_TOL = 3e-2
+PEAK_BF16 = 989e12   # dense bf16 FLOP/s of an H100 SXM (data sheet)
+
+
+# a hybrid of each (device, grade, dropout rate), built once in the phase
+# (drawing its three 3072 x 3072 K on the host takes about a second) and
+# copied for each caller
+HYBRID_MODELS = {}
+
+
+def hybrid_model(device, grade="bf16", dropout_rate=None):
+    """The hybrid from a seeded generator in ``grade`` ('exact': float32
+    K products, 'bf16': the model's default, 'amp': bf16 and
+    ``enable_amp``), its diffusion fields replaced by seeded trained-looking
+    ones and every BatchNorm's affine parameters and statistics moved off
+    their init by seeded draws: a copy of HYBRID_MODELS' one."""
+    key = (str(device), grade, dropout_rate)
+    if key not in HYBRID_MODELS:
+        HYBRID_MODELS[key] = _hybrid_model(device, grade, dropout_rate)
+    return copy.deepcopy(HYBRID_MODELS[key])
+
+
+def _hybrid_model(device, grade, dropout_rate):
+    model = build_model("cifar10_hybrid", device=device,
+                        generator=torch.Generator().manual_seed(SEED),
+                        ruthotto_dtype=HYBRID_GRADES.get(grade,
+                                                         torch.bfloat16),
+                        **({} if dropout_rate is None
+                           else {"dropout_rate": dropout_rate}))
+    USED_DEVICES.add(next(model.parameters()).device)
+    rng = np.random.default_rng(SEED + 31)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        for i in (1, 2):
+            layer = getattr(model.feature_extractor, f"diffusion{i}")
+            for key, value in fields(rng, device).items():
+                getattr(layer, key).copy_(value)
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.weight.copy_(t(1 + 0.1 * rng.standard_normal(n)))
+                m.bias.copy_(t(0.1 * rng.standard_normal(n)))
+                m.running_mean.copy_(t(0.1 * rng.standard_normal(n)))
+                m.running_var.copy_(t(1 + 0.1 * np.abs(
+                    rng.standard_normal(n))))
+    if grade == "amp":
+        if enable_amp(model) != 2:
+            raise AssertionError("enable_amp on the hybrid: 2 ADI layers")
+    return model
+
+
+@contextlib.contextmanager
+def bf16_product_outputs():
+    """The control for the bf16 grade's checks: every bf16 K product
+    returns bf16 (``bmm`` on bf16 operands without ``out_dtype``), a
+    worse grade than the JAX one, which the checks must refuse."""
+    gemm = ruthotto_module._gemm_bf16
+    ruthotto_module._gemm_bf16 = lambda a, b: torch.bmm(
+        a[None], b[None])[0].float()
+    try:
+        yield
+    finally:
+        ruthotto_module._gemm_bf16 = gemm
+
+
+def k_product_calls(x, k, g, transpose=False):
+    """One K product forward (out = x·kᵀ), and its forward and backward
+    (the gradients of x and k for the output cotangent ``g``), as
+    calls."""
+    def fwd():
+        return ruthotto_module._KProduct.apply(x, k, transpose)
+
+    def bwd():
+        xs = x.detach().requires_grad_()
+        ks = k.detach().requires_grad_()
+        out = ruthotto_module._KProduct.apply(xs, ks, transpose)
+        return torch.autograd.grad(out, (xs, ks), g)
+    return fwd, bwd
+
+
+def phase_hybrid_products(device, peak_bytes, peak_flops):
+    """The hybrid's K products alone at B = 64 (x (64, 3072), K = I +
+    0.01·N(0, 1)), with both TF32 flags on: the exact grade's forward and
+    backward within KPROD_TOL of float64 and a control with the guard
+    bypassed that must miss it; the bf16 grade's against its plain
+    version (float32 output within KPROD_TOL, the bf16 gradients within
+    one bf16 step) and a control whose products return bf16 that must
+    miss; then the device time in a CUDA graph of one product forward,
+    and of its forward and backward, beside the bound (FLOPs at the
+    grade's peak, or bytes at the memory rate) and the plain version."""
+    tag, out = "hybrid-products", {}
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        log(f"[{tag}] TF32 on for matmuls and cuDNN in this phase")
+        gen = torch.Generator().manual_seed(SEED + 32)
+        D, B = 3072, 64
+        x = torch.randn(B, D, generator=gen).to(device)
+        k = (torch.eye(D) + 0.01 * torch.randn(D, D, generator=gen)).to(
+            device)
+        g = torch.randn(B, D, generator=gen).to(device)
+        ref_out = (x.double() @ k.double().t())
+        ref_gx = g.double() @ k.double()
+        ref_gk = g.double().t() @ x.double()
+
+        def exact_errs():
+            fwd, bwd = k_product_calls(x, k, g)
+            gx, gk = bwd()
+            return (rel_err(fwd(), ref_out), rel_err(gx, ref_gx),
+                    rel_err(gk, ref_gk))
+
+        errs = exact_errs()
+        for label, err in zip(("output", "x gradient", "K gradient"), errs):
+            check_rel(f"[{tag}] exact K product {label} vs float64 (TF32 "
+                      "flags on)", err, KPROD_TOL)
+        with tf32_guard_bypassed():
+            control = exact_errs()
+        log(f"  control (the guard bypassed, TF32 on): "
+            + "; ".join(f"{e:.3e}" for e in control)
+            + f" (limit {KPROD_TOL:.0e})")
+        if max(control) <= KPROD_TOL:
+            raise AssertionError("the TF32 control passed: the check "
+                                 "cannot see TF32")
+        out["exact_vs_float64"] = max(errs)
+        out["tf32_control"] = max(control)
+
+        kb = k.to(torch.bfloat16)
+
+        def bf16_run():
+            fwd, bwd = k_product_calls(x, kb, g)
+            return (fwd(), *bwd())
+
+        got = bf16_run()
+        with kernels.plain_versions():
+            plain = bf16_run()
+        readings = (rel_err(got[0], plain[0]), bf16_steps(got[1], plain[1]),
+                    bf16_steps(got[2], plain[2]))
+        check_rel(f"[{tag}] bf16 K product output vs its plain version",
+                  readings[0], KPROD_TOL)
+        for label, steps in zip(("x gradient", "K gradient"), readings[1:]):
+            log(f"  bf16 K product {label} vs its plain version: {steps:g} "
+                "bf16 steps of its largest entry (limit 1)")
+            if not steps <= 1.0:
+                raise AssertionError(f"bf16 K product {label}: {steps}")
+        with bf16_product_outputs():
+            control = rel_err(bf16_run()[0], plain[0])
+        log(f"  control (products returning bf16): output {control:.3e} "
+            f"(limit {KPROD_TOL:.0e})")
+        if control <= KPROD_TOL:
+            raise AssertionError("the bf16-output control passed")
+        out["bf16_vs_plain"] = readings[0]
+        out["bf16_output_control"] = control
+
+        flops = 2 * B * D * D
+        for grade, kk, peak in (("exact", k, peak_flops),
+                                ("bf16", kb, PEAK_BF16)):
+            fwd, fwd_bwd = k_product_calls(x, kk, g)
+            item = 4 if kk.dtype == torch.float32 else 2
+            # the forward reads x and K and writes the output; forward and
+            # backward read x, K and g and write the output and the two
+            # gradients (K's at K's dtype): 1 and 3 products of 2·B·D²
+            by_fwd = 4 * B * D + item * D * D + 4 * B * D
+            by_both = 3 * 4 * B * D + 2 * item * D * D + 4 * B * D
+            row = {}
+            for part, call, nbytes, nflops in (
+                    ("fwd", fwd, by_fwd, flops),
+                    ("fwd_bwd", fwd_bwd, by_both, 3 * flops)):
+                ms = graph_ms(lambda call=call: [call], walks=20)
+                bound_ms, by = bound(nbytes, nflops, peak_bytes, peak)
+                with kernels.plain_versions():
+                    plain_ms = graph_ms(lambda call=call: [call], walks=20)
+                row[part] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": by}
+                log(f"[{tag}] {grade} K product {part} at B={B}: {ms:.4f} "
+                    f"ms (CUDA graph), plain version {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({by}; {nflops / 1e9:.2f} "
+                    f"GFLOP, {nbytes / 1e6:.1f} MB)")
+            out[grade] = row
+        return out
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def hybrid_serve(tag, device, rng):
+    """``make_predict_fn`` of the hybrid in the exact grade, the bf16
+    grade and the AMP grade (operators cached), one request at each B of
+    HYBRID_SERVE: launch counts (26 K1 a forward, or 4 K1 for the cache
+    and none a request), logits against the plain versions (exact: 1e-4
+    of the largest entry, and against float64; bf16 and AMP: 4e-3), the
+    bf16-output control's reading, then images/s and the busy share."""
+    images = {B: torch.from_numpy(rng.random((B, 3, 32, 32)).astype(
+        np.float32)).to(device) for B in HYBRID_SERVE}
+    reps = dict(zip(HYBRID_SERVE, (30, 20, 5)))
+    out = {}
+    for grade in ("exact", "bf16", "amp"):
+        model = hybrid_model(device, grade)
+        reset_counts()
+        cached = cache_hoisted_operators(model) if grade == "amp" else 0
+        sync(device)
+        cache = counts()
+        predict = make_predict_fn(model)
+        reset_counts()
+        logits = {B: predict(x) for B, x in images.items()}
+        sync(device)
+        got = counts()
+        log(f"[{tag}] {grade}: cache launches {cache}, request launches "
+            f"{got} over {len(images)} forwards")
+        per = 0 if grade == "amp" else HYBRID_SWEEPS
+        if got != only(K1=per * len(images)) or cache != only(
+                K1=HYBRID_BUILDS if grade == "amp" else 0) or (
+                cached != (2 if grade == "amp" else 0)):
+            raise AssertionError(f"hybrid {grade}: launches")
+        with kernels.plain_versions():
+            plain = {B: predict(x) for B, x in images.items()}
+        tol = LOGIT_TOL if grade == "exact" else AMP_OUT_TOL
+        readings = {}
+        for B, x in images.items():
+            if logits[B].shape != (B, 10) or not torch.isfinite(
+                    logits[B]).all():
+                raise AssertionError(f"hybrid {grade} B={B}: bad logits")
+            readings[B] = check_rel(
+                f"[{tag}] {grade} B={B} logits vs its plain versions",
+                rel_err(logits[B], plain[B]), tol)
+            if grade == "exact":
+                check_rel(f"[{tag}] exact B={B} logits vs float64",
+                          rel_err(logits[B], float64_logits(model, x)), tol)
+        if grade == "bf16":
+            with bf16_product_outputs():
+                control = max(rel_err(predict(x), plain[B])
+                              for B, x in images.items())
+            log(f"  control (products returning bf16): logits "
+                f"{control:.3e} (limit {AMP_OUT_TOL:.0e})")
+            out["bf16_output_control_logits"] = control
+        out[grade] = {"launches_per_forward": got["K1"] // len(images),
+                      "cache_launches": cache["K1"],
+                      "logits_vs_plain": max(readings.values())}
+        out[grade].update(serve_rates(tag, f"{grade} serve", predict, images,
+                                      reps, device))
+        clear_operator_cache(model)
+    return out
+
+
+def hybrid_grads(make, xs, ys, masks, plain=False, double=False,
+                 calls=None):
+    """``train_grads`` of ``make(0.0)`` (dropout off) with the preset's
+    smoothing and regulariser, on the plain versions or in float64;
+    ``calls``: a dict that takes each SymmetricLayer call's module, input
+    and output cotangent, by '<module name>#<call>'."""
+    model = make(0.0)
+    if double:
+        model, xs = model.double(), xs.double()
+    hooks = []
+    if calls is not None:
+        for name, m in model.named_modules():
+            if isinstance(m, SymmetricLayer):
+                hooks.append(m.register_forward_hook(
+                    _keep_call(calls, name)))
+    try:
+        with (kernels.plain_versions() if plain or double
+              else contextlib.nullcontext()):
+            return train_grads(model, xs, ys,
+                               HYBRID_TRAIN["label_smoothing"], masks,
+                               HYBRID_ALPHAS)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _keep_call(calls, name):
+    def keep(mod, inp, out):
+        key = f"{name}#{sum(k.startswith(name + '#') for k in calls) + 1}"
+        calls[key] = [mod, inp[0].detach(), None]
+        out.register_hook(lambda g: calls[key].__setitem__(2, g.detach()))
+    return keep
+
+
+def replay_masked(mod, x, g, mask, flips=None):
+    """``replay`` of a SymmetricLayer with its activation's decisions
+    recorded into ``mask`` (an empty list) or replayed from it; a replay
+    appends to ``flips`` the decisions its own pre-activation takes the
+    other way, as (their number, the largest |pre-activation| among them
+    over its largest entry)."""
+    record = not mask
+
+    def hook(m, inp, out):
+        if record:
+            mask.append((out > 0).to(out.dtype))
+            return None
+        pre = inp[0].detach()
+        other = (pre > 0) != (mask[0] > 0)
+        flips.append((int(other.sum()), float(
+            pre.abs()[other].max() / pre.abs().max()) if other.any()
+            else 0.0))
+        return inp[0] * mask[0]
+    h = mod.act.register_forward_hook(hook)
+    try:
+        return replay(mod, x, g)
+    finally:
+        h.remove()
+
+
+def replay_calls(tag, label, calls):
+    """Each SymmetricLayer call of a bf16 train step, replayed on the input
+    and output cotangent the plain step gave it, on the card's route and
+    on the plain versions (the card run's ReLU decisions replayed): its
+    output within one bf16 step element by element and AMP_LAYER_RMS_TOL
+    in the RMS (a route that rounds its products' outputs to bf16 moves
+    every element, about 2^-9/sqrt(3) in the RMS); the gradients of its
+    input and of K, bf16-rounded values in the JAX semantics, within one
+    and two bf16 steps of their largest entry (K's a call is a bf16 sum of
+    the two products' rounded terms); the norm's within AMP_GRAD_TOL.  A
+    call whose output the loss does not read (the Hamiltonian block's
+    last F_Z: its Z is not returned) has no cotangent and is not
+    replayed.  Where the plain route's pre-activation would take a ReLU
+    decision the other way (a value within rounding of 0), the number of
+    such decisions is logged, with the input gradient's reading had the
+    plain route kept its own decisions: a flipped decision moves a whole
+    entry of the cotangent.  Returns the worst (output steps, RMS, input
+    steps, K steps, norm gradient) and the flipped decisions' count."""
+    worst, flipped = [0.0] * 5, 0
+    for key, (mod, x, g) in calls.items():
+        if g is None:
+            log(f"  [{tag}] {label} {key}: its output does not reach the "
+                "loss; not replayed")
+            continue
+        mask, flips = [], []
+        got = replay_masked(mod, x, g, mask)
+        with kernels.plain_versions():
+            plain = replay_masked(mod, x, g, mask, flips)
+        rms = float((got[0].double() - plain[0].double()).norm()
+                    / plain[0].double().norm())
+        norm = max(rel_err(got[2][n], plain[2][n])
+                   for n in ("norm.weight", "norm.bias"))
+        reading = (bf16_steps(got[0], plain[0]), rms,
+                   bf16_steps(got[1], plain[1]),
+                   bf16_steps(got[2]["K.weight"], plain[2]["K.weight"]), norm)
+        log(f"  [{tag}] {label} {key} replayed vs its plain versions: "
+            f"output {reading[0]:g} bf16 steps, {rms:.3e} in the RMS; "
+            f"gradients: input {reading[2]:g} and K {reading[3]:g} bf16 "
+            f"steps ({rel_err(got[1], plain[1]):.3e} and "
+            f"{rel_err(got[2]['K.weight'], plain[2]['K.weight']):.3e} of "
+            f"the largest entry), norm {norm:.3e}")
+        n, size = flips[0]
+        if n:
+            with kernels.plain_versions():
+                own = replay(mod, x, g)
+            own_norm = max(rel_err(got[2][k], own[2][k])
+                           for k in ("norm.weight", "norm.bias"))
+            log(f"    ReLU decisions the plain route takes the other way: "
+                f"{n} (largest |pre-activation| among them {size:.3e} of "
+                f"its largest); with the plain route's own decisions the "
+                f"input gradient reads {bf16_steps(got[1], own[1]):g} bf16 "
+                f"steps ({rel_err(got[1], own[1]):.3e}), the norm's "
+                f"{own_norm:.3e}")
+            flipped += n
+        worst = [max(w, r) for w, r in zip(worst, reading)]
+    return worst, flipped
+
+
+def replay_held(worst):
+    """Whether ``replay_calls``' worst readings are within their limits."""
+    steps, rms, gx, gk, norm = worst
+    return (steps <= 1.0 and rms <= AMP_LAYER_RMS_TOL and gx <= 1.0
+            and gk <= 2.0 and norm <= AMP_GRAD_TOL)
+
+
+@contextlib.contextmanager
+def reordered_products(parts):
+    """Every K product's float32 sum in another order: its contraction cut
+    into ``parts`` pieces, each summed apart, the pieces then added.  The
+    same exact products as the route it wraps, so a run under it is as
+    sound as one without."""
+    product = ruthotto_module._product
+
+    def split(a, b):
+        n = a.shape[-1]
+        edges = [round(i * n / parts) for i in range(parts + 1)]
+        out = product(a[..., :edges[1]], b[:edges[1]])
+        for lo, hi in zip(edges[1:-1], edges[2:]):
+            out = out + product(a[..., lo:hi], b[lo:hi])
+        return out
+    ruthotto_module._product = split
+    try:
+        yield
+    finally:
+        ruthotto_module._product = product
+
+
+def bf16_model_grads(tag, label, make, xs, ys, masks, run, plain):
+    """The bf16 grade's loss and model gradients (``run``, the card's)
+    against its plain versions, with the card run's ReLU and max-pool
+    decisions, held at HYBRID_BF16_GRAD_TOL beside what the grade itself
+    determines: the sound runs, the plain versions with their K products
+    summed in other orders (HYBRID_SOUND_PARTS), must hold it too; the
+    control whose products return bf16 must miss it.  Returns the
+    readings."""
+    def reading(what, got):
+        return compare_grads(f"[{tag}] {label} {what} vs the plain "
+                             "versions, loss and every gradient", got, plain,
+                             None, HYBRID_ZERO, rel_check=False)[0]
+    out = {"card": reading("the card's route", run), "sound": []}
+    for parts in HYBRID_SOUND_PARTS:
+        with reordered_products(parts):
+            out["sound"].append(reading(
+                f"plain versions with each K product summed in {parts} "
+                "pieces", hybrid_grads(make, xs, ys, masks, plain=True)))
+    with bf16_product_outputs():
+        out["control"] = reading("control (products returning bf16)",
+                                 hybrid_grads(make, xs, ys, masks))
+    log(f"  [{tag}] {label} model gradients: the card {out['card']:.3e}, "
+        f"the sound runs {max(out['sound']):.3e} at most, the control "
+        f"{out['control']:.3e} (limit {HYBRID_BF16_GRAD_TOL:.0e}: the card "
+        "and the sound runs within, the control over)")
+    if not max(out["card"], *out["sound"]) <= HYBRID_BF16_GRAD_TOL:
+        raise AssertionError(f"{label} model gradients: {out}")
+    if not out["control"] > HYBRID_BF16_GRAD_TOL:
+        raise AssertionError(f"{label}: the bf16-output control passed "
+                             f"the model-gradient limit: {out}")
+    return out
+
+
+def hybrid_train(tag, device, rng):
+    """The hybrid's train step (``make_train_step``, the preset's
+    augmentation, dropout, regulariser and grouped AdamW) in the exact,
+    bf16 and AMP grades: launch counts of one step at B = 64 (26 K1 + 26
+    K3 per-sweep, 4 K1 hoisted); the loss and every gradient of a
+    train-mode step (dropout off, the ReLU and max-pool decisions of the
+    card's run replayed) at each B of HYBRID_TRAIN_BATCHES: exact within
+    1e-4 of the largest entry of the plain versions' and float64's; bf16
+    and AMP: the loss within 4e-3 of its plain versions', the model's
+    gradients within HYBRID_BF16_GRAD_TOL, beside the sound runs' and the
+    control's (``bf16_model_grads``), and each SymmetricLayer call
+    replayed on the plain step's input and cotangent (``replay_calls``,
+    held; the bf16-output control must miss a limit there); 50 steps with
+    a falling loss; images/s and the busy share at each B."""
+    images, labels, _, _ = make_synthetic("cifar10")
+    data = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+    out = {}
+    for grade in ("exact", "bf16", "amp"):
+        def make(rate, grade=grade):
+            return hybrid_model(device, grade, rate)
+        step = make_train_step(make(None), HYBRID_TRAIN,
+                               max(data[0].shape[0] // 64, 1),
+                               torch.Generator(device).manual_seed(SEED))
+        x, y = data[0][:64], data[1][:64]
+        step(x, y)
+        sync(device)
+        reset_counts()
+        loss, _ = step(x, y)
+        sync(device)
+        got = counts()
+        per = (only(K1=HYBRID_BUILDS) if grade == "amp"
+               else only(K1=HYBRID_SWEEPS, K3=HYBRID_SWEEPS))
+        log(f"[{tag}] {grade}: launches in one train step at B=64: {got}")
+        if got != per or not torch.isfinite(loss):
+            raise AssertionError(f"hybrid {grade} train step: {got} {loss}")
+        out[grade] = {"launches_per_train_step": got}
+        for B in HYBRID_TRAIN_BATCHES:
+            xs = torch.from_numpy(rng.random((B, 3, 32, 32)).astype(
+                np.float32)).to(device)
+            ys = torch.from_numpy(rng.integers(0, 10, B)).to(device)
+            masks = {}
+            run = hybrid_grads(make, xs, ys, masks)
+            plain = hybrid_grads(make, xs, ys, masks, plain=True)
+            if grade == "exact":
+                out[grade][f"B{B}_vs_plain"] = compare_grads(
+                    f"[{tag}] exact B={B} loss and every gradient vs the "
+                    "plain versions", run, plain, GRAD_TOL, HYBRID_ZERO)[0]
+                out[grade][f"B{B}_vs_float64"] = compare_grads(
+                    f"[{tag}] exact B={B} loss and every gradient vs "
+                    "float64", run, hybrid_grads(make, xs, ys, masks,
+                                                 double=True),
+                    GRAD_TOL, HYBRID_ZERO)[0]
+                continue
+            out[grade][f"B{B}_loss_vs_plain"] = check_rel(
+                f"[{tag}] {grade} B={B} loss vs its plain versions",
+                rel_err(run[0], plain[0]), AMP_OUT_TOL)
+            out[grade][f"B{B}_grads"] = bf16_model_grads(
+                tag, f"{grade} B={B}", make, xs, ys, masks, run, plain)
+            calls = {}
+            hybrid_grads(make, xs, ys, masks, plain=True, calls=calls)
+            worst, flipped = replay_calls(tag, f"{grade} B={B}", calls)
+            out[grade][f"B{B}_replayed"] = dict(zip(
+                ("output_steps", "output_rms", "input_grad_steps",
+                 "k_grad_steps", "norm_grad"), worst))
+            out[grade][f"B{B}_replayed"]["relu_flips"] = flipped
+            if not replay_held(worst):
+                raise AssertionError(f"{grade} B={B} replayed calls: "
+                                     f"{worst}")
+            if grade == "bf16" and B == HYBRID_TRAIN_BATCHES[0]:
+                with bf16_product_outputs():
+                    control, _ = replay_calls(tag, "control (products "
+                                              "returning bf16)", calls)
+                out["bf16_output_control_replayed"] = control
+                if replay_held(control):
+                    raise AssertionError(
+                        "the bf16-output control passed the replay limits")
+        step, out[grade]["loss_50_steps"] = train_falling(
+            tag, f"{grade} train", make, HYBRID_TRAIN, data, 64)
+        for B in HYBRID_TRAIN_BATCHES:
+            out[grade].update(step_rates(tag, f"{grade} train", step, data,
+                                         B, rng))
+    return out
+
+
+def phase_hybrid(device, peak_bytes, peak_flops):
+    """The CIFAR-10 hybrid at full width: its K products, serving and
+    training in the three grades, and the serve CLI with --preset
+    cifar10_hybrid --amp (queued; phase_clis runs its train CLI too)."""
+    tag = "hybrid"
+    rng = np.random.default_rng(SEED + 33)
+    out = {"products": timed("hybrid products", phase_hybrid_products,
+                             device, peak_bytes, peak_flops)}
+    out["serve"] = timed("hybrid serving", hybrid_serve, tag, device, rng)
+    out["train"] = timed("hybrid training", hybrid_train, tag, device, rng)
+    HYBRID_MODELS.clear()
+    cli_later(tag, "cnn_pde_tpu_torch.serve", "cifar10_hybrid", "--amp",
+              ok=lambda s: s["amp_cached_layers"] == 2
+              and len(s["predictions"]) == 8)
+    return out
+
+
+def trainer_cli(*args, popen=False):
+    """The train CLI with ``args`` on the default device (cuda), unbuffered:
+    its summary line, or (``popen``) the running process."""
+    cmd = [sys.executable, "-u", "-m", "cnn_pde_tpu_torch.train", *args]
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    if popen:
+        return subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    cli = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                         timeout=300, check=True)
+    return json.loads(cli.stdout.strip().splitlines()[-1])
+
+
+def phase_clis():
+    """The Trainer's jobs (``trainer_jobs``) and every queued CLI run,
+    CLI_WORKERS at a time: each job its own thread and its processes its
+    own, all on the card; then each job's log lines and wall time in
+    that order.  Returns the Trainer's readings."""
+    tag, out = "trainer", {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # the Trainer's chains of processes first; more processes at once
+        # than this slowed each to 3-4 times its time alone
+        jobs = trainer_jobs(tag, out, root) + CLI_JOBS
+        with concurrent.futures.ThreadPoolExecutor(CLI_WORKERS) as pool:
+            futures = [pool.submit(clocked, job) for job in jobs]
+        for future in futures:
+            for line in future.result():
+                log(line)
+        resumed_equal(tag, out, root)
+        return out
+    finally:
+        # the hybrid's checkpoints hold about 0.5 GB each
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def clocked(job):
+    """``job()``'s log lines and its wall time."""
+    t0 = time.perf_counter()
+    lines = job()
+    return lines + [f"[time] {job.__name__}: "
+                    f"{time.perf_counter() - t0:.1f} s"]
+
+
+def trainer_jobs(tag, out, root):
+    """``Trainer.fit`` through the train CLI on the card, three jobs: the
+    hybrid at B = 64 for 2 epochs of 3 steps with a checkpoint every epoch
+    and a metrics file; the same run stopped by SIGTERM during epoch 1
+    (GracefulPreemption: it finishes the epoch, evaluates, saves 'last'
+    and exits), then resumed with --resume (``resumed_equal`` holds its
+    final weights against the first run's); emotion with its early
+    stopping on, then the serve CLI from that checkpoint directory."""
+    # the synthetic CIFAR-10 set's 200 images make 3 steps an epoch at 64
+    common = ["--preset", "cifar10_hybrid", "--synthetic", "--epochs", "2",
+              "--steps", "3", "--batch-size", "64", "--checkpoint-every", "1"]
+    whole, killed = os.path.join(root, "whole"), os.path.join(root, "killed")
+
+    def uninterrupted():
+        summary = trainer_cli(*common, "--checkpoint-dir", whole,
+                              "--metrics-out", os.path.join(whole, "m.jsonl"),
+                              "--quiet")
+        with open(os.path.join(whole, "m.jsonl")) as f:
+            records = [json.loads(s) for s in f]
+        if summary["epochs"] != 2 or summary["steps"] != 6 \
+                or len(records) != 2:
+            raise AssertionError(f"trainer run: {summary}")
+        return [f"[{tag}] uninterrupted: {summary}; metrics records "
+                f"{records}"]
+
+    def preempted_and_resumed():
+        proc = trainer_cli(*common, "--checkpoint-dir", killed, popen=True)
+        try:
+            for line in proc.stdout:
+                if line.startswith("Epoch 1, Batch 0"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"the SIGTERM'd run failed: "
+                                 f"{stderr[-2000:]}")
+        first = json.loads(stdout.strip().splitlines()[-1])
+        if not first.get("preempted") or first["epochs"] != 1:
+            raise AssertionError(f"the SIGTERM'd run did not stop after "
+                                 f"epoch 1: {first}")
+        second = trainer_cli(*common, "--checkpoint-dir", killed, "--resume",
+                             "--quiet")
+        return [f"[{tag}] SIGTERM during epoch 1: {first}",
+                f"[{tag}] --resume: {second}"]
+
+    def early_stopped_and_served():
+        emotion = os.path.join(root, "emotion")
+        summary = trainer_cli("--preset", "emotion", "--synthetic",
+                              "--epochs", "60", "--steps", "1",
+                              "--checkpoint-dir", emotion,
+                              "--checkpoint-every", "5", "--quiet")
+        out["emotion_epochs"] = summary["epochs"]
+        served = run_cli("cnn_pde_tpu_torch.serve", "emotion",
+                         "--checkpoint-dir", emotion, "--tag", "last")
+        if not served["restored"] or len(served["predictions"]) != 8:
+            raise AssertionError(f"serve from the checkpoint: {served}")
+        return [f"[{tag}] emotion (eval every 5 epochs, early stop after 10 "
+                f"evals without a better accuracy): {summary}",
+                f"[{tag}] serve --checkpoint-dir (last): {served}"]
+    return [uninterrupted, preempted_and_resumed, early_stopped_and_served]
+
+
+def resumed_equal(tag, out, root):
+    """The resumed run's final weights, BatchNorm statistics and step
+    against the uninterrupted run's, bit for bit."""
+    a, b = (torch.load(os.path.join(root, run, "last.ckpt"),
+                       weights_only=True) for run in ("whole", "killed"))
+    diff = max(float((a["model"][n].double() - b["model"][n].double()).abs()
+                     .max()) for n in a["model"])
+    equal = a["step"] == b["step"] == 6 and all(
+        torch.equal(a["model"][n], b["model"][n]) for n in a["model"])
+    log(f"[{tag}] resumed vs uninterrupted: steps {a['step']} and "
+        f"{b['step']}, largest weight difference {diff:.3e}, bit for bit "
+        f"{equal}")
+    if not equal:
+        raise AssertionError("the resumed run's weights differ")
+    out["resume_bitwise"] = equal
 
 
 def phase_times(device, peak_bytes, peak_flops):
@@ -2718,10 +3456,14 @@ def main():
     amp = timed("AMP grade and SVHN", phase_amp, device)
     stencil = timed("emotion and Tiny-ImageNet", phase_stencil, device)
     tiny = stencil["tiny_imagenet"]
+    hybrid = timed("hybrid", phase_hybrid, device, peak_bytes, peak_flops)
+    hybrid_steps = {grade: hybrid["train"][grade]["launches_per_train_step"]
+                    for grade in ("bf16", "amp")}
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
                        peak_bytes, peak_flops))
+    trainer = timed("CLIs and trainer", phase_clis)
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         " MiB")
     # launches: K1 and K2 over the flagship's serving run (3 forwards a
@@ -2747,14 +3489,20 @@ def main():
                       tiny["implicit_serve"][0]["implicit"]["K1"] // 3,
                   "tiny_imagenet_implicit_launches_per_train_step":
                       tiny["implicit_train"][0]["implicit"]["K1"],
+                  "hybrid_launches_per_forward":
+                      hybrid["serve"]["bf16"]["launches_per_forward"],
+                  "hybrid_launches_per_train_step":
+                      hybrid_steps["bf16"]["K1"],
                   "hoisted_launches_per_train_step": {
                       "flagship": amp["flagship_train"]["bf16"][0]["K1"],
                       "mnist": amp["mnist_train"]["bf16"][0]["K1"],
-                      "svhn": amp["svhn_amp_train"]["bf16"][0]["K1"]},
+                      "svhn": amp["svhn_amp_train"]["bf16"][0]["K1"],
+                      "hybrid": hybrid_steps["amp"]["K1"]},
                   "hoisted_launches_per_cache": {
                       "flagship": amp["flagship_serve"]["bf16"][0]["K1"],
                       "mnist": amp["mnist_serve"]["bf16"][0]["K1"],
-                      "svhn": amp["svhn_amp_serve"]["bf16"][0]["K1"]},
+                      "svhn": amp["svhn_amp_serve"]["bf16"][0]["K1"],
+                      "hybrid": hybrid["serve"]["amp"]["cache_launches"]},
                   "operator_build": operator_build},
            "K2": {"launches_per_forward": 3},
            "K3": {"launches_per_train_step": 51,
@@ -2763,7 +3511,9 @@ def main():
                   "svhn_launches_per_train_step":
                       amp["svhn_train"][0]["per_sweep"]["K3"],
                   "tiny_imagenet_implicit_launches_per_train_step":
-                      tiny["implicit_train"][0]["implicit"]["K3"]},
+                      tiny["implicit_train"][0]["implicit"]["K3"],
+                  "hybrid_launches_per_train_step":
+                      hybrid_steps["bf16"]["K3"]},
            "K4": {"launches_per_train_step": 3},
            "K5": {"launches_per_train_step": 3},
            "K6": {"mnist_launches_per_forward": 1},
@@ -2801,6 +3551,7 @@ def main():
                   tiny["implicit_serve"][1],
               "tiny_imagenet_implicit_train_images_per_s":
                   tiny["implicit_train"][1],
+              "hybrid": hybrid, "trainer": trainer,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

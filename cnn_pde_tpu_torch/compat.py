@@ -34,6 +34,11 @@ KEY_REWRITES = {
     # cifar10.py:215-361: SpatialAttention.attention_fc, EnhancedFC.network
     "cifar10_noconv": [(r"\.fc\.", ".attention_fc."),
                        (r"^classifier\.", "classifier.network.")],
+    # cifar_2version.py:190-368: symmetric_layer, attention_net, nested
+    # PDEClassifier.classifier
+    "cifar10_hybrid": [(r"\.sym\.", ".symmetric_layer."),
+                       (r"^attention\.net\.", "attention.attention_net."),
+                       (r"^classifier\.", "classifier.classifier.")],
     # mnist_test.py:223-261: diff + fc1/fc2 behind ReLU/Dropout
     "mnist": [(r"^head\.2\.", "fc1."), (r"^head\.5\.", "fc2.")],
     # fashion_mnist.py:200-254: fc1/bn1/fc2/bn2/fc3

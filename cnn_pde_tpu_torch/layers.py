@@ -46,15 +46,20 @@ __all__ = ["Conv2d", "conv2d_exact", "conv2d_bf16", "conv2d_bf16_plain",
 
 @contextmanager
 def no_tf32():
-    """cuDNN's TF32 flag cleared for the block, the caller's value restored
-    after it.  The flag is the process's: another thread's convolution
-    inside the block runs without TF32 too."""
-    prev = torch.backends.cudnn.allow_tf32
+    """cuDNN's and cuBLAS's TF32 flags cleared for the block, the caller's
+    values restored after it.  The flags are the process's: another
+    thread's convolution or matmul inside the block runs without TF32 too.
+    Both are the ``allow_tf32`` flags: torch refuses to read one API's
+    setting after the other API has set it."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 class _ExactConv(torch.autograd.Function):

@@ -1,12 +1,14 @@
-"""Model registry of the port: the CIFAR-10 no-conv flagship, the
-grayscale family (MNIST, Fashion-MNIST), SVHN, emotion and Tiny-ImageNet;
-the hybrid preset of the JAX package raises until its slice lands."""
+"""Model registry of the port: the CIFAR-10 no-conv flagship, the CIFAR-10
+hybrid, the grayscale family (MNIST, Fashion-MNIST), SVHN, emotion and
+Tiny-ImageNet: every model family of the JAX package."""
 
 from __future__ import annotations
 
 import torch
 
-from .attention import SpatialAttention
+from .attention import NonConvSpatialAttention, SpatialAttention
+from .cifar10_hybrid import (CIFAR10HybridPDEModel, HybridClassifierHead,
+                             HybridPDEExtractor)
 from .cifar10_noconv import (CIFAR10PDENoConv, EnhancedFC,
                              MultiScaleExtractor, set_dropout_generator)
 from .mlp_models import (EmotionClassifier, FashionClassifier,
@@ -14,12 +16,15 @@ from .mlp_models import (EmotionClassifier, FashionClassifier,
 from .tiny_imagenet import BasicBlock, TinyImageNetClassifier
 
 __all__ = ["MODEL_REGISTRY", "build_model", "SpatialAttention",
-           "CIFAR10PDENoConv", "EnhancedFC", "MultiScaleExtractor",
+           "NonConvSpatialAttention", "CIFAR10HybridPDEModel",
+           "HybridClassifierHead", "HybridPDEExtractor", "CIFAR10PDENoConv",
+           "EnhancedFC", "MultiScaleExtractor",
            "MNISTClassifier", "FashionClassifier", "SVHNClassifier",
            "EmotionClassifier", "BasicBlock", "TinyImageNetClassifier",
            "set_dropout_generator"]
 
 MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv,
+                  "cifar10_hybrid": CIFAR10HybridPDEModel,
                   "mnist": MNISTClassifier,
                   "fashion_mnist": FashionClassifier,
                   "svhn": SVHNClassifier,
@@ -27,7 +32,7 @@ MODEL_REGISTRY = {"cifar10_noconv": CIFAR10PDENoConv,
                   "tiny_imagenet": TinyImageNetClassifier}
 
 # JAX model families still to port, with their ROADMAP.md queue-A items
-NOT_YET_PORTED = {"cifar10_hybrid": "A11"}
+NOT_YET_PORTED: dict = {}
 
 
 def build_model(name, *, device="cuda", generator=None, **kwargs):

@@ -1,4 +1,6 @@
-"""SpatialAttention — port of ``cnn_pde_tpu/models/attention.py`` (M4)."""
+"""Attention gates — port of ``cnn_pde_tpu/models/attention.py``:
+``SpatialAttention`` (M4, the flagship's) and ``NonConvSpatialAttention``
+(M9, the hybrid's)."""
 
 from __future__ import annotations
 
@@ -7,7 +9,8 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["SpatialAttention", "torch_default_init_"]
+__all__ = ["SpatialAttention", "NonConvSpatialAttention",
+           "torch_default_init_"]
 
 
 @torch.no_grad()
@@ -43,3 +46,30 @@ class SpatialAttention(nn.Module):
     def forward(self, x):
         pooled = (x + self.pos_embed).mean(dim=(2, 3))
         return x * self.attention_fc(pooled)[:, :, None, None]
+
+
+class NonConvSpatialAttention(nn.Module):
+    """A sigmoid gate over the whole flattened feature map: (x + pos_embed)
+    flattened to D = C·H·W → D/4 → D/8 → D (ReLU between, sigmoid last),
+    multiplied into x; ``pos_embed`` drawn at 0.02·N(0, 1)."""
+
+    def __init__(self, channels, spatial_size, device=None):
+        super().__init__()
+        d = channels * spatial_size * spatial_size
+        self.pos_embed = nn.Parameter(torch.zeros(
+            (1, channels, spatial_size, spatial_size), device=device))
+        self.attention_net = nn.Sequential(
+            nn.Linear(d, d // 4, device=device), nn.ReLU(),
+            nn.Linear(d // 4, d // 8, device=device), nn.ReLU(),
+            nn.Linear(d // 8, d, device=device), nn.Sigmoid())
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.pos_embed.copy_(
+            torch.randn(self.pos_embed.shape, generator=generator) * 0.02)
+        for i in (0, 2, 4):
+            torch_default_init_(self.attention_net[i], generator)
+
+    def forward(self, x):
+        flat = (x + self.pos_embed).reshape(x.shape[0], -1)
+        return x * self.attention_net(flat).reshape(x.shape)

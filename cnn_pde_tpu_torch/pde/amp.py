@@ -16,16 +16,17 @@
   layer's own and the global default stays as it is, so ``tridiag_solve``
   keeps K1 for every other per-sweep layer in the process;
 * with ``dense=True`` (the default), every port ``Conv2d``
-  (``layers.py``) to ``compute_dtype=torch.bfloat16``: bf16 operands, a
-  bf16 output cast to float32.  A ``torch.nn.Conv2d`` that is not the
+  (``layers.py``) to ``compute_dtype=torch.bfloat16`` (bf16 operands, a
+  bf16 output cast to float32) and every ``SymmetricLayer``
+  (``pde/ruthotto.py``) to ``compute_dtype=torch.bfloat16`` (bf16
+  operands, a float32 result).  A ``torch.nn.Conv2d`` that is not the
   port's raises ``TypeError`` before anything changes: the grade casts
   only the port's Conv2d.
 
 The bands, boundary rows, clamps, mixing, BatchNorm and everything outside
 the solves and convolutions stay float32, and so do the plain Linears (the
 JAX grade measured a loss from casting them).  Nothing runs under
-``torch.autocast``: it would cast those Linears.  The JAX grade also casts
-``SymmetricLayer``; no ported family has one (ROADMAP.md A11).
+``torch.autocast``: it would cast those Linears.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ..layers import Conv2d
 from .diffusion import (ChannelCoupledDiffusion, GrayscaleDiffusion,
                         MixedChannelDiffusion)
 from .residual import ResidualDiffusion
+from .ruthotto import SymmetricLayer
 
 __all__ = ["enable_amp", "iter_adi_layers", "iter_modules"]
 
@@ -59,7 +61,7 @@ def enable_amp(model=None, dense=True):
     """Switch ``model`` to the bf16 AMP grade; returns the number of ADI
     layers switched to the hoisted bf16 path, as the JAX function does
     (0 for a model without one).  ``dense=False`` leaves the convolutions
-    exact."""
+    exact and the SymmetricLayers at their own grade."""
     if model is None:
         return 0
     if dense:
@@ -70,8 +72,8 @@ def enable_amp(model=None, dense=True):
                 f"enable_amp(dense=True): the AMP grade casts only the "
                 f"port's Conv2d (cnn_pde_tpu_torch.layers.Conv2d); this "
                 f"model has {len(foreign)} other Conv2d ({foreign[0]})")
-        for conv in iter_modules(model, Conv2d):
-            conv.compute_dtype = torch.bfloat16
+        for layer in iter_modules(model, (Conv2d, SymmetricLayer)):
+            layer.compute_dtype = torch.bfloat16
     for layer in iter_modules(model, ResidualDiffusion):
         layer.solve_impl = "matinv_bf16"
     n = 0

@@ -22,7 +22,10 @@ NORMALIZATION = {
 }
 
 # Each preset: the reference script's training values, with label smoothing
-# 0.1 and a global-norm clip of 1 unless it says otherwise.
+# 0.1, a global-norm clip of 1, an eval every epoch, no early stop and no
+# regulariser unless it says otherwise.  "regularizer" holds the alphas of
+# train/losses.py::hybrid_pde_regularization; "eval_every" counts epochs,
+# "early_stop_patience" evals.
 PRESETS = {
     # mnist_test.py:263-345 of the reference: 1 epoch, batch 128, AdamW
     # 1e-3 / wd 1e-4 in one group, cosine with T_max = 3 stepped per epoch
@@ -55,7 +58,7 @@ PRESETS = {
     },
     # SVHN.py:300-406: 15 epochs, batch 256, AdamW 1e-2 / wd 1e-4,
     # OneCycleLR (max 1e-2) stepped per batch, cross-entropy without
-    # smoothing, normalisation only
+    # smoothing, normalisation only, an eval every 2 epochs
     "svhn": {
         "name": "svhn", "model": "svhn", "dataset": "svhn",
         "model_kwargs": {},
@@ -64,6 +67,7 @@ PRESETS = {
             "weight_decay": 1e-4, "schedule": "onecycle",
             "schedule_kwargs": {"max_lr": 1e-2}, "label_smoothing": 0.0,
             "clip_norm": 1.0, "default_lr_scale": 1.0, "param_groups": (),
+            "eval_every": 2,
             "augment": {"mean": NORMALIZATION["svhn"][0],
                         "std": NORMALIZATION["svhn"][1]},
         },
@@ -89,10 +93,34 @@ PRESETS = {
                 "std": NORMALIZATION["cifar10"][1]},
         },
     },
+    # cifar_2version.py:470-595: 25 epochs, batch 64, one group (α, β,
+    # channel mixing and the combination weights at lr with weight decay
+    # 1e-6), the rest at lr·0.8 with 1e-4, cosine with T_max = epochs
+    # stepped per epoch, the hybrid regulariser with (2e-4, 1e-4, 1e-6)
+    "cifar10_hybrid": {
+        "name": "cifar10_hybrid", "model": "cifar10_hybrid",
+        "dataset": "cifar10", "model_kwargs": {},
+        "train": {
+            "epochs": 25, "batch_size": 64, "lr": 1e-3,
+            "weight_decay": 1e-4, "schedule": "cosine",
+            "schedule_kwargs": {}, "label_smoothing": 0.1, "clip_norm": 1.0,
+            "default_lr_scale": 0.8,
+            "param_groups": ((("alpha", "beta", "channel_mixing",
+                               "combination_weights"), 1.0, 1e-6),),
+            "regularizer": (2e-4, 1e-4, 1e-6),
+            "augment": {
+                "crop_padding": 4, "hflip": 0.5, "rotation": 10.0,
+                "brightness": 0.2, "contrast": 0.2, "saturation": 0.2,
+                "hue": 0.1, "erasing_p": 0.1,
+                "mean": NORMALIZATION["cifar10"][0],
+                "std": NORMALIZATION["cifar10"][1]},
+        },
+    },
     # emotion_recognition.py:265-369: up to 70 epochs, batch 64, AdamW 1e-3
     # / wd 1e-4, cosine with T_max = 70 and eta_min 1e-6 stepped per epoch,
     # no label smoothing and no grad clip (its train loop is the one
-    # without), hflip and rotation with no normalisation
+    # without), hflip and rotation with no normalisation; an eval every 5
+    # epochs, stopping after 10 evals without a better test accuracy
     "emotion": {
         "name": "emotion", "model": "emotion", "dataset": "emotion",
         "model_kwargs": {},
@@ -102,6 +130,7 @@ PRESETS = {
             "schedule_kwargs": {"t_max": 70, "eta_min": 1e-6},
             "label_smoothing": 0.0, "clip_norm": None,
             "default_lr_scale": 1.0, "param_groups": (),
+            "eval_every": 5, "early_stop_patience": 10,
             "augment": {"hflip": 0.5, "rotation": 10.0},
         },
     },
@@ -128,6 +157,8 @@ PRESETS = {
 
 
 def get_preset(name):
+    """The preset ``name``'s values (a dict; ``train`` holds the training
+    values that ``train.make_train_step`` and ``train.TrainConfig`` read)."""
     from .models import NOT_YET_PORTED
 
     if name in NOT_YET_PORTED:

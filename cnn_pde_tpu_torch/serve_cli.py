@@ -1,12 +1,14 @@
 """Serving CLI of the port — counterpart of ``cnn_pde_tpu/serve_cli.py``.
 
     python -m cnn_pde_tpu_torch.serve --preset cifar10_noconv \
-        [--torch-checkpoint model.pth] [--input batch.npy] [--amp] \
-        [--device cuda]
+        [--torch-checkpoint model.pth | --checkpoint-dir DIR [--tag best]] \
+        [--input batch.npy] [--amp] [--device cuda]
 
 Runs on the card unless ``--device cpu`` is given; without CUDA it exits
 non-zero rather than carry on on the CPU.  With no ``--input`` it predicts on
-the JAX CLI's smoke batch and prints the same summary line.  ``--amp``
+the JAX CLI's smoke batch and prints the same summary line.
+``--checkpoint-dir`` serves the model weights of a checkpoint that the
+train CLI wrote there (``--tag best`` or ``last``).  ``--amp``
 serves the bf16 AMP grade (``pde.enable_amp``) with every hoisted layer's
 sweep operators built once and pinned (``serve.cache_hoisted_operators``);
 ``amp_cached_layers`` counts them, and a line on stderr says how the
@@ -26,6 +28,11 @@ def main(argv=None):
     ap.add_argument("--torch-checkpoint", default=None, metavar="PTH",
                     help="serve weights from a reference model.state_dict() "
                          "checkpoint; omit for a random-init smoke run")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="serve the weights of a checkpoint the train CLI "
+                         "wrote in this directory")
+    ap.add_argument("--tag", default="best", choices=["best", "last"],
+                    help="which checkpoint of --checkpoint-dir")
     ap.add_argument("--input", default=None,
                     help=".npy batch (NCHW float32) to predict on")
     ap.add_argument("--output", default="labels",
@@ -48,6 +55,7 @@ def main(argv=None):
     from .pde import enable_amp
     from .presets import SYNTHETIC_SPECS, get_preset
     from .serve import cache_hoisted_operators, make_predict_fn
+    from .train.checkpoint import model_state_dict
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -62,9 +70,16 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(0),
                         **preset["model_kwargs"])
     restored = False
+    if args.torch_checkpoint and args.checkpoint_dir:
+        sys.exit("cnn_pde_tpu_torch.serve: pass --torch-checkpoint or "
+                 "--checkpoint-dir, not both")
     if args.torch_checkpoint:
         model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint),
                               strict=True)
+        restored = True
+    if args.checkpoint_dir:
+        model.load_state_dict(model_state_dict(args.checkpoint_dir,
+                                               args.tag), strict=True)
         restored = True
 
     if args.input:

@@ -1,23 +1,31 @@
-"""Training CLI of the port — counterpart of ``cnn_pde_tpu/train/__main__.py``
-for the ported presets.
+"""Training CLI of the port — counterpart of ``cnn_pde_tpu/train/__main__.py``.
 
-    python -m cnn_pde_tpu_torch.train --preset cifar10_noconv --synthetic \\
-        [--steps 20] [--batch-size 64] [--seed 0] [--amp] [--bf16-moments] \\
-        [--init-from-torch model.pth] [--device cuda]
+    python -m cnn_pde_tpu_torch.train --preset cifar10_hybrid --synthetic \\
+        [--epochs N] [--steps N] [--batch-size B] [--grad-accum K] \\
+        [--checkpoint-dir DIR [--checkpoint-every N] [--async-checkpoint] \\
+         [--resume]] [--metrics-out run/metrics.jsonl] [--bn-refresh K] \\
+        [--amp] [--bf16-moments] [--init-from-torch model.pth] [--seed 0] \\
+        [--quiet] [--no-preemption-handler] [--device cuda]
 
-Runs on the card unless ``--device cpu`` is given; without CUDA it exits
-non-zero rather than carry on on the CPU.  ``--synthetic`` is required: no
-dataset loader is ported yet (ROADMAP.md A12).  ``--amp`` trains the bf16
-AMP grade (``pde.enable_amp``: hoisted bf16 sweep operators); with
-``--bf16-moments`` AdamW keeps its moments in bf16.  Prints one summary
-JSON line: preset, steps, first and last loss, images/s, the ADI layers
-``--amp`` switched and the GEMM route of their operators.
+Runs ``Trainer.fit`` on the card unless ``--device cpu`` is given; without
+CUDA it exits non-zero rather than carry on on the CPU.  ``--synthetic`` is
+required: no real-data loader is ported yet (ROADMAP.md A12).  ``--steps``
+caps the train steps of each epoch, as in the JAX CLI.  SIGTERM or SIGINT
+stops the run at the next eval boundary with a 'last' checkpoint (unless
+``--no-preemption-handler``); ``--resume`` continues from it.  ``--amp``
+trains the bf16 AMP grade (``pde.enable_amp``); ``--bf16-moments`` keeps
+AdamW's moments in bf16.  Prints the JAX CLI's summary JSON line (preset,
+best_acc, wall_s, epochs, and bn_refresh_acc or preempted when they apply)
+with the port's own keys beside: the device, the batch, the steps run, the
+first and last epoch's mean loss, images/s, the ADI layers ``--amp``
+switched and their GEMM route.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -28,20 +36,51 @@ def main(argv=None):
     ap.add_argument("--synthetic", action="store_true",
                     help="train on the synthetic fixture dataset (required: "
                          "no real-data loader is ported yet)")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="default: the preset's")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="default: the preset's")
-    ap.add_argument("--steps", type=int, default=20,
-                    help="train steps to run (a smoke run)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grad-accum", type=int, default=1, metavar="K",
+                    help="average the gradients of K micro-batches into "
+                         "each optimizer update (optax.MultiSteps)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="cap the train steps of each epoch (smoke runs)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-backend", default="pickle",
+                    choices=["pickle", "orbax"],
+                    help="'pickle' (torch.save); 'orbax' has no PyTorch "
+                         "counterpart and is refused")
     ap.add_argument("--init-from-torch", default=None, metavar="PTH",
                     help="warm-start from a reference model.state_dict() "
                          "checkpoint; the optimizer starts fresh")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore from --checkpoint-dir ('last' if present, "
+                         "else 'best') and continue from the first "
+                         "uncompleted epoch")
+    ap.add_argument("--async-checkpoint", action="store_true",
+                    help="write checkpoints off the training thread")
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    help="also save a rolling 'last' checkpoint every N "
+                         "epochs")
+    ap.add_argument("--no-preemption-handler", action="store_true",
+                    help="do not catch SIGTERM/SIGINT for a checkpointed "
+                         "stop at the next eval boundary")
+    ap.add_argument("--metrics-out", default=None,
+                    help="stream the epoch records to this path (.jsonl, "
+                         ".csv; a directory means TensorBoard)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bn-refresh", type=int, default=0, metavar="K",
+                    help="after training, recompute the BatchNorm statistics "
+                         "with K precise-BN passes under the best "
+                         "checkpoint's weights (or the final ones) and "
+                         "evaluate again")
     ap.add_argument("--amp", action="store_true",
                     help="pde.enable_amp: hoisted sweep operators in bf16, "
-                         "applied with float32 accumulation")
+                         "bf16 convolutions and Ruthotto products")
     ap.add_argument("--bf16-moments", action="store_true",
                     help="store AdamW's m and v in bf16 (float32 "
                          "arithmetic)")
+    ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
     args = ap.parse_args(argv)
@@ -49,12 +88,14 @@ def main(argv=None):
     import torch
 
     from ..compat import load_torch_checkpoint
-    from ..data import make_synthetic
+    from ..data import synthetic_dataset
     from ..models import build_model
     from ..ops.tridiag import gemm_route
     from ..pde import enable_amp
     from ..presets import get_preset
-    from .step import make_train_step, train_steps
+    from .checkpoint import restore_state, save_checkpoint
+    from .loop import (GracefulPreemption, TrainConfig, Trainer,
+                       pde_param_stats)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -65,12 +106,26 @@ def main(argv=None):
     if not args.synthetic:
         sys.exit("cnn_pde_tpu_torch.train: pass --synthetic (no dataset "
                  "loader is ported yet: ROADMAP.md A12)")
+    if args.checkpoint_backend != "pickle":
+        sys.exit(f"cnn_pde_tpu_torch.train: checkpoint backend "
+                 f"{args.checkpoint_backend!r} has no PyTorch counterpart; "
+                 "use 'pickle' (torch.save)")
+    verbose = not args.quiet
 
     preset = get_preset(args.preset)
     values = preset["train"]
+    dataset = synthetic_dataset(preset["dataset"])
+    epochs = args.epochs or values["epochs"]
     batch_size = args.batch_size or values["batch_size"]
-    images, labels, _, _ = make_synthetic(preset["dataset"])
-    steps_per_epoch = max(images.shape[0] // batch_size, 1)
+    steps_per_epoch = dataset.steps_for_batch(batch_size)
+    if args.steps:
+        steps_per_epoch = min(steps_per_epoch, args.steps)
+    if verbose:
+        print(f"Preset: {preset['name']}  device: {device}")
+        print(f"Dataset: {preset['dataset']} (synthetic), train "
+              f"{dataset.train_images.shape}, test "
+              f"{dataset.test_images.shape}")
+
     model = build_model(preset["model"], device=device,
                         generator=torch.Generator().manual_seed(args.seed),
                         **preset["model_kwargs"])
@@ -80,30 +135,88 @@ def main(argv=None):
                               strict=True)
         restored = True
     amp_layers = enable_amp(model) if args.amp else 0
-    generator = torch.Generator(device).manual_seed(args.seed)
-    step = make_train_step(
-        model, values, steps_per_epoch, generator,
+    config = TrainConfig.from_preset(
+        values, epochs=epochs, batch_size=batch_size, seed=args.seed,
+        grad_accum=args.grad_accum, max_steps_per_epoch=args.steps,
         moment_dtype=torch.bfloat16 if args.bf16_moments else None)
-    data = (torch.from_numpy(images).to(device),
-            torch.from_numpy(labels).to(device))
+    trainer = Trainer(model, config, values)
+    state = trainer.init_state(steps_per_epoch)
+    if args.resume and args.checkpoint_dir:
+        tag = ("last" if os.path.exists(
+            os.path.join(args.checkpoint_dir, "last.ckpt")) else "best")
+        restore_state(state, args.checkpoint_dir, tag=tag)
+        restored = True
+        if verbose:
+            print(f"Resumed from step {state.step} ({tag} checkpoint)")
+    start_step = state.step
 
-    t0 = time.perf_counter()
-    losses = train_steps(step, data, args.steps, batch_size, seed=args.seed)
-    seconds = time.perf_counter() - t0  # train_steps ends in a host sync
-    print(json.dumps({
+    def stats_fn(model, epoch):
+        for name, s in list(pde_param_stats(model).items())[:4]:
+            print(f"  {name}: mean={s['mean']:.3f} std={s['std']:.3f} "
+                  f"range=[{s['min']:.3f}, {s['max']:.3f}]")
+
+    sink = None
+    if args.metrics_out:
+        from .sinks import sink_from_path
+
+        sink = sink_from_path(args.metrics_out)
+    t0 = time.time()
+    preemption = (None if args.no_preemption_handler
+                  else GracefulPreemption(verbose=verbose))
+    try:
+        if preemption is not None:
+            preemption.__enter__()
+        result = trainer.fit(state, dataset, verbose=verbose,
+                             checkpoint_dir=args.checkpoint_dir,
+                             checkpoint_async=args.async_checkpoint,
+                             checkpoint_every=args.checkpoint_every,
+                             param_stats_fn=stats_fn, metrics_sink=sink,
+                             preemption=preemption)
+    finally:
+        if preemption is not None:
+            preemption.__exit__()
+        if sink is not None:
+            sink.close()
+    wall = time.time() - t0
+    history = result["history"]
+    train_s = sum(rec["time"] for rec in history)
+    steps = state.step - start_step
+    out = {
         "preset": preset["name"],
+        "best_acc": result["best_acc"],
+        "wall_s": round(wall, 2),
+        "epochs": len(history),
         "device": str(device),
         "restored": restored,
         "batch_size": batch_size,
-        "steps": args.steps,
-        "first_loss": losses[0] if losses else None,
-        "last_loss": losses[-1] if losses else None,
-        "images_per_s": batch_size * args.steps / seconds,
+        "steps": steps,
+        "first_loss": history[0]["loss"] if history else None,
+        "last_loss": history[-1]["loss"] if history else None,
+        "images_per_s": batch_size * steps / train_s if train_s else None,
         "amp_layers": amp_layers,
         "gemm_route": (gemm_route(torch.bfloat16, device) if args.amp
                        else None),
         "bf16_moments": args.bf16_moments,
-    }))
+    }
+    if args.bn_refresh and not result["preempted"]:
+        # refresh the best model, which fit's best_acc describes; without a
+        # checkpoint directory (or a 'best' in it), the final weights
+        which = "final-epoch weights"
+        if args.checkpoint_dir and os.path.exists(
+                os.path.join(args.checkpoint_dir, "best.ckpt")):
+            restore_state(state, args.checkpoint_dir, tag="best")
+            which = "best checkpoint"
+        trainer.refresh_bn_stats(state, dataset, batches=args.bn_refresh)
+        refreshed = trainer.evaluate(state, dataset)["acc"]
+        if verbose:
+            print(f"BN refresh ({args.bn_refresh} passes, {which}): test "
+                  f"acc {refreshed:.2f}%")
+        out["bn_refresh_acc"] = round(refreshed, 2)
+        if args.checkpoint_dir:
+            save_checkpoint(args.checkpoint_dir, state, tag="bn_refreshed")
+    if result["preempted"]:
+        out["preempted"] = True
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,417 @@
+"""The training engine — port of ``cnn_pde_tpu/train/loop.py``
+(``TrainConfig``, ``TrainState``, ``Trainer``, ``GracefulPreemption``).
+
+``Trainer.fit`` runs epochs of ``make_train_step`` steps over an
+``ArrayDataset``, evaluates every ``eval_every`` epochs (and after the
+last), keeps the best test accuracy, stops early after
+``early_stop_patience`` evals without a better one, writes the 'best'
+checkpoint at each new best and a rolling 'last' one every
+``checkpoint_every`` epochs, at the end, on an early stop and on a
+preemption, streams each epoch's record to a metrics sink, and resumes
+from a checkpoint at the first uncompleted epoch.  ``refresh_bn_stats``
+recomputes the BatchNorm statistics under the final weights.
+
+    trainer = Trainer(model, TrainConfig.from_preset(values, epochs=2),
+                      values)
+    state = trainer.init_state()
+    result = trainer.fit(state, dataset, checkpoint_dir="ckpt")
+
+Not ported yet, each raising with its ROADMAP.md item: the whole epoch in
+one dispatch (``device_epoch``: the CUDA-graph step of A12; the JAX
+``multi_epoch_dispatch``, which only shapes that dispatch, has no field
+here), the mesh, tensor- and spatial-parallel arguments (A15) and the
+native loader (A16).
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from dataclasses import dataclass, fields
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from .step import make_schedule, make_train_step, preset_optimizer
+
+__all__ = ["TrainConfig", "TrainState", "Trainer", "GracefulPreemption",
+           "pde_param_stats"]
+
+
+class GracefulPreemption:
+    """Latch SIGTERM/SIGINT into a flag so ``Trainer.fit(preemption=...)``
+    stops at the next eval boundary, checkpoints and returns; with
+    ``checkpoint_dir`` and ``--resume`` the run restarts from the first
+    uncompleted epoch with its optimizer and schedule intact.
+
+    A context manager that restores the previous handlers on exit.  A
+    second signal goes to the previous handler (a double Ctrl-C still stops
+    a hung run).  Install it from the main thread only; elsewhere construct
+    it with ``signals=()`` and set ``.requested`` yourself."""
+
+    def __init__(self, signals=None, verbose=True):
+        self.requested = False
+        self.verbose = verbose
+        self._signals = ((signal.SIGTERM, signal.SIGINT)
+                         if signals is None else tuple(signals))
+        self._previous = {}
+
+    def _handle(self, signum, frame):
+        if self.requested:  # second signal: defer to the original handler
+            prev = self._previous.get(signum)
+            if callable(prev):
+                return prev(signum, frame)
+            raise KeyboardInterrupt
+        self.requested = True
+        if self.verbose:
+            print(f"[preemption] caught signal {signum}; finishing the "
+                  "current chunk, then checkpointing and stopping",
+                  flush=True)
+
+    def __enter__(self):
+        for s in self._signals:
+            self._previous[s] = signal.signal(s, self._handle)
+        return self
+
+    def __exit__(self, *exc):
+        for s, prev in self._previous.items():
+            signal.signal(s, prev)
+        self._previous.clear()
+        return False
+
+
+@dataclass
+class TrainConfig:
+    """The loop's settings (the JAX ``TrainConfig``'s fields).  The
+    optimizer, loss and augmentation settings come from the preset's
+    ``train`` values (``Trainer``'s ``train_values``); the fields here
+    that overlap them override them."""
+
+    epochs: int = 1
+    batch_size: int = 128
+    eval_batch_size: Optional[int] = None
+    label_smoothing: float = 0.1
+    clip_norm: Optional[float] = 1.0
+    weight_decay: float = 1e-4
+    default_lr_scale: float = 1.0
+    param_groups: Sequence = ()
+    regularizer: Optional[tuple] = None  # hybrid_pde_regularization alphas
+    eval_every: int = 1          # epochs between evals (SVHN 2, emotion 5)
+    early_stop_patience: Optional[int] = None  # in evals (emotion 10)
+    log_every: int = 100         # batches between log lines
+    seed: int = 0
+    native_loader: bool = False  # ROADMAP.md A16
+    grad_accum: int = 1          # micro-batches an update (optax.MultiSteps)
+    moment_dtype: Optional[torch.dtype] = None  # AdamW's m and v storage
+    device_epoch: bool = False   # ROADMAP.md A12 (the CUDA-graph step)
+    max_steps_per_epoch: Optional[int] = None  # a cap (smoke runs)
+
+    @property
+    def eval_bs(self):
+        return self.eval_batch_size or self.batch_size
+
+    @classmethod
+    def from_preset(cls, train_values, **overrides):
+        """The config of a preset's ``train`` values, then ``overrides``."""
+        names = {f.name for f in fields(cls)}
+        kw = {k: v for k, v in train_values.items() if k in names}
+        kw["param_groups"] = tuple(train_values.get("param_groups", ()))
+        kw.update(overrides)
+        return cls(**kw)
+
+    def step_values(self, train_values):
+        """``train_values`` with this config's loss and optimizer fields,
+        as ``make_train_step`` reads them."""
+        return dict(train_values, label_smoothing=self.label_smoothing,
+                    clip_norm=self.clip_norm, weight_decay=self.weight_decay,
+                    default_lr_scale=self.default_lr_scale,
+                    param_groups=tuple(self.param_groups),
+                    regularizer=self.regularizer)
+
+
+class TrainState:
+    """What a run carries from step to step: the model (parameters and
+    BatchNorm statistics), its optimizer, the train step (with its update
+    counter and accumulated gradients), the device generator of its
+    augmentation and dropout draws, and the step count."""
+
+    def __init__(self, model, optimizer, train_step, generator, step=0):
+        self.model = model
+        self.optimizer = optimizer
+        self.train_step = train_step
+        self.generator = generator
+        self.step = step
+
+
+def _refuse(what, item):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+
+
+class Trainer:
+    def __init__(self, model: nn.Module, config: TrainConfig, train_values,
+                 schedule=None, mesh=None, tp=False, image_spec=None):
+        """``train_values``: a preset's ``train`` entry (its augmentation,
+        schedule and optimizer settings; ``augment`` None for none).
+        ``schedule``: the learning rate by update count; by default the
+        preset's over the updates of an epoch, which ``init_state`` fixes
+        from the dataset.  ``mesh``, ``tp`` and ``image_spec`` raise
+        (ROADMAP.md A15)."""
+        if mesh is not None or tp or image_spec is not None:
+            _refuse("Trainer(mesh=, tp=, image_spec=)", "A15")
+        if config.device_epoch:
+            _refuse("TrainConfig(device_epoch=True), the whole epoch in one "
+                    "dispatch (the CUDA-graph step)", "A12")
+        if config.native_loader:
+            _refuse("TrainConfig(native_loader=True)", "A16")
+        self.model = model
+        self.config = config
+        self.train_values = config.step_values(train_values)
+        self.schedule = schedule
+        self.device = next(model.parameters()).device
+
+    # ---------------- initialization ----------------
+
+    def init_state(self, steps_per_epoch=1) -> TrainState:
+        """A fresh optimizer, generator (seeded with ``config.seed``) and
+        train step for the model's current weights.  ``steps_per_epoch``:
+        the train steps an epoch, for the default schedule (updates an
+        epoch: steps // grad_accum)."""
+        cfg = self.config
+        optimizer = preset_optimizer(self.model, self.train_values,
+                                     cfg.moment_dtype)
+        k = max(int(cfg.grad_accum or 1), 1)
+        # the preset's horizon (its epochs), in updates, as the JAX CLI
+        # makes it
+        schedule = self.schedule or make_schedule(
+            self.train_values, max(1, steps_per_epoch // k))
+        generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        step = make_train_step(self.model, self.train_values,
+                               steps_per_epoch, generator,
+                               optimizer=optimizer, schedule=schedule,
+                               grad_accum=k)
+        return TrainState(self.model, optimizer, step, generator)
+
+    # ---------------- epoch drivers ----------------
+
+    def train_epoch(self, state: TrainState, dataset, epoch: int, *,
+                    verbose=True):
+        """One epoch of ``dataset.train_batches(batch_size, seed + epoch)``
+        (at most ``max_steps_per_epoch`` steps); the epoch's mean loss and
+        train accuracy (percent) and its wall time."""
+        cfg = self.config
+        t0 = time.time()
+        losses, accs = [], []  # device scalars, fetched at the epoch's end
+        for bi, (images, labels) in enumerate(
+                dataset.train_batches(cfg.batch_size, seed=cfg.seed + epoch)):
+            if (cfg.max_steps_per_epoch is not None
+                    and bi >= cfg.max_steps_per_epoch):
+                break
+            loss, acc = state.train_step(images, labels)
+            state.step += 1
+            losses.append(loss)
+            accs.append(acc)
+            if verbose and bi % cfg.log_every == 0:
+                print(f"Epoch {epoch+1}, Batch {bi}, Loss: {float(loss):.4f}, "
+                      f"Acc: {100.0*float(acc):.2f}%")
+        avg_loss = float(torch.stack(losses).mean()) if losses else 0.0
+        avg_acc = 100.0 * float(torch.stack(accs).mean()) if accs else 0.0
+        dt = time.time() - t0  # after the fetch, which waits for the device
+        if verbose:
+            print(f"Epoch {epoch+1} - Loss: {avg_loss:.4f}, "
+                  f"Train Acc: {avg_acc:.2f}%, Time: {dt:.2f}s")
+        return {"loss": avg_loss, "acc": avg_acc, "time": dt, "chunk": 1}
+
+    def evaluate(self, state: TrainState, dataset, *, split="test"):
+        """Eval-mode accuracy (percent) over ``dataset.eval_batches``, with
+        the predictions and labels as numpy arrays."""
+        model = state.model
+        model.eval()
+        corrects, preds, labels_all = [], [], []
+        total = 0
+        with torch.inference_mode():
+            for images, labels in dataset.eval_batches(self.config.eval_bs,
+                                                       split=split):
+                x = torch.as_tensor(images).to(self.device,
+                                               dtype=torch.float32)
+                y = torch.as_tensor(labels).to(self.device,
+                                               dtype=torch.long)
+                pred = model(x).argmax(dim=-1)
+                corrects.append((pred == y).sum())
+                preds.append(pred)
+                labels_all.append(np.asarray(labels))
+                total += labels.shape[0]
+        correct = int(torch.stack(corrects).sum()) if corrects else 0
+        return {"acc": 100.0 * correct / max(total, 1),
+                "predictions": (torch.cat(preds).cpu().numpy() if preds
+                                else np.array([])),
+                "labels": (np.concatenate(labels_all) if labels_all
+                           else np.array([]))}
+
+    def refresh_bn_stats(self, state: TrainState, dataset, *, batches=66,
+                         batch_size=None, seed=0):
+        """Precise-BN refresh: recompute every BatchNorm's running
+        statistics under the final weights, by ``batches`` forwards over
+        shuffled train images in eval preprocessing (normalised, not
+        augmented) with dropout off and only the BatchNorms in batch-stat
+        mode; the parameters are untouched.  ``dataset``: an object with
+        ``eval_arrays(split='train')`` or an ``(images, labels)`` tuple.
+        Updates the model in place and returns the state."""
+        bs = batch_size or self.config.batch_size
+        if hasattr(dataset, "eval_arrays"):
+            images, _ = dataset.eval_arrays(split="train")
+        else:
+            try:
+                images, _ = dataset
+            except (TypeError, ValueError):
+                raise TypeError(
+                    "refresh_bn_stats expects a dataset exposing "
+                    ".eval_arrays(split=...) or an (images, labels) tuple; "
+                    f"got {type(dataset).__name__!r}") from None
+        n = images.shape[0]
+        bs = min(bs, n)
+        rng = np.random.default_rng(seed)
+        # shuffled fixed-shape batches, cycling the split when it is small
+        idx = np.concatenate([rng.permutation(n) for _ in
+                              range(int(np.ceil(batches * bs / n)))])
+        stack = torch.as_tensor(images[idx[:batches * bs]]).reshape(
+            (batches, bs) + tuple(images.shape[1:])).to(self.device)
+        model = state.model
+        model.eval()
+        norms = [m for m in model.modules()
+                 if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+        for m in norms:
+            m.train()
+        try:
+            with torch.no_grad():
+                for i in range(batches):
+                    model(stack[i])
+        finally:
+            for m in norms:
+                m.eval()
+        return state
+
+    def fit(self, state: TrainState, dataset, *, verbose=True,
+            checkpoint_dir=None, checkpoint_backend="pickle",
+            checkpoint_async=False, checkpoint_every=None,
+            start_epoch=None, param_stats_fn=None, metrics_sink=None,
+            preemption=None):
+        """The whole run: epochs in chunks up to each eval boundary, an
+        eval after each chunk, best-accuracy tracking with a 'best'
+        checkpoint at each new best, early stopping (counted in evals), a
+        rolling 'last' checkpoint every ``checkpoint_every`` epochs (and at
+        the end, on an early stop and on a preemption) whose ``extra``
+        carries best_acc and patience_count, and the epoch records to
+        ``metrics_sink``.
+
+        ``start_epoch`` None derives the epoch to resume at from
+        ``state.step`` and the dataset's steps an epoch (capped by
+        ``max_steps_per_epoch``).  ``checkpoint_async=True`` saves off the
+        training thread and waits for every save before returning.
+        ``preemption``: an object whose ``requested`` turns True to stop
+        at the next chunk boundary (a ``GracefulPreemption``); the result
+        then says ``"preempted": True``."""
+        from .checkpoint import (load_checkpoint, save_checkpoint,
+                                 save_checkpoint_async, wait_for_checkpoints)
+
+        cfg = self.config
+        save = save_checkpoint_async if checkpoint_async else save_checkpoint
+        best_acc, patience_count = 0.0, 0
+        preempted = False
+        history = []
+        if start_epoch is None:
+            spe = (dataset.steps_for_batch(cfg.batch_size)
+                   if hasattr(dataset, "steps_for_batch") else None)
+            if spe and cfg.max_steps_per_epoch is not None:
+                spe = min(spe, cfg.max_steps_per_epoch)
+            start_epoch = (min(int(state.step) // spe, cfg.epochs)
+                           if spe else 0)
+        epoch = start_epoch
+        if epoch and checkpoint_dir is not None:
+            # the rolling 'last' checkpoint carries best_acc and
+            # patience_count, so a resumed run neither overwrites a better
+            # 'best' nor restarts the early-stopping count
+            try:
+                payload = load_checkpoint(checkpoint_dir, tag="last")
+            except FileNotFoundError:
+                payload = None
+            extra = (payload or {}).get("extra")
+            if extra and payload.get("step") == int(state.step):
+                best_acc = float(extra.get("best_acc", 0.0))
+                patience_count = int(extra.get("patience_count", 0))
+        if verbose and epoch:
+            print(f"Resuming at epoch {epoch + 1}/{cfg.epochs} "
+                  f"(step {int(state.step)}, best_acc {best_acc:.2f})")
+        stop = False
+        while epoch < cfg.epochs and not stop:
+            # epochs up to the next eval boundary (an eval after epoch e
+            # when (e + 1) % eval_every == 0, and after the last epoch)
+            chunk = min(cfg.eval_every - epoch % cfg.eval_every,
+                        cfg.epochs - epoch)
+            stats_list = []
+            for e in range(epoch, epoch + chunk):
+                stats_list.append(
+                    self.train_epoch(state, dataset, e, verbose=verbose))
+                if param_stats_fn is not None and verbose:
+                    param_stats_fn(state.model, e)
+            prev_epoch, epoch = epoch, epoch + chunk
+            if epoch % cfg.eval_every == 0 or epoch == cfg.epochs:
+                ev = self.evaluate(state, dataset)
+                stats_list[-1]["test_acc"] = ev["acc"]
+                if verbose:
+                    print(f"Epoch {epoch}: Test Acc: {ev['acc']:.2f}%")
+                if ev["acc"] > best_acc:
+                    best_acc = ev["acc"]
+                    patience_count = 0
+                    if checkpoint_dir is not None:
+                        save(checkpoint_dir, state, tag="best",
+                             backend=checkpoint_backend)
+                else:
+                    patience_count += 1
+                if (cfg.early_stop_patience is not None
+                        and patience_count >= cfg.early_stop_patience):
+                    if verbose:
+                        print(f"Early stopping at epoch {epoch}")
+                    stop = True
+            if (preemption is not None
+                    and getattr(preemption, "requested", False)):
+                if verbose:
+                    what = ("checkpointing" if checkpoint_dir
+                            else "no checkpoint dir")
+                    print(f"Preemption: stopping after epoch {epoch} "
+                          f"({what})")
+                stop = preempted = True
+            # the rolling 'last' save comes after the eval, so its extra
+            # carries the post-eval best_acc and patience_count
+            if checkpoint_dir is not None and (preempted or (
+                    checkpoint_every and (
+                        epoch // checkpoint_every
+                        > prev_epoch // checkpoint_every
+                        or epoch == cfg.epochs or stop))):
+                save(checkpoint_dir, state, tag="last",
+                     backend=checkpoint_backend,
+                     extra={"best_acc": best_acc,
+                            "patience_count": patience_count,
+                            "epoch": epoch})
+            if metrics_sink is not None:
+                for i, rec in enumerate(stats_list):
+                    metrics_sink.log({"epoch": prev_epoch + i + 1, **rec})
+            history.extend(stats_list)
+        if checkpoint_async and checkpoint_dir is not None:
+            wait_for_checkpoints()
+        return {"best_acc": best_acc, "history": history,
+                "preempted": preempted}
+
+
+def pde_param_stats(model, prefix=""):
+    """Mean, std, min and max of every coefficient field (a parameter
+    whose name holds 'alpha' or 'beta' and ``prefix``) of ``model``."""
+    out = {}
+    for name, p in model.named_parameters():
+        if prefix in name and ("alpha" in name or "beta" in name):
+            arr = p.detach().double()
+            out[name] = {"mean": float(arr.mean()),
+                         "std": float(arr.std(unbiased=False)),
+                         "min": float(arr.min()), "max": float(arr.max())}
+    return out

@@ -23,6 +23,7 @@ the JAX bf16 grade is, plus that step; bf16 moments within 2e-4 of float32
 AdamW over 10 updates (the JAX test's bar).
 """
 
+import functools
 import json
 
 import jax
@@ -36,6 +37,7 @@ from cnn_pde_tpu.nn import Ctx
 from cnn_pde_tpu.pde import ChannelCoupledDiffusion as JaxCoupled
 from cnn_pde_tpu.pde import GrayscaleDiffusion as JaxGrayscale
 from cnn_pde_tpu.pde import MixedChannelDiffusion as JaxMixed
+import cnn_pde_tpu_torch.data as port_data
 from cnn_pde_tpu_torch.layers import Conv2d
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.ops import tridiag
@@ -443,9 +445,13 @@ def test_serve_cli_amp(preset, capsys):
 
 
 @pytest.mark.parametrize("preset", PRESETS)
-def test_train_cli_amp_bf16_moments(preset, capsys):
-    train_main(["--preset", preset, "--synthetic", "--steps", "1",
-                "--batch-size", "4", "--device", "cpu", "--amp",
+def test_train_cli_amp_bf16_moments(preset, capsys, monkeypatch):
+    # the CLI trains one epoch and then evaluates the test split: a small
+    # synthetic set keeps that evaluation short
+    monkeypatch.setattr(port_data, "synthetic_dataset", functools.partial(
+        port_data.synthetic_dataset, train_per_class=4, test_per_class=1))
+    train_main(["--preset", preset, "--synthetic", "--epochs", "1",
+                "--steps", "1", "--batch-size", "4", "--device", "cpu", "--amp",
                 "--bf16-moments"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["amp_layers"] == (3 if preset == "cifar10_noconv" else 1)

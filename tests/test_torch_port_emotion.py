@@ -14,6 +14,7 @@ weights' gradients 1e-4 relative; logits, the loss and every gradient of a
 train-mode step 1e-4 of their largest entry (the preset has no clip).
 """
 
+import functools
 import json
 import math
 
@@ -31,6 +32,7 @@ from cnn_pde_tpu.ops.stencil import ftcs_evolve as jax_ftcs_evolve
 from cnn_pde_tpu.pde import FourierFTCSLayer as JaxFTCS
 from cnn_pde_tpu.train.losses import cross_entropy as jax_cross_entropy
 from cnn_pde_tpu.utils.config import get_preset as jax_preset
+import cnn_pde_tpu_torch.data as port_data
 from cnn_pde_tpu_torch.compat import state_dict_from_jax
 from cnn_pde_tpu_torch.data.synthetic import make_synthetic
 from cnn_pde_tpu_torch.models import build_model
@@ -301,12 +303,17 @@ def test_emotion_synthetic_data_matches_jax():
         np.testing.assert_array_equal(port, ref)
 
 
-def test_emotion_clis_on_the_cpu(capsys):
+def test_emotion_clis_on_the_cpu(capsys, monkeypatch):
     serve_main(["--preset", "emotion", "--device", "cpu"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["preset"] == "emotion" and summary["batch"] == 8
     assert all(0 <= p < 7 for p in summary["predictions"])
-    train_main(["--preset", "emotion", "--synthetic", "--steps", "2",
+    # the CLI trains one epoch and then evaluates the test split: a small
+    # synthetic set keeps that evaluation short
+    monkeypatch.setattr(port_data, "synthetic_dataset", functools.partial(
+        port_data.synthetic_dataset, train_per_class=5, test_per_class=1))
+    train_main(["--preset", "emotion", "--synthetic", "--epochs", "1",
+                "--steps", "2",
                 "--device", "cpu", "--batch-size", "16", "--amp"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["preset"] == "emotion" and summary["steps"] == 2

@@ -291,7 +291,8 @@ def test_svhn_synthetic_data_matches_jax():
 
 
 def test_train_cli_svhn_on_the_cpu(capsys):
-    train_main(["--preset", "svhn", "--synthetic", "--steps", "2",
+    train_main(["--preset", "svhn", "--synthetic", "--epochs", "1",
+                "--steps", "2",
                 "--device", "cpu", "--batch-size", "16"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["preset"] == "svhn" and summary["steps"] == 2

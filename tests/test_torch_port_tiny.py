@@ -28,6 +28,7 @@ its float64 ones there.  Inputs hold no ReLU pre-activation within 1e-5 of
 0, where a rounding would flip the kink (as in the SVHN tests).
 """
 
+import functools
 import json
 import math
 
@@ -38,6 +39,7 @@ import pytest
 import torch
 
 import cnn_pde_tpu.compat.torch_import as jax_compat
+import cnn_pde_tpu_torch.data as port_data
 import cnn_pde_tpu.ops.tridiag as jax_tridiag
 from cnn_pde_tpu.compat.torch_import import export_state_dict
 from cnn_pde_tpu.data.augment import _resize_crop as jax_resize_crop
@@ -476,7 +478,7 @@ def test_tiny_preset_matches_jax():
     assert tuple(train["augment"]["std"]) == tuple(aug.std)
     assert NORMALIZATION["tiny_imagenet"] == ((0.485, 0.456, 0.406),
                                               (0.229, 0.224, 0.225))
-    assert NOT_YET_PORTED == {"cifar10_hybrid": "A11"}
+    assert NOT_YET_PORTED == {}
 
 
 def test_tiny_schedule_is_per_batch_onecycle_with_pct_start_01():
@@ -650,13 +652,18 @@ def test_implicit_front_end_takes_the_bf16_operator_route(restore_impls,
     assert _rel(bf16, exact) > 1e-6  # the bf16 rounding is there
 
 
-def test_tiny_clis_on_the_cpu(capsys):
+def test_tiny_clis_on_the_cpu(capsys, monkeypatch):
     serve_main(["--preset", "tiny_imagenet", "--device", "cpu", "--amp",
                 "--batch-size", "2", "--output", "logits"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["preset"] == "tiny_imagenet"
     assert summary["shape"] == [2, 200] and summary["amp_cached_layers"] == 0
-    train_main(["--preset", "tiny_imagenet", "--synthetic", "--steps", "2",
+    # the CLI trains one epoch and then evaluates the test split: one image
+    # a class keeps that evaluation (200 images of ResNet-18) short
+    monkeypatch.setattr(port_data, "synthetic_dataset", functools.partial(
+        port_data.synthetic_dataset, train_per_class=1, test_per_class=1))
+    train_main(["--preset", "tiny_imagenet", "--synthetic", "--epochs",
+                "1", "--steps", "2",
                 "--device", "cpu", "--batch-size", "4"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["preset"] == "tiny_imagenet" and summary["steps"] == 2

@@ -366,7 +366,8 @@ def test_sgd_trajectory_matches_jax(jax_flagship, step_case):
 def test_train_cli_prints_its_summary_on_the_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "cnn_pde_tpu_torch.train", "--preset",
-         "cifar10_noconv", "--synthetic", "--steps", "2", "--batch-size",
+         "cifar10_noconv", "--synthetic", "--epochs", "1", "--steps", "2",
+         "--batch-size",
          "8", "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
