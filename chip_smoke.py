@@ -118,6 +118,21 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    (``replay_calls``, flipped ReLU decisions logged) with a bf16-output
    control that must miss; 50 steps with a falling loss, images/s and
    the busy share; the serve CLI with --amp;
+10b. the device epoch (``TrainConfig.device_epoch``: the Trainer's train
+   step captured in a CUDA graph and replayed over a device-resident
+   split): the flagship per-sweep and fused at B = 64 and 256, mnist
+   per-sweep and fused at 128 (and fused with grad_accum 2: two captured
+   bodies), svhn at 256, emotion at 64, tiny_imagenet at 32 and the hybrid
+   (bf16) at 64, each on seeded data beside the same Trainer run eagerly:
+   the weights after a 50-step epoch (warm-up and capture included)
+   within 1e-6 of each tensor's largest entry of the eager run's, bit for
+   bit logged (tiny_imagenet with cuDNN's deterministic algorithms, two
+   eager steps without them logged); the on-device eval's predictions
+   equal to the host eval's; images/s by CUDA events over a second epoch
+   (50 captured steps, or 10 eager ones), busy share and launch calls a
+   step over a profiled third of 5 (graph and eager side by side); the
+   train CLI with --device-epoch --data-dir on a CIFAR-10
+   pickle fixture (queued for phase 12);
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -148,6 +163,7 @@ import contextlib
 import copy
 import json
 import os
+import pickle
 import shutil
 import signal
 import statistics
@@ -160,6 +176,8 @@ import torch
 
 import cnn_pde_tpu_torch.layers as layers_module
 import cnn_pde_tpu_torch.pde.ruthotto as ruthotto_module
+from cnn_pde_tpu_torch.data import (NORMALIZATION, SYNTHETIC_SPECS,
+                                    ArrayDataset)
 from cnn_pde_tpu_torch.data.synthetic import make_synthetic
 from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
@@ -204,9 +222,10 @@ from cnn_pde_tpu_torch.pde.diffusion import (_coeff_at, _coeff_at_times,
 from cnn_pde_tpu_torch.presets import PRESETS
 from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
                                      clear_operator_cache, make_predict_fn)
-from cnn_pde_tpu_torch.train import (cross_entropy,
+from cnn_pde_tpu_torch.train import (TrainConfig, Trainer, cross_entropy,
                                      hybrid_pde_regularization,
                                      make_train_step, train_steps)
+from cnn_pde_tpu_torch.train.graph import WARMUP_ROUNDS
 
 SEED = 0
 EPS = 1e-6
@@ -594,17 +613,20 @@ def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3):
     return model
 
 
-def device_busy(fn, reps, device):
+def device_busy(fn, reps, device, warm=True):
     """(busy share, host-clock µs a call, top kernels by device time, top
-    host ops by self CPU time, kernel launch calls a call) of ``reps``
+    host ops by self CPU time, kernel launch calls a call by the runtime
+    and by the driver API, CUDA graph launches a call) of ``reps``
     calls of ``fn``: the time of the
     device's own events (kernels and copies, not the PyTorch ops that
     launched them) summed by torch.profiler over the wall time; None when
-    the profiler recorded no device event."""
+    the profiler recorded no device event.  ``warm``: one call of ``fn``
+    first, outside the profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     sync(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -633,11 +655,14 @@ def device_busy(fn, reps, device):
     # and by the driver API (cuLaunchKernel, cuLaunchKernelEx), which
     # cuBLAS may use
     driver = sum(r.count for r in host if r.key.startswith("cuLaunchKernel"))
+    # and the replays of CUDA graphs
+    graphs = sum(r.count for r in host if r.key.startswith("cudaGraphLaunch"))
     return (device_us / wall_us, wall_us / reps,
             "; ".join(f"{k[:48]} {100 * t / device_us:.0f}%" for k, t in top),
             "; ".join(f"{r.key[:40]} x{r.count // reps} "
                       f"{r.self_cpu_time_total / reps / 1e3:.2f} ms"
-                      for r in host[:6]), launches / reps, driver / reps)
+                      for r in host[:6]), launches / reps, driver / reps,
+            graphs / reps)
 
 
 def serve_family(tag, device, make_model, shape, batches, expected, reps,
@@ -2776,6 +2801,286 @@ def phase_hybrid(device, peak_bytes, peak_flops):
     return out
 
 
+# ---- the device epoch: the Trainer's step in a CUDA graph (A12) ------------
+
+EPOCH_STEPS = 50          # steps of the compared epoch
+# steps of the timed epoch (the eager one is 10-80 ms a step) and of the
+# profiled one (a profile of many thousands of kernels takes seconds to
+# read)
+EPOCH_TIMED_STEPS = {"graph": EPOCH_STEPS, "eager": 10}
+EPOCH_PROFILE_STEPS = 5
+# each weight tensor after the captured epoch against the eager run's, of
+# its largest entry: the same operations in the same order, so bit for bit
+# is expected (and logged)
+EPOCH_TOL = 1e-6
+
+
+def epoch_dataset(name, B, seed):
+    """Seeded images in [0, 1] and labels of dataset ``name``: EPOCH_STEPS
+    batches of B to train on and 1.5·B + 3 to evaluate (the last eval
+    batch padded), with the dataset's normalisation."""
+    channels, size, classes = SYNTHETIC_SPECS[name]
+    rng = np.random.default_rng(seed)
+    n, n_test = EPOCH_STEPS * B, B + B // 2 + 3
+
+    def images(k):
+        return rng.random((k, channels, size, size), dtype=np.float32)
+    mean, std = NORMALIZATION[name]
+    return ArrayDataset(images(n), rng.integers(0, classes, n),
+                        images(n_test), rng.integers(0, classes, n_test),
+                        mean=mean, std=std, num_classes=classes)
+
+
+def epoch_case(tag, label, make_model, values, name, B, expect, accum=1,
+               cudnn_deterministic=False):
+    """The Trainer with ``device_epoch`` (the step captured in a CUDA graph)
+    beside the same Trainer run eagerly, from the same seeded model
+    ``make_model()`` on ``epoch_dataset(name, B)``: the first epoch of
+    EPOCH_STEPS steps (its first WARMUP_ROUNDS·k eager, the capture, then
+    replays) ends on the eager run's weights within EPOCH_TOL of each
+    tensor's largest entry; the graph's eval predictions equal the host
+    eval's on the same weights; the second epoch (EPOCH_TIMED_STEPS) timed
+    by CUDA events; a third, of EPOCH_PROFILE_STEPS steps, profiled (busy
+    share, launch calls a step).
+    ``expect``: the kernels the step launches (counted at warm-up and
+    capture).  ``cudnn_deterministic``: torch's default cuDNN algorithms
+    sum the convolution backward in no fixed order, so that two eager runs
+    differ; the captured run is held at those algorithms against the
+    eager runs' own spread (``default_cudnn_case``), and then bit for bit
+    with cuDNN's deterministic algorithms.  Returns the readings."""
+    data = epoch_dataset(name, B, SEED + 40)
+    device = torch.device("cuda", 0)
+    if cudnn_deterministic:
+        spread = default_cudnn_case(tag, label, make_model, values, data, B)
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = previous or cudnn_deterministic
+    try:
+        out = _epoch_case(tag, label, make_model, values, data, B, expect,
+                          accum, device)
+    finally:
+        torch.backends.cudnn.deterministic = previous
+    if cudnn_deterministic:
+        out["default_cudnn"] = spread
+    return out
+
+
+DEFAULT_CUDNN_STEPS = WARMUP_ROUNDS + 1  # the warm-up's, then one replay
+DEFAULT_CUDNN_EAGER_RUNS = 4
+
+
+def default_cudnn_case(tag, label, make_model, values, data, B):
+    """At torch's default cuDNN algorithms: DEFAULT_CUDNN_EAGER_RUNS eager
+    Trainer epochs of DEFAULT_CUDNN_STEPS steps from the same seeded model
+    and the device epoch's (its first WARMUP_ROUNDS steps eager, the rest
+    replays of the captured step).  The eager runs' spread is the largest
+    difference of any tensor between two of them, of its largest entry;
+    the captured run's weights are held against the first eager run's
+    within twice that spread (at least EPOCH_TOL).  Returns the
+    readings."""
+
+    def run(device_epoch):
+        config = TrainConfig.from_preset(
+            values, epochs=1, batch_size=B, seed=SEED,
+            max_steps_per_epoch=DEFAULT_CUDNN_STEPS,
+            device_epoch=device_epoch, log_every=10**9)
+        trainer = Trainer(make_model(), config, values)
+        state = trainer.init_state(DEFAULT_CUDNN_STEPS)
+        trainer.train_epoch(state, data, 0, verbose=False)
+        if device_epoch and trainer._runner.graphs is None:
+            raise AssertionError(f"{label}: no CUDA graph captured")
+        return state.model.state_dict()
+
+    def worst(a, b):
+        return max((rel_err(a[k], b[k]), k) for k in a)
+
+    eager = [run(False) for _ in range(DEFAULT_CUDNN_EAGER_RUNS)]
+    captured = run(True)
+    spread = max(worst(a, b) for i, a in enumerate(eager)
+                 for b in eager[i + 1:])
+    err = worst(captured, eager[0])
+    limit = max(2 * spread[0], EPOCH_TOL)
+    log(f"[{tag}] {label} B={B}: torch's default cuDNN algorithms, "
+        f"{DEFAULT_CUDNN_STEPS} steps ({WARMUP_ROUNDS} eager, then replays "
+        f"of the captured step) against eager: spread of "
+        f"{DEFAULT_CUDNN_EAGER_RUNS} eager runs {spread[0]:.3e} "
+        f"({spread[1]}); captured vs eager {err[0]:.3e} ({err[1]})")
+    check_rel(f"{label} captured vs eager at the default cuDNN algorithms "
+              f"(worst: {err[1]}; limit twice the eager spread)", err[0],
+              limit)
+    return {"steps": DEFAULT_CUDNN_STEPS, "eager_spread": spread[0],
+            "eager_spread_where": spread[1], "captured_err": err[0],
+            "captured_where": err[1], "limit": limit}
+
+
+def _epoch_case(tag, label, make_model, values, data, B, expect, accum,
+                device):
+
+    def trainer(device_epoch):
+        config = TrainConfig.from_preset(
+            values, epochs=3, batch_size=B, grad_accum=accum, seed=SEED,
+            max_steps_per_epoch=EPOCH_STEPS, device_epoch=device_epoch,
+            log_every=10**9)
+        t = Trainer(make_model(), config, values)
+        return t, t.init_state(EPOCH_STEPS)
+
+    (graph, gs), (eager, es) = trainer(True), trainer(False)
+    reset_counts()
+    t0 = time.perf_counter()
+    first = graph.train_epoch(gs, data, 0, verbose=False)
+    capture_s = time.perf_counter() - t0
+    captured = counts()
+    if not all(captured[k] for k in expect) or any(
+            n for k, n in captured.items() if k not in expect):
+        raise AssertionError(f"{label}: launches {captured}, expected "
+                             f"{expect}")
+    runner = graph._runner
+    if runner.graphs is None or len(runner.graphs) != (2 if accum > 1
+                                                       else 1):
+        raise AssertionError(f"{label}: no CUDA graph captured")
+    reference = eager.train_epoch(es, data, 0, verbose=False)
+    worst, where, equal = 0.0, None, 0
+    eager_sd = es.model.state_dict()
+    for key, t in gs.model.state_dict().items():
+        ref = eager_sd[key]
+        if torch.equal(t, ref):
+            equal += 1
+            continue
+        err = rel_err(t, ref)
+        if err >= worst:
+            worst, where = err, key
+    total = len(eager_sd)
+    log(f"[{tag}] {label} B={B}: the captured epoch ({EPOCH_STEPS} steps, "
+        f"warm-up and capture {capture_s:.2f} s, launches at warm-up and "
+        f"capture {captured}) against the eager one: {equal} of {total} "
+        f"tensors bit for bit" + ("" if where is None else
+                                  f", worst {where} {worst:.3e}")
+        + f"; mean loss {first['loss']!r} / {reference['loss']!r}")
+    if where is not None:
+        check_rel(f"{label} weights after the captured epoch vs eager "
+                  f"(worst: {where})", worst, EPOCH_TOL)
+    if not np.isfinite(first["loss"]):
+        raise AssertionError(f"{label}: loss {first['loss']}")
+    on_device = graph.evaluate(gs, data)
+    host = eager.evaluate(gs, data)
+    if not (np.array_equal(on_device["predictions"], host["predictions"])
+            and len(host["predictions"]) == data.test_images.shape[0]
+            and on_device["acc"] == host["acc"]):
+        raise AssertionError(f"{label}: on-device eval predictions differ "
+                             "from the host eval's")
+    log(f"[{tag}] {label} B={B}: on-device eval (captured forward, "
+        f"{data.test_images.shape[0]} images padded to batches of {B}) "
+        f"equals the host eval: accuracy {on_device['acc']:.2f}%")
+
+    out = {"bitwise_tensors": equal, "tensors": total,
+           "worst_rel_err": worst, "capture_s": capture_s}
+    for mode, trainer_, state in (("graph", graph, gs),
+                                  ("eager", eager, es)):
+        timed = EPOCH_TIMED_STEPS[mode]
+        trainer_.config.max_steps_per_epoch = timed
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer_.train_epoch(state, data, 1, verbose=False)
+        stop.record()
+        stop.synchronize()
+        ms = start.elapsed_time(stop) / timed
+        trainer_.config.max_steps_per_epoch = EPOCH_PROFILE_STEPS
+        busy = device_busy(lambda: trainer_.train_epoch(
+            state, data, 2, verbose=False), 1, device, warm=False)
+        out[mode] = {"step_ms": ms, "images_per_s": 1e3 * B / ms}
+        if busy is None:
+            log(f"[{tag}] {label} B={B} {mode}: {1e3 * B / ms:.1f} images/s "
+                f"({ms:.3f} ms a step, CUDA events over an epoch of "
+                f"{timed}); busy share not measured (the profiler recorded "
+                "no kernel)")
+            continue
+        per = {"busy": busy[0],
+               "device_us_per_step": busy[0] * busy[1] / EPOCH_PROFILE_STEPS,
+               "kernel_launch_calls_per_step": busy[4] / EPOCH_PROFILE_STEPS,
+               "driver_launch_calls_per_step": busy[5] / EPOCH_PROFILE_STEPS,
+               "graph_launches_per_step": busy[6] / EPOCH_PROFILE_STEPS}
+        out[mode].update(per)
+        log(f"[{tag}] {label} B={B} {mode}: {1e3 * B / ms:.1f} images/s "
+            f"({ms:.3f} ms a step, CUDA events over an epoch of "
+            f"{timed}); profiled epoch of {EPOCH_PROFILE_STEPS} steps:"
+            f" device busy {100 * busy[0]:.1f}%, device time "
+            f"{per['device_us_per_step']:.0f} us a step, launch calls a "
+            f"step: {per['kernel_launch_calls_per_step']:g} "
+            f"cudaLaunchKernel, {per['driver_launch_calls_per_step']:g} "
+            f"cuLaunchKernel, {per['graph_launches_per_step']:g} "
+            f"cudaGraphLaunch; top kernels: {busy[2]}; top host ops: "
+            f"{busy[3]}")
+    return out
+
+
+def write_cifar10_fixture(root, per_batch=64, n_test=100):
+    """The CIFAR-10 python pickles (cifar-10-batches-py/data_batch_1..5,
+    test_batch) of seeded uint8 images under ``root``."""
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    rng = np.random.default_rng(SEED + 41)
+    for name, n in [(f"data_batch_{i}", per_batch) for i in range(1, 6)] \
+            + [("test_batch", n_test)]:
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072),
+                                               dtype=np.uint8),
+                         b"labels": [int(v) for v in
+                                     rng.integers(0, 10, n)]}, f)
+
+
+def phase_device_epoch(device):
+    """The device epoch (``TrainConfig.device_epoch``) of every family,
+    ``epoch_case`` each: the flagship per-sweep and fused (K2 in its eval)
+    at B = 64 and 256, mnist per-sweep and fused (K6 in its eval) at 128
+    and fused with grad_accum 2 (two captured bodies), svhn at 256,
+    emotion at 64, tiny_imagenet at 32 (at torch's default cuDNN
+    algorithms against the eager runs' spread, then with the deterministic
+    ones bit for bit, ``epoch_case``) and the hybrid (bf16 products) at 64; then
+    the train CLI with --device-epoch --data-dir on a CIFAR-10 pickle
+    fixture (queued)."""
+    tag, out = "device-epoch", {}
+    cases = [
+        ("flagship per_sweep", lambda: flagship(device), TRAIN, "cifar10",
+         (64, 256), ("K1", "K3")),
+        ("flagship fused", lambda: flagship(device, fused=True,
+                                            fused_pde=True),
+         TRAIN, "cifar10", (64, 256), ("K4", "K5")),
+        ("mnist per_sweep", lambda: grayscale_model(device), GRAY_TRAIN,
+         "mnist", (128,), ("K1", "K3")),
+        ("mnist fused", lambda: grayscale_model(
+            device, fused_inference=True, fused=True), GRAY_TRAIN, "mnist",
+         (128,), ("K7", "K8")),
+        ("svhn per_sweep", lambda: svhn_model(device), SVHN_TRAIN, "svhn",
+         (256,), ("K1", "K3")),
+        ("emotion", lambda: emotion_model(device), EMOTION_TRAIN, "emotion",
+         (64,), ()),
+        ("tiny_imagenet", lambda: tiny_model(device), TINY_TRAIN,
+         "tiny_imagenet", (32,), (), True),
+        ("hybrid bf16", lambda: hybrid_model(device), HYBRID_TRAIN,
+         "cifar10", (64,), ("K1", "K3")),
+    ]
+    for label, make, values, name, batches, expect, *deterministic in cases:
+        for B in batches:
+            out[f"{label} B{B}".replace(" ", "_")] = epoch_case(
+                tag, label, make, values, name, B, expect,
+                cudnn_deterministic=bool(deterministic))
+    out["mnist_fused_accum2_B128"] = epoch_case(
+        tag, "mnist fused grad_accum=2", lambda: grayscale_model(
+            device, fused_inference=True, fused=True), GRAY_TRAIN, "mnist",
+        128, ("K7", "K8"), accum=2)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "device_epoch_data")
+    shutil.rmtree(root, ignore_errors=True)
+    write_cifar10_fixture(root)
+    cli_later(tag, "cnn_pde_tpu_torch.train", "cifar10_noconv",
+              "--device-epoch", "--data-dir", root, "--epochs", "2",
+              "--steps", "3", "--batch-size", "64", "--quiet",
+              ok=lambda s: s["data"] == "real" and s["device_epoch"]
+              and s["steps"] == 6 and s["device"].startswith("cuda")
+              and np.isfinite(s["last_loss"]))
+    return out
+
+
 def trainer_cli(*args, popen=False):
     """The train CLI with ``args`` on the default device (cuda), unbuffered:
     its summary line, or (``popen``) the running process."""
@@ -3459,6 +3764,7 @@ def main():
     hybrid = timed("hybrid", phase_hybrid, device, peak_bytes, peak_flops)
     hybrid_steps = {grade: hybrid["train"][grade]["launches_per_train_step"]
                     for grade in ("bf16", "amp")}
+    device_epoch = timed("device epoch", phase_device_epoch, device)
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
@@ -3552,6 +3858,7 @@ def main():
               "tiny_imagenet_implicit_train_images_per_s":
                   tiny["implicit_train"][1],
               "hybrid": hybrid, "trainer": trainer,
+              "device_epoch": device_epoch,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -227,8 +227,11 @@ def apply_color_jitter(images, brightness=None, contrast=None,
 
 
 def apply_normalize(images, mean, std):
-    mean = torch.tensor(mean, dtype=images.dtype, device=images.device)
-    std = torch.tensor(std, dtype=images.dtype, device=images.device)
+    """(images − mean)/std per channel; ``mean`` and ``std`` are sequences
+    or tensors already on the images' device (the train step's, which a
+    CUDA graph can capture: no copy from the host)."""
+    mean = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
+    std = torch.as_tensor(std, dtype=images.dtype, device=images.device)
     return (images - mean[:, None, None]) / std[:, None, None]
 
 

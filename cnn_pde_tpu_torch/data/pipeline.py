@@ -99,10 +99,10 @@ def synthetic_dataset(name, *, train_per_class=20, test_per_class=5):
     """The synthetic stand-in of dataset ``name`` as an ``ArrayDataset``
     with the dataset's normalisation, as the JAX ``load_dataset`` builds it
     when the real files are absent."""
-    from ..presets import NORMALIZATION
+    from .real import NORMALIZATION
     from .synthetic import make_synthetic
 
-    mean, std = NORMALIZATION.get(name, (None, None))
+    mean, std = NORMALIZATION[name]
     ds = ArrayDataset(*make_synthetic(name, train_per_class=train_per_class,
                                       test_per_class=test_per_class),
                       mean=mean, std=std)

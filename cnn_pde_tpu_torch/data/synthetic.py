@@ -11,9 +11,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..presets import SYNTHETIC_SPECS
+__all__ = ["SYNTHETIC_SPECS", "make_synthetic"]
 
-__all__ = ["make_synthetic"]
+# dataset name: (channels, size, num_classes)
+SYNTHETIC_SPECS = {"mnist": (1, 28, 10), "fashion_mnist": (1, 28, 10),
+                   "svhn": (3, 32, 10), "cifar10": (3, 32, 10),
+                   "emotion": (1, 48, 7), "tiny_imagenet": (3, 64, 200)}
 
 
 def _pattern_image(size, channels, class_id, instance_id, num_classes):

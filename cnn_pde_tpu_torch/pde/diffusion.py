@@ -44,8 +44,14 @@ two-GEMM refined form.  An ``operator_cache`` pinned by
 training.  The fused configurations take precedence over ``hoisted``, as
 in the JAX layers.
 
-On a CPU tensor every configuration runs its plain versions.  ``remat``
-(ROADMAP.md A12) raises here.
+``remat=True`` (MixedChannelDiffusion and GrayscaleDiffusion, as in the
+JAX package) recomputes each step of the per-sweep and hoisted branches in
+the backward instead of keeping its intermediates
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` of the
+scan body): the same arithmetic, so the same outputs and gradients bit for
+bit.  The fused branches ignore it, as in JAX, where they return first.
+
+On a CPU tensor every configuration runs its plain versions.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.adi import (apply_sweep, apply_sweep_y, sweep_operator, sweep_x,
                        sweep_y)
@@ -98,10 +105,14 @@ def _mix(mixing, u):
     return (mixing[:, :, None, None] * u[:, None]).sum(dim=2)
 
 
-def _refuse_remat(layer, remat):
-    if remat:
-        raise NotImplementedError(
-            f"{layer}(remat=True) is not ported yet: ROADMAP.md A12")
+def _step_fn(layer, step):
+    """``step`` or, with ``layer.remat``, ``step`` recomputed in the
+    backward.  The steps draw no random numbers, so the RNG state is not
+    kept (and a step captured in a CUDA graph reads none on the host)."""
+    if not getattr(layer, "remat", False):
+        return step
+    return lambda *args: checkpoint(step, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def _hoisted_operators(layer, dt_y, dy, *, smooth, cmax=None, strang=True):
@@ -145,15 +156,20 @@ def _hoisted_steps(layer, u, ops, before=None, after=None):
     """Apply the per-step operators (each stacked over the steps) to u:
     ``before`` and ``after`` act on u around each step's sweeps."""
     refine = layer.hoisted_refine
-    for s in range(layer.num_steps):
+
+    def step(u, *step_ops):
         if before is not None:
             u = before(u)
-        for i, stack in enumerate(ops):
-            step_ops = tuple(t[s] for t in stack)
+        for i, op in enumerate(step_ops):
             apply = apply_sweep_y if i == 1 else apply_sweep
-            u = apply(step_ops, u, refine=refine)
+            u = apply(op, u, refine=refine)
         if after is not None:
             u = after(u)
+        return u
+
+    step = _step_fn(layer, step)
+    for s in range(layer.num_steps):
+        u = step(u, *(tuple(t[s] for t in stack) for stack in ops))
     return u
 
 
@@ -184,7 +200,7 @@ class MixedChannelDiffusion(nn.Module):
         if splitting not in ("strang", "lie"):
             raise ValueError(f"splitting must be 'strang' or 'lie': "
                              f"{splitting!r}")
-        _refuse_remat("MixedChannelDiffusion", remat)
+        self.remat = remat
         self.hoisted = hoisted
         self.operator_dtype = operator_dtype
         self.hoisted_refine = hoisted_refine
@@ -237,19 +253,23 @@ class MixedChannelDiffusion(nn.Module):
             return _hoisted_steps(
                 self, u, _layer_operators(self),
                 before=lambda u: _mix(self.channel_mixing, u))
-        ts = self.ts
-        for s in range(self.num_steps):
+        def step(u, t3):
             u = _mix(self.channel_mixing, u)
             alpha = _coeff_at(self.alpha_base, self.alpha_time_coeff,
-                              ts[s, 0], eps, cmax)
+                              t3[0], eps, cmax)
             u = sweep_x(u, alpha, self.dt / 2, self.dx, eps=eps)
-            beta = _coeff_at(self.beta_base, self.beta_time_coeff, ts[s, 1],
+            beta = _coeff_at(self.beta_base, self.beta_time_coeff, t3[1],
                              eps, cmax)
             u = sweep_y(u, beta, dt_y, self.dy, eps=eps)
             if strang:
                 alpha = _coeff_at(self.alpha_base, self.alpha_time_coeff,
-                                  ts[s, 2], eps, cmax)
+                                  t3[2], eps, cmax)
                 u = sweep_x(u, alpha, self.dt / 2, self.dx, eps=eps)
+            return u
+
+        step = _step_fn(self, step)
+        for s in range(self.num_steps):
+            u = step(u, self.ts[s])
         return u
 
     def hoisted_operators(self):
@@ -268,7 +288,7 @@ class GrayscaleDiffusion(nn.Module):
                  hoisted=False, operator_dtype=torch.float32,
                  hoisted_refine=False, remat=False, device=None):
         super().__init__()
-        _refuse_remat("GrayscaleDiffusion", remat)
+        self.remat = remat
         self.hoisted = hoisted
         self.operator_dtype = operator_dtype
         self.hoisted_refine = hoisted_refine
@@ -314,17 +334,21 @@ class GrayscaleDiffusion(nn.Module):
                                              **kw)[:, None]
         if self.hoisted:
             return _hoisted_steps(self, x, _layer_operators(self))[:, None]
-        ts = self.ts
-        for s in range(self.num_steps):
+        def step(x, t3):
             alpha = _coeff_at(self.alpha_base, self.alpha_time_coeff,
-                              ts[s, 0], eps)
+                              t3[0], eps)
             x = sweep_x(x, alpha, self.dt / 2, self.dx, eps=eps, smooth=True)
-            beta = _coeff_at(self.beta_base, self.beta_time_coeff, ts[s, 1],
+            beta = _coeff_at(self.beta_base, self.beta_time_coeff, t3[1],
                              eps)
             x = sweep_y(x, beta, self.dt, self.dy, eps=eps, smooth=True)
             alpha = _coeff_at(self.alpha_base, self.alpha_time_coeff,
-                              ts[s, 2], eps)
+                              t3[2], eps)
             x = sweep_x(x, alpha, self.dt / 2, self.dx, eps=eps, smooth=True)
+            return x
+
+        step = _step_fn(self, step)
+        for s in range(self.num_steps):
+            x = step(x, self.ts[s])
         return x[:, None]
 
     def hoisted_operators(self):

@@ -1,25 +1,15 @@
-"""The values of the JAX presets, synthetic specs and normalisation constants
-that the port's CLIs need (``cnn_pde_tpu/utils/config.py``,
-``data/synthetic.py`` and ``data/real.py`` there), copied so the port
-imports nothing of the JAX package."""
+"""The values of the JAX presets that the port's CLIs need
+(``cnn_pde_tpu/utils/config.py``), copied so the port imports nothing of
+the JAX package; the synthetic specs and normalisation constants live in
+``data/synthetic.py`` and ``data/real.py``, as in the JAX package, and are
+re-exported here."""
 
 from __future__ import annotations
 
+from .data.real import NORMALIZATION
+from .data.synthetic import SYNTHETIC_SPECS
+
 __all__ = ["PRESETS", "SYNTHETIC_SPECS", "NORMALIZATION", "get_preset"]
-
-# dataset name: (channels, size, num_classes)
-SYNTHETIC_SPECS = {"mnist": (1, 28, 10), "fashion_mnist": (1, 28, 10),
-                   "svhn": (3, 32, 10), "cifar10": (3, 32, 10),
-                   "emotion": (1, 48, 7), "tiny_imagenet": (3, 64, 200)}
-
-# torchvision normalisation constants (mean, std) of the reference scripts;
-# the MNIST and emotion scripts apply none (ToTensor only)
-NORMALIZATION = {
-    "fashion_mnist": ((0.2860,), (0.3530,)),
-    "svhn": ((0.4377, 0.4438, 0.4728), (0.1980, 0.2010, 0.1970)),
-    "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
-    "tiny_imagenet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
-}
 
 # Each preset: the reference script's training values, with label smoothing
 # 0.1, a global-norm clip of 1, an eval every epoch, no early stop and no

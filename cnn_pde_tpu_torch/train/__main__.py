@@ -1,24 +1,33 @@
 """Training CLI of the port — counterpart of ``cnn_pde_tpu/train/__main__.py``.
 
-    python -m cnn_pde_tpu_torch.train --preset cifar10_hybrid --synthetic \\
+    python -m cnn_pde_tpu_torch.train --preset cifar10_hybrid \\
+        [--data-dir ./data | --synthetic] [--device-epoch] \\
         [--epochs N] [--steps N] [--batch-size B] [--grad-accum K] \\
         [--checkpoint-dir DIR [--checkpoint-every N] [--async-checkpoint] \\
          [--resume]] [--metrics-out run/metrics.jsonl] [--bn-refresh K] \\
         [--amp] [--bf16-moments] [--init-from-torch model.pth] [--seed 0] \\
-        [--quiet] [--no-preemption-handler] [--device cuda]
+        [--summary] [--debug-nans] [--quiet] [--no-preemption-handler] \\
+        [--device cuda]
 
 Runs ``Trainer.fit`` on the card unless ``--device cpu`` is given; without
-CUDA it exits non-zero rather than carry on on the CPU.  ``--synthetic`` is
-required: no real-data loader is ported yet (ROADMAP.md A12).  ``--steps``
-caps the train steps of each epoch, as in the JAX CLI.  SIGTERM or SIGINT
-stops the run at the next eval boundary with a 'last' checkpoint (unless
+CUDA it exits non-zero rather than carry on on the CPU.  The dataset is
+read from ``--data-dir`` in torchvision's layouts (``data/real.py``), or
+is the synthetic fixture when its files are absent or with
+``--synthetic``.  ``--device-epoch`` keeps the train split on the device
+and replays a CUDA graph of the train step (``TrainConfig.device_epoch``;
+on the CPU the same loop without a graph).  ``--steps`` caps the train
+steps of each epoch, as in the JAX CLI.  SIGTERM or SIGINT stops the run
+at the next eval boundary with a 'last' checkpoint (unless
 ``--no-preemption-handler``); ``--resume`` continues from it.  ``--amp``
 trains the bf16 AMP grade (``pde.enable_amp``); ``--bf16-moments`` keeps
-AdamW's moments in bf16.  Prints the JAX CLI's summary JSON line (preset,
-best_acc, wall_s, epochs, and bn_refresh_acc or preempted when they apply)
-with the port's own keys beside: the device, the batch, the steps run, the
-first and last epoch's mean loss, images/s, the ADI layers ``--amp``
-switched and their GEMM route.
+AdamW's moments in bf16.  ``--summary`` prints the per-subtree parameter
+table; ``--debug-nans`` stops at the first step whose loss or gradients
+are not finite, naming it (``utils/debug.py``).  Prints the JAX CLI's
+summary JSON line (preset, best_acc, wall_s, epochs, and bn_refresh_acc
+or preempted when they apply) with the port's own keys beside: the
+device, the dataset's source, the batch, the steps run, the first and
+last epoch's mean loss, images/s, the ADI layers ``--amp`` switched and
+their GEMM route.
 """
 
 from __future__ import annotations
@@ -34,8 +43,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="cnn_pde_tpu_torch trainer")
     ap.add_argument("--preset", required=True)
     ap.add_argument("--synthetic", action="store_true",
-                    help="train on the synthetic fixture dataset (required: "
-                         "no real-data loader is ported yet)")
+                    help="force the synthetic fixture dataset")
+    ap.add_argument("--data-dir", default="./data",
+                    help="the dataset's files in torchvision's layout "
+                         "(the synthetic fixture where they are absent)")
+    ap.add_argument("--device-epoch", action="store_true",
+                    help="keep the train split on the device and replay a "
+                         "CUDA graph of the train step, one fetch of the "
+                         "losses a chunk of epochs")
     ap.add_argument("--epochs", type=int, default=None,
                     help="default: the preset's")
     ap.add_argument("--batch-size", type=int, default=None,
@@ -80,6 +95,13 @@ def main(argv=None):
     ap.add_argument("--bf16-moments", action="store_true",
                     help="store AdamW's m and v in bf16 (float32 "
                          "arithmetic)")
+    ap.add_argument("--summary", action="store_true",
+                    help="print the per-subtree parameter table before "
+                         "training")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="raise at the first step whose loss or gradients "
+                         "are not finite, naming it (one host sync a step; "
+                         "a chunk with --device-epoch)")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
@@ -88,11 +110,12 @@ def main(argv=None):
     import torch
 
     from ..compat import load_torch_checkpoint
-    from ..data import synthetic_dataset
+    from ..data import load_dataset, synthetic_dataset
     from ..models import build_model
     from ..ops.tridiag import gemm_route
     from ..pde import enable_amp
-    from ..presets import get_preset
+    from ..presets import SYNTHETIC_SPECS, get_preset
+    from ..utils.summary import format_summary, model_summary
     from .checkpoint import restore_state, save_checkpoint
     from .loop import (GracefulPreemption, TrainConfig, Trainer,
                        pde_param_stats)
@@ -103,9 +126,6 @@ def main(argv=None):
                  "pass --device cpu to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         sys.exit(f"cnn_pde_tpu_torch.train: unsupported device {device}")
-    if not args.synthetic:
-        sys.exit("cnn_pde_tpu_torch.train: pass --synthetic (no dataset "
-                 "loader is ported yet: ROADMAP.md A12)")
     if args.checkpoint_backend != "pickle":
         sys.exit(f"cnn_pde_tpu_torch.train: checkpoint backend "
                  f"{args.checkpoint_backend!r} has no PyTorch counterpart; "
@@ -114,7 +134,9 @@ def main(argv=None):
 
     preset = get_preset(args.preset)
     values = preset["train"]
-    dataset = synthetic_dataset(preset["dataset"])
+    dataset = (synthetic_dataset(preset["dataset"]) if args.synthetic else
+               load_dataset(preset["dataset"], args.data_dir,
+                            synthetic_ok=True))
     epochs = args.epochs or values["epochs"]
     batch_size = args.batch_size or values["batch_size"]
     steps_per_epoch = dataset.steps_for_batch(batch_size)
@@ -122,13 +144,23 @@ def main(argv=None):
         steps_per_epoch = min(steps_per_epoch, args.steps)
     if verbose:
         print(f"Preset: {preset['name']}  device: {device}")
-        print(f"Dataset: {preset['dataset']} (synthetic), train "
+        print(f"Dataset: {preset['dataset']} ({dataset.source}), train "
               f"{dataset.train_images.shape}, test "
               f"{dataset.test_images.shape}")
 
     model = build_model(preset["model"], device=device,
                         generator=torch.Generator().manual_seed(args.seed),
                         **preset["model_kwargs"])
+    if verbose or args.summary:
+        # the reference prints the parameter totals and the PDE groups'
+        # share at the start (cifar10.py:413-420, SVHN.py:310)
+        channels, size, _ = SYNTHETIC_SPECS[preset["dataset"]]
+        summ = model_summary(model, (batch_size, channels, size, size))
+        pct = 100.0 * summ["pde_params"] / max(summ["total_params"], 1)
+        print(f"Model: {summ['total_params']:,} parameters (PDE groups "
+              f"{summ['pde_params']:,} = {pct:.1f}%)")
+        if args.summary:
+            print(format_summary(summ))
     restored = False
     if args.init_from_torch:
         model.load_state_dict(load_torch_checkpoint(args.init_from_torch),
@@ -138,7 +170,8 @@ def main(argv=None):
     config = TrainConfig.from_preset(
         values, epochs=epochs, batch_size=batch_size, seed=args.seed,
         grad_accum=args.grad_accum, max_steps_per_epoch=args.steps,
-        moment_dtype=torch.bfloat16 if args.bf16_moments else None)
+        moment_dtype=torch.bfloat16 if args.bf16_moments else None,
+        device_epoch=args.device_epoch, debug_nans=args.debug_nans)
     trainer = Trainer(model, config, values)
     state = trainer.init_state(steps_per_epoch)
     if args.resume and args.checkpoint_dir:
@@ -187,6 +220,8 @@ def main(argv=None):
         "wall_s": round(wall, 2),
         "epochs": len(history),
         "device": str(device),
+        "data": dataset.source,
+        "device_epoch": args.device_epoch,
         "restored": restored,
         "batch_size": batch_size,
         "steps": steps,

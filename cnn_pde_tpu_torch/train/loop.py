@@ -16,17 +16,25 @@ recomputes the BatchNorm statistics under the final weights.
     state = trainer.init_state()
     result = trainer.fit(state, dataset, checkpoint_dir="ckpt")
 
-Not ported yet, each raising with its ROADMAP.md item: the whole epoch in
-one dispatch (``device_epoch``: the CUDA-graph step of A12; the JAX
-``multi_epoch_dispatch``, which only shapes that dispatch, has no field
-here), the mesh, tensor- and spatial-parallel arguments (A15) and the
-native loader (A16).
+``TrainConfig(device_epoch=True)`` is the JAX device epoch: the train
+split lives on the device, each epoch's batches are an index table there,
+and the train step is captured once in a CUDA graph and replayed a step
+(``train/graph.py``), with one fetch of the losses and accuracies a chunk;
+with ``multi_epoch_dispatch`` (the default) a chunk is every epoch up to
+the next eval.  Its eval keeps the test split on the device and replays a
+captured forward a batch.  On a CPU model the same loop runs its bodies
+without a graph, and ends on the host loop's weights bit for bit.
+
+Not ported yet, each raising with its ROADMAP.md item: the mesh, tensor-
+and spatial-parallel arguments (A15) and the native loader (A16; with
+``device_epoch`` it is ignored with a warning, as in JAX).
 """
 
 from __future__ import annotations
 
 import signal
 import time
+import warnings
 from dataclasses import dataclass, fields
 from typing import Optional, Sequence
 
@@ -34,6 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import debug
+from .graph import EpochRunner, EvalRunner
 from .step import make_schedule, make_train_step, preset_optimizer
 
 __all__ = ["TrainConfig", "TrainState", "Trainer", "GracefulPreemption",
@@ -105,8 +115,12 @@ class TrainConfig:
     native_loader: bool = False  # ROADMAP.md A16
     grad_accum: int = 1          # micro-batches an update (optax.MultiSteps)
     moment_dtype: Optional[torch.dtype] = None  # AdamW's m and v storage
-    device_epoch: bool = False   # ROADMAP.md A12 (the CUDA-graph step)
+    device_epoch: bool = False   # the split on the device, a CUDA graph
+    # with device_epoch: every epoch up to the next eval in one chunk (one
+    # fetch of its stats); False: one chunk an epoch
+    multi_epoch_dispatch: bool = True
     max_steps_per_epoch: Optional[int] = None  # a cap (smoke runs)
+    debug_nans: bool = False     # raise at the first non-finite step
 
     @property
     def eval_bs(self):
@@ -160,16 +174,20 @@ class Trainer:
         (ROADMAP.md A15)."""
         if mesh is not None or tp or image_spec is not None:
             _refuse("Trainer(mesh=, tp=, image_spec=)", "A15")
-        if config.device_epoch:
-            _refuse("TrainConfig(device_epoch=True), the whole epoch in one "
-                    "dispatch (the CUDA-graph step)", "A12")
-        if config.native_loader:
+        if config.native_loader and not config.device_epoch:
             _refuse("TrainConfig(native_loader=True)", "A16")
+        if config.native_loader:
+            warnings.warn("device_epoch=True bypasses the native loader "
+                          "(batching happens on device); native_loader "
+                          "is ignored.")
         self.model = model
         self.config = config
         self.train_values = config.step_values(train_values)
         self.schedule = schedule
         self.device = next(model.parameters()).device
+        self._dev_data = None  # (dataset, images, labels) on the device
+        self._runner = None    # EpochRunner of the current split
+        self._dev_eval = {}    # split -> (dataset, EvalRunner, labels)
 
     # ---------------- initialization ----------------
 
@@ -201,6 +219,9 @@ class Trainer:
         (at most ``max_steps_per_epoch`` steps); the epoch's mean loss and
         train accuracy (percent) and its wall time."""
         cfg = self.config
+        if cfg.device_epoch and hasattr(dataset, "train_arrays"):
+            return self._run_epochs_on_device(state, dataset, epoch, 1,
+                                              verbose=verbose)[0]
         t0 = time.time()
         losses, accs = [], []  # device scalars, fetched at the epoch's end
         for bi, (images, labels) in enumerate(
@@ -209,23 +230,91 @@ class Trainer:
                     and bi >= cfg.max_steps_per_epoch):
                 break
             loss, acc = state.train_step(images, labels)
+            if cfg.debug_nans:
+                debug.check_step(loss, state.model, state.step)
             state.step += 1
             losses.append(loss)
             accs.append(acc)
             if verbose and bi % cfg.log_every == 0:
                 print(f"Epoch {epoch+1}, Batch {bi}, Loss: {float(loss):.4f}, "
                       f"Acc: {100.0*float(acc):.2f}%")
-        avg_loss = float(torch.stack(losses).mean()) if losses else 0.0
-        avg_acc = 100.0 * float(torch.stack(accs).mean()) if accs else 0.0
+        stats = (torch.stack([torch.stack(losses), torch.stack(accs)])
+                 .cpu().numpy() if losses else np.zeros((2, 0), np.float32))
         dt = time.time() - t0  # after the fetch, which waits for the device
-        if verbose:
-            print(f"Epoch {epoch+1} - Loss: {avg_loss:.4f}, "
-                  f"Train Acc: {avg_acc:.2f}%, Time: {dt:.2f}s")
-        return {"loss": avg_loss, "acc": avg_acc, "time": dt, "chunk": 1}
+        return _epoch_record(stats, epoch, dt, 1, verbose)
+
+    # ---------------- the device epoch ----------------
+
+    def _device_train_arrays(self, dataset):
+        """The raw train split on the device, put there once a dataset
+        (keyed on the object: an id can be reused after it is freed)."""
+        if self._dev_data is None or self._dev_data[0] is not dataset:
+            images, labels = dataset.train_arrays()
+            self._dev_data = (dataset,
+                              torch.as_tensor(images).to(self.device),
+                              torch.as_tensor(labels).to(self.device,
+                                                         torch.int64))
+            self._runner = None
+        return self._dev_data[1], self._dev_data[2]
+
+    def _epoch_indices(self, n, epoch):
+        """One epoch's shuffled batch table (steps, batch): the permutation
+        of ``ArrayDataset.train_batches(seed + epoch)``, capped by
+        ``max_steps_per_epoch``."""
+        cfg = self.config
+        perm = np.random.default_rng(cfg.seed + epoch).permutation(n)
+        if cfg.max_steps_per_epoch is not None:
+            perm = perm[: cfg.max_steps_per_epoch * cfg.batch_size]
+        nb = perm.shape[0] // cfg.batch_size
+        return perm[: nb * cfg.batch_size].reshape(nb, cfg.batch_size)
+
+    def _run_epochs_on_device(self, state: TrainState, dataset, epoch0: int,
+                              n_epochs: int, *, verbose=True):
+        """``n_epochs`` whole epochs as one chunk: their batch tables
+        concatenated, one replay of the captured step a step (the bodies
+        run eagerly on a CPU model) and one fetch of the (2, steps) losses
+        and accuracies.  The same batches and draws as the host loop.
+        Each epoch's record has the chunk's wall time divided evenly and
+        ``"chunk": n_epochs``."""
+        cfg = self.config
+        images, labels = self._device_train_arrays(dataset)
+        n = images.shape[0]
+        if n < cfg.batch_size:
+            return [{"loss": 0.0, "acc": 0.0, "time": 0.0, "chunk": n_epochs}
+                    for _ in range(n_epochs)]
+        t0 = time.time()
+        tables = [self._epoch_indices(n, epoch0 + e) for e in range(n_epochs)]
+        idx = np.concatenate(tables)
+        step0 = state.step
+        runner = self._runner
+        if (runner is None or runner.step is not state.train_step
+                or runner.capacity < idx.shape[0]):
+            runner = self._runner = EpochRunner(
+                state.train_step, images, labels, cfg.batch_size,
+                idx.shape[0])
+        # the updates of the whole run, which the learning-rate table covers
+        horizon = cfg.epochs * tables[0].shape[0] // state.train_step.k + 1
+        stats = runner.run(idx, horizon)
+        state.step += idx.shape[0]
+        if cfg.debug_nans:
+            debug.check_chunk(stats[0], step0, state.model)
+        dt = time.time() - t0
+        out, lo = [], 0
+        for e, table in enumerate(tables):
+            hi = lo + table.shape[0]
+            out.append(_epoch_record(stats[:, lo:hi], epoch0 + e,
+                                     dt / n_epochs, n_epochs, verbose,
+                                     cfg.log_every))
+            lo = hi
+        return out
 
     def evaluate(self, state: TrainState, dataset, *, split="test"):
         """Eval-mode accuracy (percent) over ``dataset.eval_batches``, with
-        the predictions and labels as numpy arrays."""
+        the predictions and labels as numpy arrays.  With ``device_epoch``
+        the split stays on the device and a captured forward is replayed a
+        batch (``_evaluate_on_device``)."""
+        if self.config.device_epoch and hasattr(dataset, "eval_arrays"):
+            return self._evaluate_on_device(state, dataset, split=split)
         model = state.model
         model.eval()
         corrects, preds, labels_all = [], [], []
@@ -248,6 +337,28 @@ class Trainer:
                                 else np.array([])),
                 "labels": (np.concatenate(labels_all) if labels_all
                            else np.array([]))}
+
+    def _evaluate_on_device(self, state: TrainState, dataset, *, split):
+        """The whole split padded to an eval-batch multiple and kept on
+        the device (one slot a split, replaced when the dataset object or
+        the state's model changes: the graph reads one model's
+        parameters), a captured eval forward replayed a batch, the
+        predictions fetched once and the padding sliced off: the host
+        eval's accuracy, correct/total in integers."""
+        cached = self._dev_eval.get(split)
+        if (cached is None or cached[0] is not dataset
+                or cached[1].model is not state.model):
+            images, labels = dataset.eval_arrays(split)
+            runner = EvalRunner(state.model,
+                                torch.as_tensor(images).to(self.device),
+                                self.config.eval_bs)
+            self._dev_eval[split] = (dataset, runner,
+                                     np.ascontiguousarray(labels))
+        _, runner, labels = self._dev_eval[split]
+        preds = runner.run()
+        correct = int(np.sum(preds == labels))
+        return {"acc": 100.0 * correct / max(labels.shape[0], 1),
+                "predictions": preds, "labels": labels}
 
     def refresh_bn_stats(self, state: TrainState, dataset, *, batches=66,
                          batch_size=None, seed=0):
@@ -317,6 +428,8 @@ class Trainer:
 
         cfg = self.config
         save = save_checkpoint_async if checkpoint_async else save_checkpoint
+        fuse = (cfg.device_epoch and cfg.multi_epoch_dispatch
+                and hasattr(dataset, "train_arrays"))
         best_acc, patience_count = 0.0, 0
         preempted = False
         history = []
@@ -349,12 +462,20 @@ class Trainer:
             # when (e + 1) % eval_every == 0, and after the last epoch)
             chunk = min(cfg.eval_every - epoch % cfg.eval_every,
                         cfg.epochs - epoch)
-            stats_list = []
-            for e in range(epoch, epoch + chunk):
-                stats_list.append(
-                    self.train_epoch(state, dataset, e, verbose=verbose))
+            if fuse:
+                stats_list = self._run_epochs_on_device(
+                    state, dataset, epoch, chunk, verbose=verbose)
+                # the weights between the chunk's epochs never reach the
+                # host: the statistics are the chunk's end's
                 if param_stats_fn is not None and verbose:
-                    param_stats_fn(state.model, e)
+                    param_stats_fn(state.model, epoch + chunk - 1)
+            else:
+                stats_list = []
+                for e in range(epoch, epoch + chunk):
+                    stats_list.append(
+                        self.train_epoch(state, dataset, e, verbose=verbose))
+                    if param_stats_fn is not None and verbose:
+                        param_stats_fn(state.model, e)
             prev_epoch, epoch = epoch, epoch + chunk
             if epoch % cfg.eval_every == 0 or epoch == cfg.epochs:
                 ev = self.evaluate(state, dataset)
@@ -402,6 +523,25 @@ class Trainer:
             wait_for_checkpoints()
         return {"best_acc": best_acc, "history": history,
                 "preempted": preempted}
+
+
+def _epoch_record(stats, epoch, dt, chunk, verbose, log_every=None):
+    """An epoch's history record from its (2, steps) float32 losses and
+    accuracies, the means taken in float64 on the host (the same in both
+    loops); ``verbose`` prints the epoch's line and, with ``log_every``,
+    every ``log_every``-th step's."""
+    losses, accs = stats
+    if verbose and log_every:
+        for bi in range(0, losses.shape[0], log_every):
+            print(f"Epoch {epoch+1}, Batch {bi}, Loss: {losses[bi]:.4f}, "
+                  f"Acc: {100.0*accs[bi]:.2f}%")
+    avg_loss = float(np.mean(losses, dtype=np.float64)) if losses.size else 0.0
+    avg_acc = (100.0 * float(np.mean(accs, dtype=np.float64))
+               if accs.size else 0.0)
+    if verbose:
+        print(f"Epoch {epoch+1} - Loss: {avg_loss:.4f}, "
+              f"Train Acc: {avg_acc:.2f}%, Time: {dt:.2f}s")
+    return {"loss": avg_loss, "acc": avg_acc, "time": dt, "chunk": chunk}
 
 
 def pde_param_stats(model, prefix=""):

@@ -12,18 +12,20 @@ Trainer`` runs it over epochs.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..data.augment import AugmentSpec, augment
 from ..models import set_dropout_generator
 from .losses import cross_entropy, hybrid_pde_regularization
-from .optim import (ParamGroup, build_optimizer, clip_by_global_norm_,
-                    set_learning_rates)
+from .optim import (OptaxAdamW, ParamGroup, build_optimizer,
+                    clip_by_global_norm_, set_learning_rates)
 from .schedules import constant, cosine_annealing, onecycle
 
-__all__ = ["make_schedule", "make_train_step", "preset_optimizer",
-           "train_steps"]
+__all__ = ["make_schedule", "make_train_step", "TrainStep",
+           "preset_optimizer", "train_steps"]
 
 
 def make_schedule(train_values, steps_per_epoch):
@@ -57,7 +59,7 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
                     optimizer=None, moment_dtype=None, schedule=None,
                     grad_accum=1):
     """``step(images, labels) -> (loss, acc)``, both 0-d tensors on the
-    model's device.
+    model's device: a ``TrainStep``.
 
     ``train_values``: a preset's ``train`` entry (``presets.py``); its
     ``augment`` may be None for no augmentation, and its ``regularizer``
@@ -76,87 +78,174 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
     schedule advances once an update.  ``step.state_dict()`` and
     ``step.load_state_dict(d)`` carry the update count, the micro-step and
     the running mean across a checkpoint."""
-    device = next(model.parameters()).device
-    if optimizer is None:
-        optimizer = preset_optimizer(model, train_values, moment_dtype)
-    if schedule is None:
-        schedule = make_schedule(train_values, steps_per_epoch)
-    spec = (AugmentSpec(**train_values["augment"])
-            if train_values.get("augment") else None)
-    smoothing = train_values["label_smoothing"]
-    clip = train_values["clip_norm"]
-    alphas = train_values.get("regularizer")
-    k = int(grad_accum or 1)
-    if k < 1:
-        raise ValueError(f"grad_accum must be at least 1: {grad_accum}")
-    params = list(model.parameters())
-    set_dropout_generator(model, generator)
-    state = {"updates": 0, "micro": 0, "acc": None}
+    return TrainStep(model, train_values, steps_per_epoch, generator,
+                     optimizer=optimizer, moment_dtype=moment_dtype,
+                     schedule=schedule, grad_accum=grad_accum)
 
-    def step(images, labels):
+
+class TrainStep:
+    """The train step of ``make_train_step``.  ``body(x, y, apply)`` is
+    its work on a batch already on the device, written so that a CUDA
+    graph can capture it (``train/graph.py``): no host sync, and every
+    value that changes from step to step read on the device:
+
+    * the gradients are zeroed in place, and a parameter the forward does
+      not read keeps the zero gradient it got once;
+    * the micro-step of the running mean is a device scalar, and the host
+      picks the body ("accumulate", or "accumulate and apply" on the k-th
+      micro-step) from its own count, which the graph's replays follow;
+    * with ``OptaxAdamW`` (the preset's optimizer) each update's learning
+      rates come from a table of the schedule on the device, read at the
+      device's update count; another optimizer a caller passes (the
+      tests' SGD) gets them from the host (``set_learning_rates``) and
+      cannot be captured.
+
+    ``__call__`` runs ``body`` eagerly on a host batch and advances the
+    host's counts (``updates``, ``micro``)."""
+
+    def __init__(self, model, train_values, steps_per_epoch, generator, *,
+                 optimizer=None, moment_dtype=None, schedule=None,
+                 grad_accum=1):
+        self.device = device = next(model.parameters()).device
+        self.model = model
+        self.generator = generator
+        if optimizer is None:
+            optimizer = preset_optimizer(model, train_values, moment_dtype)
+        self.optimizer = optimizer
+        self.schedule = (make_schedule(train_values, steps_per_epoch)
+                         if schedule is None else schedule)
+        self.spec = None
+        if train_values.get("augment"):
+            spec = AugmentSpec(**train_values["augment"])
+            if spec.mean is not None:  # on the device once, not a step
+                spec = dataclasses.replace(
+                    spec, mean=torch.tensor(spec.mean, device=device),
+                    std=torch.tensor(spec.std, device=device))
+            self.spec = spec
+        self.smoothing = train_values["label_smoothing"]
+        self.clip = train_values["clip_norm"]
+        self.alphas = train_values.get("regularizer")
+        self.k = int(grad_accum or 1)
+        if self.k < 1:
+            raise ValueError(f"grad_accum must be at least 1: {grad_accum}")
+        self.params = list(model.parameters())
+        set_dropout_generator(model, generator)
+        self.capturable = isinstance(self.optimizer, OptaxAdamW)
+        self.updates = self.micro = 0  # the host's counts
+        self.micro_t = torch.zeros((), device=device)
+        self.update_t = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.k > 1 else None)
+        self.lr_table = None  # (groups, updates), for OptaxAdamW
+
+    def __call__(self, images, labels):
+        x = torch.as_tensor(images).to(device=self.device,
+                                       dtype=torch.float32)
+        y = torch.as_tensor(labels).to(device=self.device, dtype=torch.long)
+        apply = self.applies()
+        if apply:
+            self.reserve_updates(self.updates + 1)
+        loss, acc = self.body(x, y, apply)
+        self.advance(apply)
+        return loss, acc
+
+    def applies(self):
+        """Whether the next step applies an update (its k-th micro-step)."""
+        return self.micro == self.k - 1
+
+    def advance(self, apply):
+        """The host's counts after a step (``apply``: it updated)."""
+        self.micro = 0 if apply else self.micro + 1
+        self.updates += int(apply)
+
+    def reserve_updates(self, n):
+        """Make the learning-rate table cover updates [0, n) (for
+        ``OptaxAdamW``), the schedule evaluated once an update.  A grown
+        table is a new tensor: a graph captured before reads the old one,
+        so ``train/graph.py`` reserves the whole run before it captures."""
+        have = 0 if self.lr_table is None else self.lr_table.shape[1]
+        if not self.capturable or have >= n:
+            return
+        lrs = np.array([self.schedule(u) for u in range(have,
+                                                        max(n, 2 * have))],
+                       np.float64)
+        scales = np.array([g.get("lr_scale", 1.0)
+                           for g in self.optimizer.param_groups], np.float64)
+        # each entry rounded once from float64, as set_learning_rates' fill
+        new = torch.tensor(scales[:, None] * lrs[None], dtype=torch.float32,
+                           device=self.device)
+        self.lr_table = (new if self.lr_table is None
+                         else torch.cat([self.lr_table, new], dim=1))
+
+    def body(self, x, y, apply):
+        """One step on the device batch (x, y): augment, train-mode
+        forward, loss, backward, then accumulate, and with ``apply`` clip
+        and update.  Returns the loss and the accuracy, 0-d tensors."""
+        model = self.model
         model.train()
-        x = torch.as_tensor(images).to(device=device, dtype=torch.float32)
-        y = torch.as_tensor(labels).to(device=device, dtype=torch.long)
-        if spec is not None:
-            x = augment(spec, x, generator)
+        if self.spec is not None:
+            x = augment(self.spec, x, self.generator)
         logits = model(x)
-        loss = cross_entropy(logits, y, smoothing)
-        if alphas is not None:
-            loss = loss + hybrid_pde_regularization(model, *alphas)
-        optimizer.zero_grad(set_to_none=True)
+        loss = cross_entropy(logits, y, self.smoothing)
+        if self.alphas is not None:
+            loss = loss + hybrid_pde_regularization(model, *self.alphas)
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
         loss.backward()
-        for p in params:
+        for p in self.params:
             # a parameter the forward does not read (ResidualDiffusion's
-            # beta_base) gets jax.grad's zero, so AdamW decays it as
-            # optax does, where torch would skip it
+            # beta_base) gets jax.grad's zero, so AdamW decays it as optax
+            # does, where torch would skip it; made once, zeroed in place
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if k > 1 and not _accumulate(params, state, k):
-            optimizer.zero_grad(set_to_none=True)
-        else:
-            if clip is not None:
-                clip_by_global_norm_(params, clip)
-            set_learning_rates(optimizer, schedule(state["updates"]))
-            optimizer.step()
-            state["updates"] += 1
-        acc = (logits.argmax(dim=-1) == y).float().mean()
+        with torch.no_grad():
+            if self.k > 1:
+                self._accumulate(apply)
+            if apply:
+                if self.clip is not None:
+                    clip_by_global_norm_(self.params, self.clip)
+                if self.capturable:
+                    lrs = self.lr_table.index_select(1, self.update_t)
+                    for g, group in enumerate(self.optimizer.param_groups):
+                        group["lr"].copy_(lrs[g, 0])
+                else:
+                    set_learning_rates(self.optimizer,
+                                       self.schedule(self.updates))
+                self.optimizer.step()
+                self.update_t.add_(1)
+            acc = (logits.argmax(dim=-1) == y).float().mean()
         return loss.detach(), acc
 
-    def state_dict():
-        acc = state["acc"]
-        return {"updates": state["updates"], "micro": state["micro"],
-                "acc": None if acc is None else [a.clone() for a in acc]}
+    def _accumulate(self, apply):
+        """Fold the gradients into the running mean as optax.MultiSteps
+        does; on the k-th micro-step put the mean into the gradients and
+        reset."""
+        grads = [p.grad for p in self.params]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_add_(self.acc, torch._foreach_div(
+            delta, self.micro_t + 1.0))
+        if apply:
+            torch._foreach_copy_(grads, self.acc)
+            torch._foreach_zero_(self.acc)
+            self.micro_t.zero_()
+        else:
+            self.micro_t.add_(1.0)
 
-    def load_state_dict(d):
-        state["updates"], state["micro"] = int(d["updates"]), int(d["micro"])
-        state["acc"] = (None if d["acc"] is None else
-                        [a.to(p.device) for a, p in zip(d["acc"], params)])
+    def state_dict(self):
+        return {"updates": self.updates, "micro": self.micro,
+                "acc": (None if self.acc is None
+                        else [a.clone() for a in self.acc])}
 
-    step.optimizer = optimizer
-    step.schedule = schedule
-    step.state_dict = state_dict
-    step.load_state_dict = load_state_dict
-    return step
-
-
-@torch.no_grad()
-def _accumulate(params, state, k):
-    """Fold the gradients of ``params`` into ``state``'s running mean as
-    optax.MultiSteps does; on the k-th micro-step put the mean into the
-    gradients, reset, and return True."""
-    if state["acc"] is None:
-        state["acc"] = [torch.zeros_like(p) for p in params]
-    i = state["micro"]
-    for p, a in zip(params, state["acc"]):
-        a.add_((p.grad - a) / (i + 1))
-    if i < k - 1:
-        state["micro"] = i + 1
-        return False
-    for p, a in zip(params, state["acc"]):
-        p.grad.copy_(a)
-        a.zero_()
-    state["micro"] = 0
-    return True
+    def load_state_dict(self, d):
+        """The counts and running mean of a checkpoint, written into this
+        step's tensors (a captured graph keeps reading them)."""
+        self.updates, self.micro = int(d["updates"]), int(d["micro"])
+        self.update_t.fill_(self.updates)
+        self.micro_t.fill_(self.micro)
+        if self.acc is not None:
+            for a, saved in zip(self.acc, d["acc"] or [0.0] * len(self.acc)):
+                a.copy_(torch.as_tensor(saved))
 
 
 def train_steps(step, data, n, batch_size, seed=0):

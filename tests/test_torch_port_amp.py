@@ -50,7 +50,8 @@ from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
 from cnn_pde_tpu_torch.serve_cli import main as serve_main
 from cnn_pde_tpu_torch.train import build_optimizer
 from cnn_pde_tpu_torch.train.__main__ import main as train_main
-from cnn_pde_tpu_torch.train.optim import AdamWLowPrecision, ParamGroup
+from cnn_pde_tpu_torch.train.optim import (OptaxAdamW, ParamGroup,
+                                           set_learning_rates)
 
 PRESETS = ["cifar10_noconv", "mnist", "fashion_mnist", "svhn"]
 # (JAX class, port class, keywords, input shape): the JAX test's cases
@@ -376,7 +377,7 @@ def test_operator_cache():
 
 
 def test_bf16_moments_track_f32_adamw():
-    """AdamWLowPrecision: m and v stored in bf16, parameters float32 and
+    """OptaxAdamW with bf16 moments: m and v stored in bf16, parameters float32 and
     within 2e-4 of torch's float32 AdamW over 10 updates in two groups; and
     the update equals optax's chain (the JAX optimizer with bf16 moments)
     on the same gradients."""
@@ -398,9 +399,13 @@ def test_bf16_moments_track_f32_adamw():
                               default_weight_decay=1e-4,
                               default_lr_scale=0.5,
                               moment_dtype=moment_dtype)
+        if moment_dtype is None:
+            opt = torch.optim.AdamW(
+                [{"params": g["params"], "lr_scale": g["lr_scale"],
+                  "weight_decay": g["weight_decay"]}
+                 for g in opt.param_groups], lr=0.0)
         for i in range(10):
-            for group in opt.param_groups:
-                group["lr"] = 1e-3 * group["lr_scale"]
+            set_learning_rates(opt, 1e-3)
             for p in model.parameters():
                 p.grad = 0.01 * torch.cos(p.detach() + i)
             opt.step()
@@ -408,7 +413,7 @@ def test_bf16_moments_track_f32_adamw():
 
     lo, opt = run(torch.bfloat16)
     hi, _ = run(None)
-    assert isinstance(opt, AdamWLowPrecision)
+    assert isinstance(opt, OptaxAdamW)
     for p in lo.parameters():
         state = opt.state[p]
         assert state["exp_avg"].dtype == state["exp_avg_sq"].dtype \

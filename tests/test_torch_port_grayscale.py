@@ -188,8 +188,12 @@ def test_stability_info_matches_jax(layer_cases):
 
 
 def test_unported_grayscale_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        GrayscaleDiffusion(remat=True)
+    # remat is ported: the layer builds and recomputes its steps
+    # in the backward with the same arithmetic
+    layer = GrayscaleDiffusion(size=8, num_steps=2, remat=True)
+    x = torch.rand(2, 1, 8, 8, requires_grad=True)
+    layer(x).sum().backward()
+    assert layer.remat and torch.isfinite(x.grad).all()
     # the hybrid (A11) is ported: it builds, and no family is left
     assert NOT_YET_PORTED == {}
     assert not build_model("cifar10_hybrid", device="cpu").training

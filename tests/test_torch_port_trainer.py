@@ -340,8 +340,13 @@ def test_checkpoints_round_trip(tmp_path):
 def test_unported_trainer_options_raise():
     model = build_model("mnist", device="cpu")
     values = PRESETS["mnist"]["train"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        Trainer(model, TrainConfig(device_epoch=True), values)
+    # the device epoch is ported; with it the native loader is
+    # ignored with the JAX Trainer's warning
+    assert Trainer(model, TrainConfig(device_epoch=True),
+                   values).config.device_epoch
+    with pytest.warns(UserWarning, match="native_loader is ignored"):
+        Trainer(model, TrainConfig(device_epoch=True, native_loader=True),
+                values)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A16"):
         Trainer(model, TrainConfig(native_loader=True), values)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):

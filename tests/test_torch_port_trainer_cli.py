@@ -95,5 +95,3 @@ def test_train_cli_refusals(tmp_path):
         train_main(["--preset", "mnist", "--synthetic", "--device", "cpu",
                     "--checkpoint-backend", "orbax", "--checkpoint-dir",
                     str(tmp_path)])
-    with pytest.raises(SystemExit, match="--synthetic"):
-        train_main(["--preset", "mnist", "--device", "cpu"])
