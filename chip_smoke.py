@@ -30,7 +30,8 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    and (12, 12), (1, 28), (64, 64), (9, 13) and (33, 20) on the mnist
    layer's settings at B in {7, 300}, with fields that straddle eps, K8
    twice on the same inputs and equal bit for bit);
-4. serving the CIFAR-10 flagship: ``make_predict_fn`` (weights from a seed)
+4. serving the CIFAR-10 flagship: the eager predict
+   (``make_eager_predict_fn``, weights from a seed)
    in the per-sweep and the fused configuration at B in {1, 64, 1024},
    logits held against the same model on its plain versions, launch counts
    read around that run, then images/s; then the serve CLI on cuda;
@@ -131,8 +132,35 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    equal to the host eval's; images/s by CUDA events over a second epoch
    (50 captured steps, or 10 eager ones), busy share and launch calls a
    step over a profiled third of 5 (graph and eager side by side); the
-   train CLI with --device-epoch --data-dir on a CIFAR-10
-   pickle fixture (queued for phase 12);
+   train CLI with --device-epoch --data-dir on a CIFAR-10 pickle
+   fixture (queued for phase 12);
+10c. serving (ROADMAP.md A13): ``make_predict_fn``, one CUDA graph a
+   bucket (1, 64, 1024), against the eager predict on requests of 1, 7,
+   64, 300 and 1024 images for the flagship per-sweep, fused, and hoisted
+   f32 and bf16 (cached), and mnist per-sweep and fused: launches at
+   warm-up and capture and none from Python at a replay, logits within
+   1e-6 of their largest entry (bit for bit logged), the model's probs
+   and labels predicts replaying the same graphs (probs within 1e-6,
+   labels equal), images/s of both in turns at B = 1, 64, 1024, busy
+   share and launch calls a request; the same checks without the rates
+   on svhn hoisted bf16 (cached), emotion, tiny_imagenet (exact and AMP)
+   and the hybrid (exact, bf16, AMP cached);
+   ``linearize_pde_layers`` on the flagship per-sweep (the identity basis
+   through K1), fused (K2 at B = 3,072) and mnist fused (K6 at B = 784):
+   each composed matrix within 1e-5 of the plain versions' basis, the f32,
+   bf16 and int8 grades served captured against the sequential predict
+   (1e-4; rtol and atol 2e-2; 2e-2 of the largest entry and int8 labels
+   equal on 16 images) and their images/s at B in {1, 16, 64, 256, 1024}
+   (the ``select_linearize_grade`` table); ``export_model`` of the
+   flagship per-sweep, fused and int8-linearized, each loaded in one fresh
+   process that imports only the port (queued), within 1e-6 of the
+   predict;
+   ``serve_http`` on the serve CLI's captured flagship predicts
+   (``serve_cli.warmed_predict_fns``; micro-batch 64, pipeline 2,
+   buckets 1, 8, 64) under 8 client threads, every response within 1e-6
+   of its eager logits, and across the CLI's reload to other weights; the
+   serve CLI with --linearize auto --buckets, --export and --http
+   (queued);
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -220,8 +248,12 @@ from cnn_pde_tpu_torch.pde import (SymmetricLayer, enable_amp,
 from cnn_pde_tpu_torch.pde.diffusion import (_coeff_at, _coeff_at_times,
                                              _substep_times_np)
 from cnn_pde_tpu_torch.presets import PRESETS
+from cnn_pde_tpu_torch.pde.linearize import iter_linear_pde_layers
 from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
-                                     clear_operator_cache, make_predict_fn)
+                                     clear_linear_cache,
+                                     clear_operator_cache, export_model,
+                                     linearize_pde_layers,
+                                     make_eager_predict_fn, make_predict_fn)
 from cnn_pde_tpu_torch.train import (TrainConfig, Trainer, cross_entropy,
                                      hybrid_pde_regularization,
                                      make_train_step, train_steps)
@@ -595,16 +627,17 @@ def phase_kernels(device):
             "K4": k4_err, "K5": (k5_abs, k5_rel)}
 
 
-def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3):
+def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3,
+             fields_seed=SEED + 1):
     """The flagship with init from a seeded generator and its PDE fields
-    replaced by seeded trained-looking ones, so the clamps and the time
-    bookkeeping are exercised."""
+    replaced by trained-looking ones seeded by ``fields_seed``, so the
+    clamps and the time bookkeeping are exercised."""
     model = build_model("cifar10_noconv", device=device,
                         generator=torch.Generator().manual_seed(SEED),
                         fused_inference=fused, fused_pde=fused_pde,
                         dropout_rate=dropout_rate)
     USED_DEVICES.add(next(model.parameters()).device)
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(fields_seed)
     with torch.no_grad():
         for i in (1, 2, 3):
             pde = getattr(model.feature_extractor, f"pde{i}")
@@ -667,7 +700,9 @@ def device_busy(fn, reps, device, warm=True):
 
 def serve_family(tag, device, make_model, shape, batches, expected, reps,
                  seed, classes=10):
-    """``make_predict_fn`` on ``make_model(config)`` for each configuration
+    """The eager predict (``make_eager_predict_fn``: one launch a kernel
+    call, so that the counts are a forward's) on ``make_model(config)`` for
+    each configuration
     of ``expected`` ({config: {kernel: launches a forward}}), over one
     request of each batch in ``batches`` of seeded images of ``shape``: the
     launch counts of that run, logits (``classes`` a row) within LOGIT_TOL
@@ -679,7 +714,7 @@ def serve_family(tag, device, make_model, shape, batches, expected, reps,
               for B in batches}
     launches, rates = {}, {}
     for config, per in expected.items():
-        predict = make_predict_fn(make_model(config), output="logits")
+        predict = make_eager_predict_fn(make_model(config), output="logits")
         reset_counts()
         logits = {B: predict(images[B]) for B in batches}
         torch.cuda.synchronize()
@@ -783,7 +818,7 @@ def phase_profile(device):
     requests)."""
     rng = np.random.default_rng(SEED + 4)
     for config in ("per_sweep", "fused"):
-        predict = make_predict_fn(flagship(device, config == "fused"))
+        predict = make_eager_predict_fn(flagship(device, config == "fused"))
         for B in (1, 1024):
             x = torch.from_numpy(
                 rng.random((B, 3, 32, 32)).astype(np.float32)).to(device)
@@ -1137,7 +1172,7 @@ def phase_grayscale(device):
         {1: 30, 128: 20, 1024: 10}, SEED + 8)
     rng = np.random.default_rng(SEED + 9)
     for config in ("per_sweep", "fused"):
-        predict = make_predict_fn(grayscale_model(
+        predict = make_eager_predict_fn(grayscale_model(
             device, fused_inference=config == "fused"))
         for B in (1, 1024):
             x = torch.from_numpy(
@@ -1298,7 +1333,7 @@ def forward_with_layers(model, predict, batches, images):
 
 
 def amp_serve(tag, device, make_model, shape, batches, builds, reps, seed):
-    """The f32 and bf16 hoisted grades served by ``make_predict_fn`` with
+    """The f32 and bf16 hoisted grades served by the eager predict with
     the operators cached (``cache_hoisted_operators``), against the
     per-sweep model (``make_model()``) on the same seeded requests.  Counts
     reset before the cache is built and read after one request of each B:
@@ -1323,11 +1358,11 @@ def amp_serve(tag, device, make_model, shape, batches, builds, reps, seed):
     big = max(batches)
     ref_model = make_model()
     ref, ref_layers = forward_with_layers(
-        ref_model, make_predict_fn(ref_model), batches, images)
+        ref_model, make_eager_predict_fn(ref_model), batches, images)
     result, predicts = {}, {}
     for grade in ("f32", "bf16"):
         model = amp_switch(make_model(), grade)
-        predict = make_predict_fn(model)
+        predict = make_eager_predict_fn(model)
         reset_counts()
         cached = cache_hoisted_operators(model)
         logits, layers = forward_with_layers(model, predict, batches, images)
@@ -1872,7 +1907,7 @@ def phase_emotion(device):
     tag, out = "emotion", {}
     rng = np.random.default_rng(SEED + 22)
     model = emotion_model(device)
-    predict = make_predict_fn(model)
+    predict = make_eager_predict_fn(model)
     images = {B: torch.from_numpy(rng.random((B, 1, 48, 48)).astype(
         np.float32)).to(device) for B in EMOTION_SERVE}
     reset_counts()
@@ -2013,8 +2048,8 @@ def amp_against_plain(tag, label, make_amp, make_exact, images, batch,
     which train-mode BatchNorm cancels down to the bf16 cotangents'
     rounding, further.  Each convolution, replayed, is what is held."""
     out = {}
-    predict = make_predict_fn(make_amp(None))
-    exact_predict = make_predict_fn(make_exact(None))
+    predict = make_eager_predict_fn(make_amp(None))
+    exact_predict = make_eager_predict_fn(make_exact(None))
     for B, x in images.items():
         got = predict(x)
         if got.shape != (B, 200) or not torch.isfinite(got).all():
@@ -2102,7 +2137,7 @@ def _phase_tiny(tag, out, device):
         "default) for this phase")
     rng = np.random.default_rng(SEED + 23)
     model = tiny_model(device)
-    predict = make_predict_fn(model)
+    predict = make_eager_predict_fn(model)
     images = {B: torch.from_numpy(rng.random((B, 3, 64, 64)).astype(
         np.float32)).to(device) for B in TINY_SERVE}
     reps = dict(zip(TINY_SERVE, (30, 20, 5)))
@@ -2187,7 +2222,7 @@ def _phase_tiny(tag, out, device):
     out["amp"]["train"] = step_rates(f"{tag}-amp", "train", step, data,
                                      small, rng)
     out["amp"]["serve"] = serve_rates(
-        f"{tag}-amp", "serve", make_predict_fn(enable_amp_checked(
+        f"{tag}-amp", "serve", make_eager_predict_fn(enable_amp_checked(
             make(None))), xs, {B: reps[B] for B in xs}, device)
     # AMP with pde_implicit: the front end's sweeps on bf16 operators built
     # at the call, one K1 each, no K3; against its plain versions, the
@@ -2198,7 +2233,7 @@ def _phase_tiny(tag, out, device):
     xb, yb = batch(small)
     step(xb, yb)
     reset_counts()
-    make_predict_fn(implicit)(xb)
+    make_eager_predict_fn(implicit)(xb)
     sync(device)
     forward = counts()
     reset_counts()
@@ -2462,7 +2497,7 @@ def phase_hybrid_products(device, peak_bytes, peak_flops):
 
 
 def hybrid_serve(tag, device, rng):
-    """``make_predict_fn`` of the hybrid in the exact grade, the bf16
+    """The eager predict of the hybrid in the exact grade, the bf16
     grade and the AMP grade (operators cached), one request at each B of
     HYBRID_SERVE: launch counts (26 K1 a forward, or 4 K1 for the cache
     and none a request), logits against the plain versions (exact: 1e-4
@@ -2478,7 +2513,7 @@ def hybrid_serve(tag, device, rng):
         cached = cache_hoisted_operators(model) if grade == "amp" else 0
         sync(device)
         cache = counts()
-        predict = make_predict_fn(model)
+        predict = make_eager_predict_fn(model)
         reset_counts()
         logits = {B: predict(x) for B, x in images.items()}
         sync(device)
@@ -3078,6 +3113,620 @@ def phase_device_epoch(device):
               ok=lambda s: s["data"] == "real" and s["device_epoch"]
               and s["steps"] == 6 and s["device"].startswith("cuda")
               and np.isfinite(s["last_loss"]))
+    return out
+
+
+# ---- phase 10c: serving (ROADMAP.md A13) ----------------------------------
+
+A13_BUCKETS = (1, 64, 1024)
+A13_REQUESTS = (1, 7, 64, 300, 1024)
+A13_RATE_BATCHES = (1, 64, 1024)
+# requests a round by predict and B (host clock, 3 rounds in turns)
+A13_REPS = {"captured": {1: 200, 64: 100, 1024: 20},
+            "eager": {1: 20, 64: 10, 1024: 4}}
+# a captured predict against the eager one, of the largest entry: the same
+# kernels on the same padded batch (bit for bit logged)
+CAPTURED_TOL = 1e-6
+# a composed matrix against the same basis on the plain versions, of its
+# largest entry (KERNEL_TOL: the basis is the kernels' own evolution)
+BASIS_TOL = KERNEL_TOL
+# linearized logits against the sequential eager predict: float32
+# reassociation over D-term sums (LOGIT_TOL, absolute); bf16 storage
+# (rtol and atol, tests/test_linearize.py); W8A8 (of the largest entry)
+LIN_BF16_TOL = 2e-2
+LIN_INT8_TOL = 2e-2
+LIN_BATCHES = (1, 16, 64, 256, 1024)
+LIN_REPS = {1: 200, 16: 200, 64: 100, 256: 40, 1024: 20}
+LIN_GRADES = (("f32", None), ("bf16", torch.bfloat16), ("int8", "int8"))
+EXPORT_BATCH = 8
+EXPORT_TOL = 1e-6   # a loaded program's logits against the predict's
+HTTP_BUCKETS = (1, 8, 64)
+HTTP_MICROBATCH = 64
+HTTP_CLIENTS, HTTP_REQUESTS = 8, 20
+HTTP_TOL = 1e-6     # a response against its request's eager logits
+RELOAD_FIELDS_SEED = SEED + 50  # the flagship fields a reload serves
+A13_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "serving")
+
+
+def hoisted_cached(model, grade):
+    """``model`` on the hoisted path at ``grade`` with its operators
+    cached (6 K1 launches for the flagship, outside any counted run)."""
+    cache_hoisted_operators(amp_switch(model, grade))
+    return model
+
+
+def cached(model):
+    """``model`` with its hoisted operators cached (outside any counted
+    run)."""
+    cache_hoisted_operators(model)
+    return model
+
+
+def seeded_batch(rng, n, shape, device):
+    return torch.from_numpy(rng.random((n, *shape)).astype(
+        np.float32)).to(device)
+
+
+def rates_in_turns(fns, x, reps):
+    """{label: images/s} of each predict in ``fns`` on ``x``: three rounds
+    of ``reps[label]`` requests, the predicts in turns, the median (host
+    clock, after one warm-up request each)."""
+    runs = {label: [] for label in fns}
+    for fn in fns.values():
+        fn(x)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for label, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(reps[label]):
+                fn(x)
+            torch.cuda.synchronize()
+            runs[label].append(x.shape[0] * reps[label]
+                               / (time.perf_counter() - t0))
+    return {label: statistics.median(r) for label, r in runs.items()}
+
+
+def captured_case(tag, label, make, shape, per, rng, device, classes=10,
+                  rate_batches=A13_RATE_BATCHES):
+    """``make_predict_fn`` (one CUDA graph a bucket) against the eager
+    predict of the same model, buckets A13_BUCKETS, one request of each
+    size in A13_REQUESTS: the launches at warm-up and capture (WARMUP_ROUNDS
+    + 1 forwards a bucket, ``per`` a forward) and none from Python when the
+    same requests replay; logits within CAPTURED_TOL of their largest
+    entry (bit for bit logged); the model's predicts of probabilities and
+    labels made after it share its graphs (no capture, no launch from
+    Python), probabilities within CAPTURED_TOL and labels equal to eager;
+    images/s of both in turns at ``rate_batches``; busy share and launch
+    calls a request of both at the largest."""
+    model = make()
+    eager = make_eager_predict_fn(model, buckets=A13_BUCKETS)
+    predict = make_predict_fn(model, buckets=A13_BUCKETS)
+    xs = {n: seeded_batch(rng, n, shape, device) for n in A13_REQUESTS}
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {n: predict(x) for n, x in xs.items()}
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captured = counts()
+    forwards = (WARMUP_ROUNDS + 1) * len(A13_BUCKETS)
+    if captured != only(**{k: v * forwards for k, v in per.items()}) or \
+            sorted(predict.graphs) != list(A13_BUCKETS):
+        raise AssertionError(f"{label}: launches {captured} and graphs "
+                             f"{sorted(predict.graphs)}, expected {per} a "
+                             f"forward over {forwards} forwards")
+    graphs = dict(predict.graphs)
+    reset_counts()
+    again = {n: predict(x) for n, x in xs.items()}
+    others = {}
+    for output in ("probs", "labels"):
+        fn = make_predict_fn(model, output=output, buckets=A13_BUCKETS)
+        others[output] = {n: fn(x) for n, x in xs.items()}
+    torch.cuda.synchronize()
+    if counts() != only() or len(predict.graphs) != len(graphs) or any(
+            predict.graphs[b] is not e for b, e in graphs.items()):
+        raise AssertionError(f"{label}: replays launched {counts()} from "
+                             f"Python, graphs {sorted(predict.graphs)}")
+    ref = {n: eager(x) for n, x in xs.items()}
+    bitwise = []
+    for n in A13_REQUESTS:
+        if got[n].shape != (n, classes) or not torch.isfinite(got[n]).all():
+            raise AssertionError(f"{label} n={n}: bad logits")
+        bitwise.append(torch.equal(got[n], ref[n])
+                       and torch.equal(again[n], ref[n]))
+        check_rel(f"{label} request of {n} (bucket "
+                  f"{next(b for b in A13_BUCKETS if b >= n)}) captured vs "
+                  f"eager{', bit for bit' if bitwise[-1] else ''}",
+                  max(rel_err(got[n], ref[n]), rel_err(again[n], ref[n])),
+                  CAPTURED_TOL)
+        probs = torch.softmax(ref[n], dim=-1)
+        if rel_err(others["probs"][n], probs) > CAPTURED_TOL or \
+                not torch.equal(others["labels"][n], ref[n].argmax(-1)):
+            raise AssertionError(
+                f"{label} n={n}: the shared graphs' probabilities "
+                f"({rel_err(others['probs'][n], probs):.3e}) or labels "
+                "differ from eager")
+    log(f"[{tag}] {label}: {len(predict.graphs)} graphs captured in "
+        f"{capture_s:.2f} s (launches at warm-up and capture {captured}, "
+        f"none from Python a replay; the probs and labels predicts "
+        f"replayed them); {sum(bitwise)} of {len(bitwise)} requests bit "
+        "for bit")
+    out = {"launches_at_capture": captured, "capture_s": capture_s,
+           "bitwise_requests": sum(bitwise), "requests": len(bitwise)}
+    fns = {"captured": predict, "eager": eager}
+    if not rate_batches:
+        return out
+    for B in rate_batches:
+        rates = rates_in_turns(fns, xs[B], {k: A13_REPS[k][B] for k in fns})
+        for mode, rate in rates.items():
+            out.setdefault(mode, {})[f"B{B}"] = rate
+        log(f"[{tag}] {label} B={B}: captured {rates['captured']:.1f}, "
+            f"eager {rates['eager']:.1f} images/s (host clock, median of 3 "
+            f"rounds in turns), {rates['captured'] / rates['eager']:.2f}x")
+    big = max(rate_batches)
+    for mode, fn in fns.items():
+        busy = device_busy(lambda: fn(xs[big]), BUSY_REPS, device)
+        log_busy(tag, f"{label} {mode} B={big}", busy, "request")
+        if busy is not None:
+            out[mode].update({
+                f"B{big}_busy": busy[0],
+                f"B{big}_device_us_per_request": busy[0] * busy[1],
+                f"B{big}_launch_calls_per_request": busy[4] + busy[5],
+                f"B{big}_graph_launches_per_request": busy[6]})
+    return out
+
+
+def linear_caches(model):
+    return [lay.linear_cache for lay in iter_linear_pde_layers(model)
+            if getattr(lay, "linear_cache", None) is not None]
+
+
+def linearize_case(tag, label, make, shape, basis, rng, device,
+                   timed_rates):
+    """``linearize_pde_layers`` on ``make()``: the basis evolution's
+    launches (``basis``: each linear layer's forward once at B = D), each
+    composed matrix within BASIS_TOL of its largest entry against the same
+    basis on the plain versions; then each grade of LIN_GRADES served by
+    a captured predict, its logits at LIN_BATCHES against the sequential
+    eager predict (f32 LOGIT_TOL; bf16 LIN_BF16_TOL rtol and atol; int8
+    LIN_INT8_TOL of the largest entry, and labels equal on a batch of 16)
+    and, with ``timed_rates``, its images/s at each B (host clock, median
+    of 3 rounds of LIN_REPS[B])."""
+    model = make()
+    seq = make_eager_predict_fn(model)
+    xs = {B: seeded_batch(rng, B, shape, device) for B in LIN_BATCHES}
+    ref = {B: seq(x) for B, x in xs.items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    n = linearize_pde_layers(model, xs[1])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = counts()
+    if got != only(**basis):
+        raise AssertionError(f"{label}: basis launches {got}, expected "
+                             f"{basis}")
+    mats = linear_caches(model)
+    clear_linear_cache(model)
+    with kernels.plain_versions():
+        linearize_pde_layers(model, xs[1])
+    out = {"layers": n, "basis_launches": got, "build_s": build_s,
+           "matrix_err": 0.0}
+    for i, (m, p) in enumerate(zip(mats, linear_caches(model))):
+        out["matrix_err"] = max(out["matrix_err"], check_rel(
+            f"{label} layer {i} composed ({m.shape[0]}, {m.shape[1]}) "
+            "matrix vs the plain versions' basis", rel_err(m, p),
+            BASIS_TOL))
+    log(f"[{tag}] {label}: {n} layers linearized in {build_s:.2f} s, "
+        f"basis launches {got}")
+    for grade, dtype in LIN_GRADES:
+        clear_linear_cache(model)
+        linearize_pde_layers(model, xs[1], dtype=dtype)
+        predict = make_predict_fn(model)
+        logits = {B: predict(x) for B, x in xs.items()}
+        for B in LIN_BATCHES:
+            if logits[B].shape != ref[B].shape or not torch.isfinite(
+                    logits[B]).all():
+                raise AssertionError(f"{label} {grade} B={B}: bad logits")
+            if grade == "f32":
+                check(f"{label} {grade} B={B} vs sequential",
+                      max_err(logits[B], ref[B]), LOGIT_TOL)
+            elif grade == "bf16":
+                excess = float(((logits[B] - ref[B]).abs() - LIN_BF16_TOL
+                                * ref[B].abs()).max())
+                check(f"{label} {grade} B={B} vs sequential (beyond "
+                      f"rtol {LIN_BF16_TOL:.0e})", max(excess, 0.0),
+                      LIN_BF16_TOL)
+            else:
+                check_rel(f"{label} {grade} B={B} vs sequential",
+                          rel_err(logits[B], ref[B]), LIN_INT8_TOL)
+        if grade == "int8":
+            x16 = xs[16]
+            want, have = ref[16].argmax(-1), predict(x16).argmax(-1)
+            top2 = ref[16].topk(2, dim=-1).values
+            log(f"  {label} int8 labels on 16 images: {have.tolist()} "
+                f"(sequential {want.tolist()}; smallest top-2 margin "
+                f"{float((top2[:, 0] - top2[:, 1]).min()):.3e})")
+            if not torch.equal(want, have):
+                raise AssertionError(f"{label}: int8 labels differ")
+        if timed_rates:
+            out[grade] = {}
+            for B in LIN_BATCHES:
+                rate = rates_in_turns({grade: predict}, xs[B],
+                                      {grade: LIN_REPS[B]})[grade]
+                out[grade][f"B{B}"] = rate
+                log(f"[{tag}] {label} {grade} B={B}: {rate:.1f} images/s "
+                    "(captured, host clock, median of 3 rounds of "
+                    f"{LIN_REPS[B]})")
+    return out
+
+
+def grade_table(tag, label, rates):
+    """The fastest of bf16 and int8 at each B, and the smallest B from which
+    int8 wins at every larger B (None: it never does)."""
+    wins = {B: rates["int8"][f"B{B}"] > rates["bf16"][f"B{B}"]
+            for B in LIN_BATCHES}
+    from_b = next((B for B in LIN_BATCHES
+                   if all(wins[b] for b in LIN_BATCHES if b >= B)), None)
+    log(f"[{tag}] {label} grade by batch: " + ", ".join(
+        f"B={B} {'int8' if wins[B] else 'bf16'} "
+        f"({rates['int8'][f'B{B}'] / rates['bf16'][f'B{B}']:.2f}x)"
+        for B in LIN_BATCHES) + f"; int8 wins from B={from_b}")
+    return {"int8_wins": {f"B{B}": w for B, w in wins.items()},
+            "int8_from": from_b}
+
+
+EXPORT_CODE = """
+import json, sys
+import numpy as np, torch
+from cnn_pde_tpu_torch.ops import fused_channel, fused_grayscale, tridiag
+from cnn_pde_tpu_torch.serve import load_exported
+root, labels = sys.argv[1], sys.argv[2].split(",")
+x = torch.from_numpy(np.load(root + "/x.npy")).cuda()
+launches = {}
+for label in labels:
+    fn = load_exported(root + "/" + label + ".pt2")
+    before = (tridiag.tridiag_solve.launches,
+              fused_channel.fused_channel_diffusion_fwd.launches)
+    np.save(root + "/" + label + "_out.npy", fn(x).cpu().numpy())
+    launches[label] = {
+        "K1": tridiag.tridiag_solve.launches - before[0],
+        "K2": fused_channel.fused_channel_diffusion_fwd.launches - before[1]}
+bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "cnn_pde_tpu")]
+print(json.dumps({"launches": launches, "foreign": bad}))
+"""
+
+
+def export_case(tag, device, rng):
+    """``export_model`` of the flagship per-sweep, fused and int8-linearized
+    on cuda at B = EXPORT_BATCH, beside the in-process (captured)
+    predict's logits; the programs are loaded and checked by
+    ``export_loader_job``, queued for phase 12."""
+    shutil.rmtree(A13_DIR, ignore_errors=True)
+    os.makedirs(A13_DIR)
+    x = seeded_batch(rng, EXPORT_BATCH, (3, 32, 32), device)
+    np.save(os.path.join(A13_DIR, "x.npy"), x.cpu().numpy())
+
+    def int8(model):
+        linearize_pde_layers(model, x, dtype="int8")
+        return model
+    cases = {"per_sweep": lambda: flagship(device),
+             "fused": lambda: flagship(device, fused=True),
+             "int8": lambda: int8(flagship(device))}
+    out = {}
+    for label, make in cases.items():
+        model = make()
+        t0 = time.perf_counter()
+        blob = export_model(model, x, os.path.join(A13_DIR, f"{label}.pt2"))
+        out[label] = {"export_s": time.perf_counter() - t0,
+                      "bytes": len(blob)}
+        np.save(os.path.join(A13_DIR, f"{label}_want.npy"),
+                make_predict_fn(model)(x).cpu().numpy())
+        log(f"[{tag}] exported {label}: {len(blob)} bytes in "
+            f"{out[label]['export_s']:.2f} s")
+    CLI_JOBS.append(lambda: export_loader_job(tag, out))
+    CLI_JOBS[-1].__name__ = "exported programs in a fresh process"
+    return out
+
+
+def export_loader_job(tag, out):
+    """The exported programs loaded in one fresh ``python3 -c`` process
+    that imports only ``cnn_pde_tpu_torch``: each one's logits within
+    EXPORT_TOL of the largest entry of the in-process predict's, and its
+    kernel launches counted there (51 K1 per-sweep, 3 K2 fused, none
+    int8)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_CODE, A13_DIR, ",".join(out)],
+        capture_output=True, text=True, timeout=300, check=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    if report["foreign"]:
+        raise AssertionError(f"the loading process imported "
+                             f"{report['foreign']}")
+    expect = {"per_sweep": {"K1": 51, "K2": 0}, "fused": {"K1": 0, "K2": 3},
+              "int8": {"K1": 0, "K2": 0}}
+    lines = []
+    for label, entry in out.items():
+        got, want = (torch.from_numpy(np.load(os.path.join(
+            A13_DIR, f"{label}_{kind}.npy"))) for kind in ("out", "want"))
+        entry["launches_in_loader"] = report["launches"][label]
+        entry["err"] = rel_err(got, want)
+        entry["bitwise"] = bool(torch.equal(got, want))
+        lines.append(f"[{tag}] export {label} loaded in a fresh process vs "
+                     f"the predict: max err {entry['err']:.3e} of its "
+                     f"largest entry (tolerance {EXPORT_TOL:.0e}"
+                     f"{', bit for bit' if entry['bitwise'] else ''}); "
+                     f"launches there {report['launches'][label]}")
+        if entry["err"] > EXPORT_TOL or \
+                report["launches"][label] != expect[label]:
+            raise AssertionError(lines[-1] + f", expected {expect[label]}")
+    return lines
+
+
+def http_post(base, path, x=None):
+    """POST ``x`` (a float32 array, as .npy) or nothing to ``base + path``;
+    the .npy or JSON reply."""
+    import io
+    import urllib.request
+    body = b""
+    if x is not None:
+        buf = io.BytesIO()
+        np.save(buf, x)
+        body = buf.getvalue()
+    req = urllib.request.Request(
+        base + path, data=body, method="POST",
+        headers={"Content-Type": "application/x-npy",
+                 "Accept": "application/x-npy"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        data = r.read()
+    if x is None:
+        return json.loads(data)
+    return np.load(io.BytesIO(data), allow_pickle=False)
+
+
+def http_case(tag, device, rng):
+    """``serve_http`` on the captured flagship predicts the serve CLI
+    makes (``serve_cli.warmed_predict_fns``: labels, probs and logits,
+    every bucket of HTTP_BUCKETS warmed, one graph a bucket shared by the
+    three), logits by default, micro-batched (HTTP_MICROBATCH rows,
+    pipeline 2): HTTP_CLIENTS threads of HTTP_REQUESTS requests of 1-16
+    images each, every response within HTTP_TOL of its request's eager
+    logits; then the same requests again, round and round, across a
+    reload to other weights through the CLI's reload path (a fresh model,
+    its predicts warmed before the swap): every response matches the old
+    or the new weights' eager logits, and every request sent after the
+    reload returned the new; /metrics' coalescing logged."""
+    import threading
+
+    from cnn_pde_tpu_torch.serve_cli import warmed_predict_fns
+    from cnn_pde_tpu_torch.serve_http import serve_http
+
+    warm = rng.random((8, 3, 32, 32), dtype=np.float32)
+
+    def warmed(model):
+        return warmed_predict_fns(model, HTTP_BUCKETS, warm)
+
+    images = {(c, j): rng.random((int(rng.integers(1, 17)), 3, 32, 32),
+                                 dtype=np.float32)
+              for c in range(HTTP_CLIENTS) for j in range(HTTP_REQUESTS)}
+    srv = serve_http(warmed(flagship(device)), port=0, background=True,
+                     default_output="logits", microbatch=HTTP_MICROBATCH,
+                     microbatch_pipeline=2,
+                     reload_fn=lambda: warmed(flagship(
+                         device, fields_seed=RELOAD_FIELDS_SEED)))
+    base = f"http://{srv.host}:{srv.port}"
+    replies, errors = [], []
+    stop = threading.Event()
+    reloaded = {}
+
+    def client(c, rounds):
+        k = 0
+        while k < rounds * HTTP_REQUESTS and not stop.is_set():
+            j = k % HTTP_REQUESTS
+            after = "s" in reloaded
+            try:
+                replies.append((c, j, http_post(base, "/predict",
+                                                images[(c, j)]),
+                                rounds > 1, after))
+            except Exception as e:  # every failure fails the phase
+                errors.append(e)
+                return
+            k += 1
+
+    def run(rounds, during=None):
+        threads = [threading.Thread(target=client, args=(c, rounds))
+                   for c in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        if during is not None:
+            during()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"HTTP clients failed: {errors[:3]}")
+
+    def reload_under_load():
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        answer = http_post(base, "/reload")
+        reloaded["s"] = time.perf_counter() - t0
+        if not answer["ok"]:
+            raise AssertionError(f"reload: {answer}")
+        time.sleep(0.5)
+        stop.set()
+
+    try:
+        t0 = time.perf_counter()
+        run(1)
+        load_s = time.perf_counter() - t0
+        before = http_metrics(base)
+        run(10**6, reload_under_load)
+        after = http_metrics(base)
+    finally:
+        srv.shutdown()
+    old = make_eager_predict_fn(flagship(device))
+    new = make_eager_predict_fn(flagship(device,
+                                         fields_seed=RELOAD_FIELDS_SEED))
+    refs = {}
+    worst = {"old": 0.0, "new": 0.0}
+    seen = {"old": 0, "new": 0}
+    for c, j, reply, across, sent_after in replies:
+        if (c, j) not in refs:
+            x = torch.from_numpy(images[(c, j)]).to(device)
+            refs[(c, j)] = (old(x).cpu(), new(x).cpu())
+        errs = {"old": rel_err(torch.from_numpy(reply), refs[(c, j)][0])}
+        if across:
+            errs["new"] = rel_err(torch.from_numpy(reply), refs[(c, j)][1])
+        side = min(errs, key=errs.get)
+        if errs[side] > HTTP_TOL or (sent_after and side != "new"):
+            raise AssertionError(
+                f"HTTP client {c} request {j} ({images[(c, j)].shape[0]} "
+                f"images, {'across the reload' if across else 'before it'}"
+                f"{', sent after it returned' if sent_after else ''}): "
+                f"{errs} of the largest entry from the eager logits of "
+                "each weights")
+        worst[side] = max(worst[side], errs[side])
+        seen[side] += 1
+    if not seen["new"]:
+        raise AssertionError("no response came from the reloaded weights")
+    log(f"[{tag}] HTTP: {HTTP_CLIENTS} clients x {HTTP_REQUESTS} requests "
+        f"of 1-16 images in {load_s:.2f} s, then "
+        f"{len(replies) - HTTP_CLIENTS * HTTP_REQUESTS} across a reload "
+        f"that took {reloaded['s']:.2f} s: {seen['old']} responses on the "
+        f"old weights (worst {worst['old']:.3e}), {seen['new']} on the new "
+        f"(worst {worst['new']:.3e}) of the largest entry (limit "
+        f"{HTTP_TOL:.0e}); /metrics before the reload {before}, after "
+        f"{after}")
+    return {"responses": seen, "worst": worst, "reload_s": reloaded["s"],
+            "load_s": load_s, "metrics_before_reload": before,
+            "metrics_after_reload": after}
+
+
+def http_metrics(base):
+    import urllib.request
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def http_cli_job():
+    """The serve CLI with --http 0 on cuda: it answers /healthz and one
+    /predict, then is terminated."""
+    import threading
+    import urllib.request
+    cmd = [sys.executable, "-u", "-m", "cnn_pde_tpu_torch.serve", "--preset",
+           "cifar10_noconv", "--http", "0", "--buckets", "1,8",
+           "--microbatch", "8", "--output", "logits"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    killer = threading.Timer(300, proc.kill)
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on http://"):
+            raise AssertionError(f"serve --http: {line!r} "
+                                 f"{proc.stderr.read()[-2000:]}")
+        base = line.split()[2]
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        x = np.random.default_rng(SEED + 60).random(
+            (3, 3, 32, 32)).astype(np.float32)
+        logits = http_post(base, "/predict", x)
+        if not health["ok"] or logits.shape != (3, 10) or not np.isfinite(
+                logits).all():
+            raise AssertionError(f"serve --http: {health}, {logits.shape}")
+    finally:
+        killer.cancel()
+        proc.terminate()
+        proc.wait(timeout=60)
+    return [f"[serving] python -m cnn_pde_tpu_torch.serve {' '.join(cmd[4:])} "
+            f"(default device cuda): /healthz {health}, /predict of 3 images "
+            f"-> {logits.shape} logits, then terminated"]
+
+
+def phase_serving(device):
+    """Serving, ROADMAP.md A13: the captured predict (``captured_case``) of
+    the flagship per-sweep, fused, and hoisted f32 and bf16 (cached) and
+    mnist per-sweep and fused; linearized serving (``linearize_case``) of
+    the flagship per-sweep (the basis on K1) and fused (on K2 at B = 3,072)
+    and mnist fused (on K6 at B = 784), the grade-by-batch rates of the
+    flagship and mnist; export (``export_case``); HTTP
+    (``http_case``); and three serve CLI runs queued for phase 12."""
+    tag, out = "serving", {}
+    rng = np.random.default_rng(SEED + 70)
+    cases = {
+        "flagship per_sweep": (lambda: flagship(device), (3, 32, 32),
+                               {"K1": 51}),
+        "flagship fused": (lambda: flagship(device, fused=True),
+                           (3, 32, 32), {"K2": 3}),
+        "flagship hoisted f32": (lambda: hoisted_cached(flagship(device),
+                                                        "f32"),
+                                 (3, 32, 32), {}),
+        "flagship hoisted bf16": (lambda: hoisted_cached(flagship(device),
+                                                         "bf16"),
+                                  (3, 32, 32), {}),
+        "mnist per_sweep": (lambda: grayscale_model(device), (1, 28, 28),
+                            {"K1": 30}),
+        "mnist fused": (lambda: grayscale_model(device,
+                                                fused_inference=True),
+                        (1, 28, 28), {"K6": 1}),
+    }
+    out["captured"] = {}
+    for label, (make, shape, per) in cases.items():
+        out["captured"][label.replace(" ", "_")] = captured_case(
+            tag, label, make, shape, per, rng, device)
+        torch.cuda.empty_cache()
+    # one configuration of each other family, held the same way (no rates)
+    families = {
+        "svhn hoisted bf16": (lambda: hoisted_cached(svhn_model(device),
+                                                     "bf16"),
+                              (3, 32, 32), {}, 10),
+        "emotion": (lambda: emotion_model(device), (1, 48, 48), {}, 7),
+        "tiny_imagenet": (lambda: tiny_model(device), (3, 64, 64), {}, 200),
+        "tiny_imagenet amp": (lambda: enable_amp_checked(tiny_model(device)),
+                              (3, 64, 64), {}, 200),
+        "hybrid exact": (lambda: hybrid_model(device, "exact"),
+                         (3, 32, 32), {"K1": 26}, 10),
+        "hybrid bf16": (lambda: hybrid_model(device, "bf16"), (3, 32, 32),
+                        {"K1": 26}, 10),
+        "hybrid amp (cached)": (lambda: cached(hybrid_model(device, "amp")),
+                                (3, 32, 32), {}, 10),
+    }
+    for label, (make, shape, per, classes) in families.items():
+        out["captured"][label.replace(" ", "_")] = captured_case(
+            tag, label, make, shape, per, rng, device, classes=classes,
+            rate_batches=())
+        torch.cuda.empty_cache()
+    out["linearized"] = {
+        "flagship_per_sweep": linearize_case(
+            tag, "flagship per_sweep", lambda: flagship(device),
+            (3, 32, 32), {"K1": 51}, rng, device, True),
+        "flagship_fused": linearize_case(
+            tag, "flagship fused", lambda: flagship(device, fused=True),
+            (3, 32, 32), {"K2": 3}, rng, device, False),
+        "mnist_fused": linearize_case(
+            tag, "mnist fused", lambda: grayscale_model(
+                device, fused_inference=True), (1, 28, 28), {"K6": 1}, rng,
+            device, True)}
+    out["grade_table"] = {
+        "flagship": grade_table(tag, "flagship (D = 3072)",
+                                out["linearized"]["flagship_per_sweep"]),
+        "mnist": grade_table(tag, "mnist (D = 784)",
+                             out["linearized"]["mnist_fused"])}
+    torch.cuda.empty_cache()
+    out["export"] = export_case(tag, device, rng)
+    out["http"] = http_case(tag, device, rng)
+    cli_later(tag, "cnn_pde_tpu_torch.serve", "cifar10_noconv",
+              "--linearize", "auto", "--buckets", "1,64,1024",
+              ok=lambda s: s["linearized_layers"] == 3
+              and s["linearize_grade"] == "auto"
+              and len(s["predictions"]) == 8)
+    path = os.path.join(A13_DIR, "cli.pt2")
+    cli_later(tag, "cnn_pde_tpu_torch.serve", "cifar10_noconv",
+              "--export", path,
+              ok=lambda s: s["exported"] == path
+              and os.path.getsize(path) > 0 and len(s["predictions"]) == 8)
+    http_cli_job.__name__ = "cnn_pde_tpu_torch.serve --http"
+    CLI_JOBS.append(http_cli_job)
     return out
 
 
@@ -3728,6 +4377,13 @@ KERNELS = [
 ]
 
 
+# the kernels registered as torch.library ops (the ones an eval forward
+# reaches, so that torch.export can trace it)
+OPS = {"K1": "cnn_pde_tpu_torch::thomas_solve",
+       "K2": "cnn_pde_tpu_torch::fused_channel_fwd",
+       "K6": "cnn_pde_tpu_torch::fused_grayscale_fwd"}
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, logging its wall time."""
     t0 = time.perf_counter()
@@ -3765,6 +4421,7 @@ def main():
     hybrid_steps = {grade: hybrid["train"][grade]["launches_per_train_step"]
                     for grade in ("bf16", "amp")}
     device_epoch = timed("device epoch", phase_device_epoch, device)
+    serving = timed("serving", phase_serving, device)
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
@@ -3825,11 +4482,31 @@ def main():
            "K6": {"mnist_launches_per_forward": 1},
            "K7": {"mnist_launches_per_train_step": 1},
            "K8": {"mnist_launches_per_train_step": 1}}
+    # this slice's paths: a captured predict's launches at warm-up and
+    # capture (three forwards a bucket, three buckets), and the
+    # linearize basis (each layer's forward once at B = D)
+    captured = serving["captured"]
+    linearized = serving["linearized"]
+    per["K1"]["captured_serve_launches"] = {
+        "flagship": captured["flagship_per_sweep"]["launches_at_capture"]
+        ["K1"], "mnist": captured["mnist_per_sweep"]["launches_at_capture"]
+        ["K1"]}
+    per["K1"]["linearize_basis_launches"] = linearized[
+        "flagship_per_sweep"]["basis_launches"]["K1"]
+    per["K2"]["captured_serve_launches"] = captured["flagship_fused"][
+        "launches_at_capture"]["K2"]
+    per["K2"]["linearize_basis_launches"] = linearized["flagship_fused"][
+        "basis_launches"]["K2"]
+    per["K6"]["captured_serve_launches"] = captured["mnist_fused"][
+        "launches_at_capture"]["K6"]
+    per["K6"]["linearize_basis_launches"] = linearized["mnist_fused"][
+        "basis_launches"]["K6"]
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
         row = {"name": f"{fn} ({key})", "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[key],
+               "replaces": replaces, "op": OPS.get(key),
+               "launches": launches[key],
                "max_abs_err": err[0] if isinstance(err, tuple) else err}
         if isinstance(err, tuple):
             row["max_rel_err_grads"] = err[1]
@@ -3859,6 +4536,7 @@ def main():
                   tiny["implicit_train"][1],
               "hybrid": hybrid, "trainer": trainer,
               "device_epoch": device_epoch,
+              "serving": serving,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

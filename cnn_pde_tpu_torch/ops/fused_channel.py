@@ -15,6 +15,11 @@ a block, one thread a (line, image) applies them; ``thomas_factors`` and
 ``thomas_apply`` are the plain mirror of that arithmetic, which the CPU
 tests hold against the plain version and the JAX package.  ``plan_tiles``
 spreads the batch over the blocks.
+
+K2 is registered as the op ``cnn_pde_tpu_torch::fused_channel_fwd``
+(``fused_channel_fwd_op``, with a fake implementation), so that
+``torch.export`` traces an eval forward that reaches it; the wrapper calls
+it on every device (its CPU implementation is the plain version).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from . import kernels
 from .tridiag import _sms, tridiag_solve_pcr
 
 __all__ = ["fused_channel_diffusion_fwd", "fused_channel_diffusion_plain",
+           "fused_channel_fwd_op",
            "Plan", "plan_tiles", "thomas_factors", "thomas_apply"]
 
 MAX_C = 8               # per-pixel mixing registers (csrc/channel_lines.cuh)
@@ -263,11 +269,47 @@ def launch_forward(u, alpha_base, alpha_tc, beta_base, beta_tc, mixing, *,
     return out
 
 
+torch.library.define(
+    "cnn_pde_tpu_torch::fused_channel_fwd",
+    "(Tensor u, Tensor alpha_base, Tensor alpha_tc, Tensor beta_base, "
+    "Tensor beta_tc, Tensor mixing, Tensor ts, float dt, float dx, "
+    "float dy, str splitting, float eps, float cmax) -> Tensor")
+
+
+@torch.library.impl("cnn_pde_tpu_torch::fused_channel_fwd", ("cpu", "cuda"))
+def _fused_channel_fwd_impl(u, alpha_base, alpha_tc, beta_base, beta_tc,
+                            mixing, ts, dt, dx, dy, splitting, eps, cmax):
+    """K2 as a registered op, so that ``torch.export`` can trace a forward
+    that reaches it: on a CUDA tensor the kernel (or, inside
+    ``plain_versions()``, its plain version), on a CPU tensor the plain
+    version.  Its output has u's shape, contiguous."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
+              cmax=cmax)
+    if not kernels.use_kernel(u):
+        return fused_channel_diffusion_plain(u, *fields, **kw).contiguous()
+    check_layer_args("fused_channel_diffusion_fwd", u, *fields, ts,
+                     splitting)
+    out = launch_forward(u, *fields, **kw)
+    fused_channel_diffusion_fwd.launches += 1
+    return out
+
+
+@torch.library.register_fake("cnn_pde_tpu_torch::fused_channel_fwd")
+def _(u, alpha_base, alpha_tc, beta_base, beta_tc, mixing, ts, dt, dx, dy,
+      splitting, eps, cmax):
+    return torch.empty_like(u, memory_format=torch.contiguous_format)
+
+
+fused_channel_fwd_op = torch.ops.cnn_pde_tpu_torch.fused_channel_fwd.default
+
+
 def fused_channel_diffusion_fwd(u, alpha_base, alpha_tc, beta_base, beta_tc,
                                 mixing, *, dt, dx, dy, ts,
                                 splitting="strang", eps=1e-6, cmax=10.0):
-    """K2 on a CUDA tensor; the plain version on a CPU tensor.  Forward
-    only: the trainable layer is ``fused_channel_vjp.fused_channel_diffusion``
+    """K2 on a CUDA tensor; the plain version on a CPU tensor
+    (``fused_channel_fwd_op``).  Forward only: the trainable layer is
+    ``fused_channel_vjp.fused_channel_diffusion``
     (``MixedChannelDiffusion(fused=True)``)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (u, alpha_base, alpha_tc, beta_base,
@@ -277,16 +319,9 @@ def fused_channel_diffusion_fwd(u, alpha_base, alpha_tc, beta_base, beta_tc,
             "gradient: use ops.fused_channel_vjp.fused_channel_diffusion")
     if splitting not in ("strang", "lie"):
         raise ValueError(f"splitting must be 'strang' or 'lie': {splitting!r}")
-    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
-              cmax=cmax)
-    fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
-    if not kernels.use_kernel(u):
-        return fused_channel_diffusion_plain(u, *fields, **kw)
-    check_layer_args("fused_channel_diffusion_fwd", u, *fields, ts,
-                     splitting)
-    out = launch_forward(u, *fields, **kw)
-    fused_channel_diffusion_fwd.launches += 1
-    return out
+    return fused_channel_fwd_op(u, alpha_base, alpha_tc, beta_base, beta_tc,
+                                mixing, ts, float(dt), float(dx), float(dy),
+                                splitting, float(eps), float(cmax))
 
 
 fused_channel_diffusion_fwd.launches = 0

@@ -17,6 +17,11 @@ every step and applies the factors, two threads a (line, image) that meet
 in the middle.  ``gray_factors`` and ``gray_solve`` are the plain mirror of
 that arithmetic, which the CPU tests hold against the TPU kernel's sweeps;
 ``plan_grayscale`` spreads the batch over the blocks.
+
+K6 is registered as the op ``cnn_pde_tpu_torch::fused_grayscale_fwd``
+(``fused_grayscale_fwd_op``, with a fake implementation), so that
+``torch.export`` traces an eval forward that reaches it; the wrapper calls
+it on every device (its CPU implementation is the plain version).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .smoothing import smooth3
 from .tridiag import _sms, tridiag_solve_pcr
 
 __all__ = ["fused_grayscale_diffusion_fwd", "fused_grayscale_diffusion_plain",
+           "fused_grayscale_fwd_op",
            "GrayPlan", "plan_grayscale", "gray_factors", "gray_solve"]
 
 # csrc/grayscale_lines.cuh: threads a block of a main kernel
@@ -295,11 +301,46 @@ def launch_forward(u, alpha_base, alpha_tc, beta_base, beta_tc, *, dt, dx,
     return out
 
 
+torch.library.define(
+    "cnn_pde_tpu_torch::fused_grayscale_fwd",
+    "(Tensor u, Tensor alpha_base, Tensor alpha_tc, Tensor beta_base, "
+    "Tensor beta_tc, Tensor ts, float dt, float dx, float dy, "
+    "float eps) -> Tensor")
+
+
+@torch.library.impl("cnn_pde_tpu_torch::fused_grayscale_fwd",
+                    ("cpu", "cuda"))
+def _fused_grayscale_fwd_impl(u, alpha_base, alpha_tc, beta_base, beta_tc,
+                              ts, dt, dx, dy, eps):
+    """K6 as a registered op, so that ``torch.export`` can trace a forward
+    that reaches it: on a CUDA tensor the kernel (or, inside
+    ``plain_versions()``, its plain version), on a CPU tensor the plain
+    version.  Its output has u's shape, contiguous."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
+    if not kernels.use_kernel(u):
+        return fused_grayscale_diffusion_plain(u, *fields, **kw).contiguous()
+    check_layer_args("fused_grayscale_diffusion_fwd", u, *fields, ts)
+    out = launch_forward(u, *fields, **kw)
+    fused_grayscale_diffusion_fwd.launches += 1
+    return out
+
+
+@torch.library.register_fake("cnn_pde_tpu_torch::fused_grayscale_fwd")
+def _(u, alpha_base, alpha_tc, beta_base, beta_tc, ts, dt, dx, dy, eps):
+    return torch.empty_like(u, memory_format=torch.contiguous_format)
+
+
+fused_grayscale_fwd_op = \
+    torch.ops.cnn_pde_tpu_torch.fused_grayscale_fwd.default
+
+
 def fused_grayscale_diffusion_fwd(u, alpha_base, alpha_tc, beta_base,
                                   beta_tc, *, dt, dx, dy, ts, eps=1e-6):
-    """K6 on a CUDA tensor; the plain version on a CPU tensor.  Forward
-    only: the trainable layer is ``fused_grayscale_vjp.
-    fused_grayscale_diffusion`` (``GrayscaleDiffusion(fused=True)``)."""
+    """K6 on a CUDA tensor; the plain version on a CPU tensor
+    (``fused_grayscale_fwd_op``).  Forward only: the trainable layer is
+    ``fused_grayscale_vjp.fused_grayscale_diffusion``
+    (``GrayscaleDiffusion(fused=True)``)."""
     fields = (alpha_base, alpha_tc, beta_base, beta_tc)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (u, *fields)):
@@ -307,13 +348,8 @@ def fused_grayscale_diffusion_fwd(u, alpha_base, alpha_tc, beta_base,
             "fused_grayscale_diffusion_fwd (K6) is the eval forward and has "
             "no gradient: use ops.fused_grayscale_vjp."
             "fused_grayscale_diffusion")
-    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
-    if not kernels.use_kernel(u):
-        return fused_grayscale_diffusion_plain(u, *fields, **kw)
-    check_layer_args("fused_grayscale_diffusion_fwd", u, *fields, ts)
-    out = launch_forward(u, *fields, **kw)
-    fused_grayscale_diffusion_fwd.launches += 1
-    return out
+    return fused_grayscale_fwd_op(u, *fields, ts, float(dt), float(dx),
+                                  float(dy), float(eps))
 
 
 fused_grayscale_diffusion_fwd.launches = 0

@@ -27,6 +27,14 @@ K1's and K3's arithmetic and of the fused kernels' line solves.
 of K1 and K3 are the Thomas recurrence, the reference the kernels are held
 against.
 
+K1 is registered as the op ``cnn_pde_tpu_torch::thomas_solve``
+(``thomas_solve_op``, with a fake implementation; ``torch.library.define``
+and ``impl``), so that
+``torch.export`` traces a forward that reaches it; ``_TridiagSolve`` and
+``tridiag_inverse_operator`` call it on every device (its CPU
+implementation is the plain version).  K3 appears in no eval forward and
+is not registered.
+
 The gradient (``_TridiagSolve.backward``): λ = T⁻ᵀg, grad_d = λ,
 grad_b = −Σ_batch λ∘x, grad_a[i] = −Σ λ[i]x[i−1], grad_c[i] = −Σ λ[i]x[i+1],
 with grad_a[0] = grad_c[N−1] = 0.  Whether the kernels or the plain versions
@@ -56,6 +64,7 @@ import torch
 from . import kernels
 
 __all__ = ["tridiag_solve", "tridiag_solve_plain", "tridiag_solve_pcr",
+           "thomas_solve_op",
            "pcr_factor", "pcr_apply", "tridiag_adjoint",
            "tridiag_adjoint_plain", "tridiag_inverse_operator",
            "tridiag_solve_precomputed", "tridiag_solve_with_operator",
@@ -252,12 +261,37 @@ def tridiag_adjoint(a, b, c, g, x, dim=-1):
 tridiag_adjoint.launches = 0
 
 
+torch.library.define(
+    "cnn_pde_tpu_torch::thomas_solve",
+    "(Tensor a, Tensor b, Tensor c, Tensor d, int dim) -> Tensor")
+
+
+@torch.library.impl("cnn_pde_tpu_torch::thomas_solve", ("cpu", "cuda"))
+def _thomas_solve_impl(a, b, c, d, dim):
+    """K1 as a registered op, so that ``torch.export`` can trace a forward
+    that reaches it: on a CUDA tensor the kernel (or, inside
+    ``plain_versions()``, its plain version), on a CPU tensor the plain
+    version.  Its output has d's shape, contiguous."""
+    if kernels.use_kernel(d):
+        return _thomas_kernel(a, b, c, d, dim)
+    return tridiag_solve_plain(a, b, c, d, dim).contiguous()
+
+
+@torch.library.register_fake("cnn_pde_tpu_torch::thomas_solve")
+def _(a, b, c, d, dim):
+    return torch.empty_like(d, memory_format=torch.contiguous_format)
+
+
+# the op's overload itself: calling it costs one dispatch (a
+# ``custom_op``'s Python wrapper costs about five times as much a call)
+thomas_solve_op = torch.ops.cnn_pde_tpu_torch.thomas_solve.default
+
+
 class _TridiagSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, c, d, dim):
         ctx.kernel = kernels.use_kernel(d)
-        x = (_thomas_kernel(a, b, c, d, dim) if ctx.kernel
-             else tridiag_solve_plain(a, b, c, d, dim))
+        x = thomas_solve_op(a, b, c, d, dim)
         ctx.dim = dim
         ctx.save_for_backward(a, b, c, x)
         return x
@@ -477,12 +511,16 @@ _IDENTITY: dict = {}
 def _identity_rhs(n, rows, device):
     """The identity as K1's right-hand side, (N, rows, N) with
     [k, r, i] = δ(k, i): made once for each (device, N, rows) and kept,
-    since every build of a stack of that shape reads the same one."""
+    since every build of a stack of that shape reads the same one.  Not
+    kept while ``torch.export`` traces: its tensors are not real."""
     key = (torch.device(device), n, rows)
-    if key not in _IDENTITY:
-        eye = torch.eye(n, dtype=torch.float32, device=device)
-        _IDENTITY[key] = eye[:, None, :].expand(n, rows, n).contiguous()
-    return _IDENTITY[key]
+    if key in _IDENTITY:
+        return _IDENTITY[key]
+    eye = torch.eye(n, dtype=torch.float32, device=device)
+    rhs = eye[:, None, :].expand(n, rows, n).contiguous()
+    if not torch.compiler.is_compiling():
+        _IDENTITY[key] = rhs
+    return rhs
 
 
 def tridiag_inverse_operator(a, b, c, dtype=torch.float32):
@@ -499,8 +537,7 @@ def tridiag_inverse_operator(a, b, c, dtype=torch.float32):
         a, b, c = (t.detach().reshape(-1, n).float().contiguous()
                    for t in (a, b, c))
         rhs = _identity_rhs(n, b.shape[0], b.device)
-        x = (_thomas_kernel(a, b, c, rhs, -1) if kernels.use_kernel(rhs)
-             else tridiag_solve_plain(a, b, c, rhs))
+        x = thomas_solve_op(a, b, c, rhs, -1)
         # x[k, r, i] = (T_r⁻¹)[i, k] = X[r, k, i]
         X = torch.empty((*shape, n), dtype=dtype, device=b.device)
         X.view(-1, n, n).copy_(x.transpose(0, 1))

@@ -67,6 +67,7 @@ from ..ops.fused_channel import fused_channel_diffusion_fwd
 from ..ops.fused_channel_vjp import fused_channel_diffusion
 from ..ops.fused_grayscale import fused_grayscale_diffusion_fwd
 from ..ops.fused_grayscale_vjp import fused_grayscale_diffusion
+from .linearize import linearized_apply
 
 __all__ = ["MixedChannelDiffusion", "GrayscaleDiffusion",
            "ChannelCoupledDiffusion"]
@@ -238,6 +239,9 @@ class MixedChannelDiffusion(nn.Module):
         self.channel_mixing.copy_(torch.eye(C) + noise)
 
     def forward(self, u):
+        lin = linearized_apply(self, u)
+        if lin is not None:
+            return lin
         eps, cmax = self.eps, self.clamp_max
         params = (self.alpha_base, self.alpha_time_coeff, self.beta_base,
                   self.beta_time_coeff, self.channel_mixing)
@@ -321,6 +325,9 @@ class GrayscaleDiffusion(nn.Module):
         self.beta_time_coeff.zero_()
 
     def forward(self, u):
+        lin = linearized_apply(self, u)
+        if lin is not None:
+            return lin
         x = u[:, 0]
         eps = self.eps
         fields = (self.alpha_base, self.alpha_time_coeff, self.beta_base,
@@ -412,6 +419,9 @@ class ChannelCoupledDiffusion(nn.Module):
         self.skip_weight.fill_(0.9)
 
     def forward(self, u):
+        lin = linearized_apply(self, u)
+        if lin is not None:
+            return lin
         u0 = u
         eps = self.eps
 

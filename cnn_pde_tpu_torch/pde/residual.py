@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.adi import sweep_x, sweep_y
 from ..ops.stencil import laplacian_step
+from .linearize import linearized_apply
 
 __all__ = ["ResidualDiffusion"]
 
@@ -54,6 +55,9 @@ class ResidualDiffusion(nn.Module):
         self.channel_scaling.fill_(1.0)
 
     def forward(self, u):
+        lin = linearized_apply(self, u)
+        if lin is not None:
+            return lin
         impl = None if self.solve_impl == "auto" else self.solve_impl
         for _ in range(self.num_steps):
             alpha_eff = self.alpha_base.clamp(self.eps, self.max_coeff)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.stencil import ftcs_evolve
+from .linearize import linearized_apply
 
 __all__ = ["FourierFTCSLayer"]
 
@@ -75,5 +76,8 @@ class FourierFTCSLayer(nn.Module):
         return alpha.to(dtype), beta.to(dtype)
 
     def forward(self, u):
+        lin = linearized_apply(self, u)
+        if lin is not None:
+            return lin
         alpha, beta = self.coefficient_grids()
         return ftcs_evolve(u[:, 0], alpha, beta, self.Nt)[:, None]

@@ -53,15 +53,19 @@ def _on_stream(stream, fn):
     current.wait_stream(stream)
 
 
-def _capture(bodies, stream, generator=None):
+def _capture(bodies, stream, generator=None, pool=None):
     """{key: CUDAGraph of ``bodies[key]()``}, captured on ``stream`` in one
-    memory pool, each reading ``generator``'s state at its replay."""
-    graphs, pool = {}, None
+    memory pool (``pool``, or a new one), each reading ``generator``'s
+    state at its replay.  Only this thread's calls are checked during the
+    capture: a server captures a new model's graphs while other threads
+    replay and copy out of the old one's."""
+    graphs = {}
     for key, body in bodies.items():
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
             body()
         pool = graph.pool()
         graphs[key] = graph

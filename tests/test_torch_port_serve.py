@@ -1,13 +1,19 @@
 """The port's serving path (cnn_pde_tpu_torch.serve) against the JAX package's
-on the CPU: predict outputs with and without shape buckets, the CLI's summary
-line, weights from a reference checkpoint, import hygiene, and the refusal
-to fall back to the CPU when no card is present.
+on the CPU: predict outputs with and without shape buckets, concurrent
+callers, the CLI's summary line and each of its flags against the JAX CLI
+on the same weights, the HTTP CLI with a reload on a changed checkpoint,
+weights from a reference checkpoint, import hygiene, and the refusal to fall
+back to the CPU when no card is present.
 """
 
+import io
 import json
 import os
+import queue
 import subprocess
 import sys
+import threading
+import urllib.request
 
 import jax
 import numpy as np
@@ -155,6 +161,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert enable_amp(ti) == 0 and cache_hoisted_operators(ti) == 0\n"
         "tx = np.random.default_rng(4).random((2, 3, 64, 64), np.float32)\n"
         "assert make_predict_fn(ti)(tx).shape == (2, 200)\n"
+        "from cnn_pde_tpu_torch.serve import (export_model, load_exported,\n"
+        "    linearize_pde_layers)\n"
+        "from cnn_pde_tpu_torch.pde.linearize import QuantizedMatrix\n"
+        "from cnn_pde_tpu_torch.serve_batch import MicroBatcher\n"
+        "from cnn_pde_tpu_torch.serve_http import serve_http\n"
+        "assert linearize_pde_layers(g, gx, dtype='int8') == 1\n"
+        "assert isinstance(g.diff.linear_cache, QuantizedMatrix)\n"
+        "with MicroBatcher(make_predict_fn(g, output='labels')) as mb:\n"
+        "    assert mb(gx).shape == (2,)\n"
+        "assert load_exported(export_model(g, gx))(gx).shape == (2, 10)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'cnn_pde_tpu' or k.startswith('cnn_pde_tpu.')]\n"
         "assert not bad, bad\n"
@@ -163,3 +179,155 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture(scope="module")
+def mnist_checkpoint(tmp_path_factory):
+    """JAX MNIST weights as a reference checkpoint both CLIs read, and the
+    same weights in the port."""
+    from cnn_pde_tpu.models import MNISTClassifier
+
+    model = MNISTClassifier()
+    params, state = jax.tree_util.tree_map(
+        np.asarray, jax.jit(model.init)(jax.random.PRNGKey(3)))
+    sd = state_dict_from_jax(params, state, "mnist")
+    path = tmp_path_factory.mktemp("ckpt") / "best_model.pth"
+    torch.save(sd, path)
+    port = build_model("mnist", device="cpu")
+    port.load_state_dict(sd, strict=True)
+    return path, port
+
+
+def test_concurrent_predicts_equal_serial_calls(mnist_checkpoint):
+    """Eight threads calling one predict (as the HTTP server's handlers
+    do) get what serial calls get."""
+    _, port = mnist_checkpoint
+    rng = np.random.default_rng(9)
+    xs = [rng.random((1 + i % 3, 1, 28, 28)).astype(np.float32)
+          for i in range(8)]
+    fn = make_predict_fn(port, buckets=(2, 4))
+    serial = [fn(x) for x in xs]
+    results = [[] for _ in xs]
+    barrier = threading.Barrier(len(xs))
+
+    def worker(i):
+        barrier.wait()
+        for _ in range(3):
+            results[i].append(fn(xs[i]))
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for want, got in zip(serial, results):
+        assert len(got) == 3 and all(torch.equal(g, want) for g in got)
+
+
+CLI_FLAGS = [("--linearize",), ("--linearize", "bf16"),
+             ("--linearize-int8",), ("--linearize-bf16", "--output", "probs"),
+             ("--linearize", "auto", "--buckets", "1,64,1024"),
+             ("--export", "{path}")]
+
+
+@pytest.mark.parametrize("flags", CLI_FLAGS,
+                         ids=lambda f: "_".join(a.strip("-") for a in f))
+def test_cli_flags_match_jax_cli(mnist_checkpoint, tmp_path, capsys,
+                                 monkeypatch, flags):
+    """Each new flag on --device cpu against the JAX CLI with the same
+    weights and smoke batch: the same summary keys in the same order, the
+    same values, and the same predictions."""
+    ckpt, _ = mnist_checkpoint
+    summaries = {}
+    for name in ("jax", "port"):
+        args = [a.format(path=tmp_path / f"{name}.export") for a in flags]
+        argv = ["--preset", "mnist", "--torch-checkpoint", str(ckpt), *args]
+        if name == "jax":
+            monkeypatch.setattr(sys, "argv", ["serve", *argv])
+            jax_serve_cli.main()
+        else:
+            port_cli_main([*argv, "--device", "cpu"])
+        summaries[name] = json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])
+    ours, theirs = summaries["port"], summaries["jax"]
+    assert list(ours) == list(theirs)
+    for key in ours:
+        if key in ("exported", "shape", "argmax", "predictions"):
+            continue
+        assert ours[key] == theirs[key], key
+    assert ours["linearized_layers"] == (1 if "linearize" in "".join(flags)
+                                         else 0)
+    if "predictions" in ours:
+        assert ours["predictions"] == theirs["predictions"]
+    else:
+        assert ours["shape"] == theirs["shape"]
+        assert ours["argmax"] == theirs["argmax"]
+    if "exported" in ours:
+        assert ours["exported"] == str(tmp_path / "port.export")
+        assert (tmp_path / "port.export").stat().st_size > 0
+
+
+def _lines(stream):
+    """A queue of ``stream``'s lines, read by a daemon thread."""
+    q = queue.Queue()
+
+    def pump():
+        for line in stream:
+            q.put(line)
+        q.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return q
+
+
+def _predict_npy(base, x):
+    buf = io.BytesIO()
+    np.save(buf, x)
+    req = urllib.request.Request(
+        f"{base}/predict", data=buf.getvalue(),
+        headers={"Content-Type": "application/x-npy",
+                 "Accept": "application/x-npy"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return np.load(io.BytesIO(r.read()), allow_pickle=False)
+
+
+def test_cli_http_microbatch_buckets_and_reload_watch(mnist_checkpoint,
+                                                      tmp_path):
+    """--http with --microbatch, --microbatch-wait-ms,
+    --microbatch-pipeline, --buckets and --reload-watch: the server
+    answers as the port's predict does; a new checkpoint is picked up by
+    the watcher, which builds a fresh model from it."""
+    ckpt, port = mnist_checkpoint
+    served = tmp_path / "served.pth"
+    served.write_bytes(ckpt.read_bytes())
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "cnn_pde_tpu_torch.serve", "--preset",
+         "mnist", "--device", "cpu", "--torch-checkpoint", str(served),
+         "--http", "0", "--microbatch", "4", "--microbatch-wait-ms", "5",
+         "--microbatch-pipeline", "1", "--buckets", "1,4",
+         "--reload-watch", "0.2", "--output", "logits"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = _lines(proc.stdout)
+    try:
+        first = lines.get(timeout=120)
+        assert first.startswith("serving on http://"), first
+        base = first.split()[2]
+        x = np.random.default_rng(4).random((3, 1, 28, 28)).astype(
+            np.float32)
+        got = _predict_npy(base, x)
+        want = make_predict_fn(port)(x).numpy()
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+        other = build_model("mnist", device="cpu",
+                            generator=torch.Generator().manual_seed(7))
+        torch.save(other.state_dict(), served)
+        line = lines.get(timeout=120)
+        assert "hot-swapped" in line, line
+        got = _predict_npy(base, x)
+        want = make_predict_fn(other)(x).numpy()
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
