@@ -161,6 +161,26 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    of its eager logits, and across the CLI's reload to other weights; the
    serve CLI with --linearize auto --buckets, --export and --http
    (queued);
+10d. analysis, the native loader and data parallel (ROADMAP.md A16 and
+   A15's data-parallel half): the evolution matrices of
+   ``utils/analysis.py`` (the basis of ``model_evolution_spectra``) on the
+   card for mnist per-sweep (30 K1) and fused (1 K6), with the host
+   spectra, and the flagship per-sweep (51 K1) and fused (3 K2), each
+   matrix within 1e-5 of its largest entry against the plain versions'
+   (mnist's spectral radius and sigma_max within 1e-5 relative);
+   ``evaluation_summary`` over ``Trainer.evaluate`` equal to the plain
+   versions' run; a host-loop mnist fused epoch fed by the C++ batcher
+   bit for bit against its batches fed by hand, and images/s with each
+   loader; ``make_predict_fn(mesh=)`` bit for bit against the meshless
+   predict at B in {1, 64, 1024}; a process group of one rank over NCCL
+   (tcp://127.0.0.1) with ``Trainer(mesh=make_mesh())`` on the host loop
+   and the device epoch (the all-reduce in the captured step) for fused
+   mnist at B = 128 and the per-sweep flagship at B = 64, against the
+   meshless Trainer (parameters 5e-5, loss 1e-5; bit for bit logged),
+   step ms and images/s of both, launch calls and NCCL kernels a
+   captured step; the sweep harness, 2 steps a configuration, with no
+   traceback; the train CLI with --dp --native-loader and the serve CLI
+   with --dp (queued);
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -3730,6 +3750,391 @@ def phase_serving(device):
     return out
 
 
+# ---- phase 10d: analysis, native loader and data parallel (A16, A15) -----
+
+# a basis matrix (and mnist's spectral radius and sigma_max) against the
+# same basis on the plain versions, of its largest entry: PERF.md §2's
+# linearize basis bar
+SPECTRUM_TOL = BASIS_TOL
+# a data-parallel Trainer over a process group of one rank against the
+# meshless Trainer: the JAX package's DP bars (tests/test_parallel.py).  In
+# a world of one the reductions add nothing and BatchNorm is torch's own,
+# so bit for bit is expected (and logged)
+DP_PARAM_TOL = 5e-5
+DP_LOSS_TOL = 1e-5
+DP_STEPS = 10        # steps of the compared epoch
+DP_TIMED_STEPS = 30  # steps of the timed epoch (each mode)
+DP_PREDICT_BATCHES = (1, 64, 1024)
+
+
+def spectrum_case(tag, label, model, shape, expect, host_spectra):
+    """``utils/analysis.py::evolution_matrices`` (the basis
+    ``model_evolution_spectra`` builds) on the card: its launches
+    (``expect``), each matrix within SPECTRUM_TOL of its largest entry
+    against the same run on the plain versions, the basis time (host
+    clock to a synchronise); with ``host_spectra`` the spectra
+    (``operator_spectrum``, numpy on the host) of the kernels' and the
+    plain versions' matrices, their spectral radius and sigma_max held
+    within SPECTRUM_TOL relative, and the host eigen time."""
+    from cnn_pde_tpu_torch.utils.analysis import (evolution_matrices,
+                                                  model_evolution_spectra,
+                                                  operator_spectrum)
+
+    evolution_matrices(model, shape)  # the kernels built and bound
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mats = evolution_matrices(model, shape)
+    torch.cuda.synchronize()
+    basis_s = time.perf_counter() - t0
+    got = counts()
+    if got != only(**expect):
+        raise AssertionError(f"{label}: basis launches {got}, expected "
+                             f"{expect}")
+    with kernels.plain_versions():
+        plain = evolution_matrices(model, shape)
+    out = {"layers": [name for name, _ in mats], "basis_launches": got,
+           "basis_s": basis_s, "dim": int(mats[0][1].shape[0])}
+    errs = [check_rel(f"{label} {name} evolution matrix ({m.shape[0]} x "
+                      f"{m.shape[1]}) vs plain versions", rel_err(m, p),
+                      SPECTRUM_TOL) for (name, m), (_, p) in zip(mats, plain)]
+    out["matrix_rel_err"] = max(errs)
+    if host_spectra:
+        t0 = time.perf_counter()
+        spectra = [operator_spectrum(m) for _, m in mats]
+        out["eigen_s"] = time.perf_counter() - t0
+        ref = [operator_spectrum(p) for _, p in plain]
+        for spec, want in zip(spectra, ref):
+            for key in ("spectral_radius", "sigma_max"):
+                check_rel(f"{label} {key} vs plain versions",
+                          abs(spec[key] - want[key]) / abs(want[key]),
+                          SPECTRUM_TOL, measure="difference",
+                          of="the plain versions'")
+        public = model_evolution_spectra(model, shape)
+        if [s for _, s in public] != spectra:
+            raise AssertionError(f"{label}: model_evolution_spectra differs "
+                                 "from the spectra of its matrices")
+        out["spectra"] = spectra
+        log(f"[{tag}] {label}: spectral radius "
+            f"{spectra[0]['spectral_radius']:.6f}, sigma_max "
+            f"{spectra[0]['sigma_max']:.6f}, stable {spectra[0]['stable']}")
+    log(f"[{tag}] {label}: basis {out['layers']} (D = {out['dim']}) in "
+        f"{basis_s:.3f} s on the card, launches {got}"
+        + (f"; host eigen and singular values {out['eigen_s']:.2f} s"
+           if host_spectra else "; no host eigen decomposition"))
+    return out
+
+
+def summary_case(tag, device):
+    """``evaluation_summary`` over ``Trainer.evaluate`` of mnist (per-sweep,
+    30 K1 a forward) on the card, equal to the same over the plain
+    versions' run."""
+    from cnn_pde_tpu_torch.utils.analysis import evaluation_summary
+
+    data = epoch_dataset("mnist", 128, SEED + 80)
+    trainer = Trainer(grayscale_model(device), TrainConfig(batch_size=128),
+                      GRAY_TRAIN)
+    state = trainer.init_state(1)
+    reset_counts()
+    ev = trainer.evaluate(state, data)
+    launched = counts()
+    with kernels.plain_versions():
+        ref = trainer.evaluate(state, data)
+    summary = evaluation_summary(ev["labels"], ev["predictions"], 10)
+    if (not launched["K1"] or summary != evaluation_summary(
+            ref["labels"], ref["predictions"], 10)):
+        raise AssertionError(f"{tag}: evaluation summary differs from the "
+                             f"plain versions' (launches {launched})")
+    log(f"[{tag}] evaluation_summary over Trainer.evaluate (mnist "
+        f"per-sweep, {len(ev['labels'])} images, {launched['K1']} K1 "
+        f"launches): accuracy {summary['accuracy']:.2f}%, equal to the "
+        "plain versions' run")
+    return {"accuracy": summary["accuracy"], "launches": launched}
+
+
+def native_case(tag, device):
+    """One host-loop mnist epoch (fused, B = 128, EPOCH_STEPS steps) fed
+    by the C++ batcher (``TrainConfig(native_loader=True)``) ends bit for
+    bit on the weights of the same step fed the same batches by hand; then
+    images/s of an epoch with each loader (CUDA events, after one warm-up
+    epoch)."""
+    from cnn_pde_tpu_torch.native import NativeBatcher
+
+    B = 128
+    data = epoch_dataset("mnist", B, SEED + 81)
+    steps = data.train_images.shape[0] // B
+
+    def trainer(native):
+        model = grayscale_model(device, fused_inference=True, fused=True)
+        config = TrainConfig.from_preset(GRAY_TRAIN, batch_size=B, seed=SEED,
+                                         native_loader=native,
+                                         log_every=10**9)
+        t = Trainer(model, config, GRAY_TRAIN)
+        return t, t.init_state(steps)
+
+    (nt, ns), (_, hs) = trainer(True), trainer(False)
+    reset_counts()
+    rec = nt.train_epoch(ns, data, 0, verbose=False)
+    launched = counts()
+    batches = NativeBatcher(data.train_images, data.train_labels, B,
+                            seed=SEED)
+    for x, y in batches:
+        hs.train_step(x, y)
+    torch.cuda.synchronize()
+    ref = hs.model.state_dict()
+    equal = all(torch.equal(v, ref[k]) for k, v in
+                ns.model.state_dict().items())
+    if not equal or not launched["K7"] or not np.isfinite(rec["loss"]):
+        raise AssertionError(f"{tag}: the native-loader epoch differs from "
+                             f"its batches fed by hand ({launched})")
+    rates = {}
+    for native in (True, False):
+        t, s = trainer(native)
+        t.train_epoch(s, data, 0, verbose=False)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t.train_epoch(s, data, 1, verbose=False)
+        stop.record()
+        stop.synchronize()
+        rates["native" if native else "numpy"] = (
+            1e3 * steps * B / start.elapsed_time(stop))
+    log(f"[{tag}] native loader: a {steps}-step mnist fused epoch "
+        f"(B = {B}) bit for bit against its batches fed by hand; "
+        f"{rates['native']:.1f} images/s with the native loader, "
+        f"{rates['numpy']:.1f} with numpy's (CUDA events over an epoch)")
+    return rates
+
+
+def _nccl_kernels(fn, device):
+    """(kernel launch calls, graph launches, NCCL kernels, device events)
+    of ``fn()`` by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    device_events = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+    host = prof.key_averages()
+    return (sum(r.count for r in host
+                if r.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))),
+            sum(r.count for r in host if r.key.startswith("cudaGraphLaunch")),
+            sum(1 for e in device_events if "nccl" in e.name.lower()),
+            len(device_events))
+
+
+def dp_case(tag, label, make_model, values, name, B, expect, mesh, device):
+    """``Trainer(mesh=)`` over the process group against the meshless
+    Trainer from the same seeded model, on the host loop and the device
+    epoch: an epoch of DP_STEPS steps ends within DP_PARAM_TOL of each
+    tensor's largest entry and the epoch's mean loss within DP_LOSS_TOL;
+    the device epoch captured the step (the all-reduce in its graph);
+    then step ms and images/s of each over DP_TIMED_STEPS steps (CUDA
+    events), and launch calls, graph launches and NCCL kernels of a
+    profiled captured epoch of EPOCH_PROFILE_STEPS steps."""
+    data = epoch_dataset(name, B, SEED + 82)
+    out = {}
+    for device_epoch in (False, True):
+        mode = "graph" if device_epoch else "host"
+
+        def trainer(m):
+            config = TrainConfig.from_preset(
+                values, epochs=3, batch_size=B, seed=SEED,
+                max_steps_per_epoch=DP_STEPS, device_epoch=device_epoch,
+                log_every=10**9)
+            t = Trainer(make_model(), config, values, mesh=m)
+            return t, t.init_state(DP_STEPS)
+
+        (dt_, ds), (rt, rs) = trainer(mesh), trainer(None)
+        reset_counts()
+        rec = dt_.train_epoch(ds, data, 0, verbose=False)
+        launched = counts()
+        ref = rt.train_epoch(rs, data, 0, verbose=False)
+        if not all(launched[k] for k in expect):
+            raise AssertionError(f"{label} {mode}: launches {launched}")
+        if (device_epoch and device.type == "cuda"
+                and dt_._runner.graphs is None):
+            raise AssertionError(f"{label}: no CUDA graph captured")
+        ref_sd = rs.model.state_dict()
+        params = {k for k, _ in ds.model.named_parameters()}
+        sd = ds.model.state_dict()
+        bitwise = sum(torch.equal(t, ref_sd[k]) for k, t in sd.items())
+        worst, where = max((rel_err(t, ref_sd[k]), k) for k, t in sd.items()
+                           if k in params)
+        buffers = max(((rel_err(t, ref_sd[k]), k) for k, t in sd.items()
+                       if k not in params and t.is_floating_point()),
+                      default=(0.0, None))
+        loss_err = abs(rec["loss"] - ref["loss"])
+        check_rel(f"{label} {mode} DP ({mesh.world} rank, NCCL) vs meshless "
+                  f"after {DP_STEPS} steps (worst: {where})", worst,
+                  DP_PARAM_TOL)
+        check(f"{label} {mode} DP vs meshless epoch mean loss", loss_err,
+              DP_LOSS_TOL)
+        ev, ref_ev = dt_.evaluate(ds, data), rt.evaluate(ds, data)
+        if not np.array_equal(ev["predictions"], ref_ev["predictions"]):
+            raise AssertionError(f"{label} {mode}: DP eval predictions "
+                                 "differ from the meshless eval's")
+        res = {"launches": launched, "worst_rel_err": worst,
+               "worst_where": where,
+               "loss_err": loss_err, "buffers_rel_err": buffers[0],
+               "buffers_where": buffers[1], "bitwise_tensors": bitwise,
+               "tensors": len(sd)}
+        for which, t, s in (("dp", dt_, ds), ("meshless", rt, rs)):
+            t.config.max_steps_per_epoch = DP_TIMED_STEPS
+            t.train_epoch(s, data, 1, verbose=False)  # a new chunk size
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t.train_epoch(s, data, 2, verbose=False)
+            stop.record()
+            stop.synchronize()
+            ms = start.elapsed_time(stop) / DP_TIMED_STEPS
+            res[which] = {"step_ms": ms, "images_per_s": 1e3 * B / ms}
+            if device_epoch:
+                t.config.max_steps_per_epoch = EPOCH_PROFILE_STEPS
+                calls, graphs, nccl, events = _nccl_kernels(
+                    lambda: t.train_epoch(s, data, 3, verbose=False),
+                    device)
+                res[which].update({
+                    "launch_calls_per_step": calls / EPOCH_PROFILE_STEPS,
+                    "graph_launches_per_step": graphs / EPOCH_PROFILE_STEPS,
+                    "nccl_kernels_per_step": (nccl / EPOCH_PROFILE_STEPS
+                                              if events else None)})
+        log(f"[{tag}] {label} B={B} {mode}: DP over {mesh.world} NCCL rank "
+            f"vs meshless after {DP_STEPS} steps: {bitwise} of {len(sd)} "
+            f"tensors bit for bit, worst parameter {where} {worst:.3e}, "
+            f"buffer {buffers[1]} {buffers[0]:.3e}, loss {loss_err:.3e}; "
+            f"launches {launched}; "
+            + "; ".join(f"{w} {r['step_ms']:.3f} ms a step, "
+                        f"{r['images_per_s']:.1f} images/s"
+                        + (f", {r['launch_calls_per_step']:g} launch calls "
+                           f"+ {r['graph_launches_per_step']:g} graph "
+                           f"launches, NCCL kernels "
+                           f"{r['nccl_kernels_per_step']} a step "
+                           "(profiled captured epoch)"
+                           if "launch_calls_per_step" in r else "")
+                        for w, r in (("dp", res["dp"]),
+                                     ("meshless", res["meshless"]))))
+        out[mode] = res
+    return out
+
+
+def dp_predict_case(tag, device):
+    """``make_predict_fn(mesh=)`` over this process's cards (one replica a
+    card) against the meshless predict, bit for bit, at
+    DP_PREDICT_BATCHES; a bucket the 'data' axis does not divide raises
+    (with more than one card)."""
+    from cnn_pde_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    model = grayscale_model(device, fused_inference=True)
+    rng = np.random.default_rng(SEED + 83)
+    meshless = make_predict_fn(model, output="probs")
+    fn = make_predict_fn(model, output="probs", mesh=mesh)
+    for B in DP_PREDICT_BATCHES:
+        x = seeded_batch(rng, B, (1, 28, 28), device)
+        if not torch.equal(fn(x), meshless(x)):
+            raise AssertionError(f"{tag}: mesh predict B={B} differs")
+    log(f"[{tag}] make_predict_fn(mesh=) over {mesh.size} card(s) (mnist "
+        f"fused): bit for bit against the meshless predict at B = "
+        f"{', '.join(map(str, DP_PREDICT_BATCHES))}")
+    return {"replicas": mesh.size}
+
+
+def sweep_case(tag, device):
+    """``utils/sweep.py::compare_spatial_discretizations`` on the card, 2
+    steps a configuration; a traceback printed by ``compare_configs`` (a
+    configuration that failed) fails the phase."""
+    import io
+    from cnn_pde_tpu_torch.utils.sweep import (
+        compare_spatial_discretizations, format_table)
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        results = compare_spatial_discretizations(epochs=1, steps=2,
+                                                  device=device,
+                                                  batch_size=64)
+    if "Traceback" in err.getvalue():
+        raise AssertionError(f"{tag}: a sweep configuration failed:\n"
+                             f"{err.getvalue()[-3000:]}")
+    log(f"[{tag}] sweep harness ({time.perf_counter() - t0:.1f} s):\n"
+        f"{format_table(results)}")
+    return {r["description"]: r["accuracy"] for r in results}
+
+
+def phase_analysis_dp(device):
+    """Analysis, the native loader and data parallelism (ROADMAP.md A16 and
+    A15's data-parallel half): the evolution spectra's bases on the card
+    (``spectrum_case``: mnist per-sweep, 30 K1, and fused, 1 K6, with the
+    host spectra; the flagship per-sweep, 51 K1, and fused, 3 K2, the
+    matrices only: one host eigen decomposition at D = 3,072 takes
+    minutes), ``evaluation_summary`` over ``Trainer.evaluate``
+    (``summary_case``), the native loader (``native_case``), the mesh
+    predict (``dp_predict_case``), then a process group of one rank over
+    NCCL (tcp://127.0.0.1, a free port) with ``Trainer(mesh=make_mesh())``
+    on fused mnist at B = 128 and the per-sweep flagship at B = 64
+    (``dp_case``), the sweep harness (``sweep_case``), and the train CLI
+    with --dp --native-loader and the serve CLI with --dp (queued)."""
+    import socket
+
+    from cnn_pde_tpu_torch.parallel import initialize, make_mesh
+
+    tag, out = "analysis-dp", {}
+    out["spectra"] = {
+        "mnist_per_sweep": spectrum_case(
+            tag, "mnist per_sweep", grayscale_model(device), (1, 28, 28),
+            {"K1": 30}, True),
+        "mnist_fused": spectrum_case(
+            tag, "mnist fused", grayscale_model(device,
+                                                fused_inference=True),
+            (1, 28, 28), {"K6": 1}, True),
+        "flagship_per_sweep": spectrum_case(
+            tag, "flagship per_sweep", flagship(device), (3, 32, 32),
+            {"K1": 51}, False),
+        "flagship_fused": spectrum_case(
+            tag, "flagship fused", flagship(device, fused=True),
+            (3, 32, 32), {"K2": 3}, False)}
+    torch.cuda.empty_cache()
+    out["summary"] = summary_case(tag, device)
+    out["native"] = native_case(tag, device)
+    out["predict"] = dp_predict_case(tag, device)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outcome = initialize(f"tcp://127.0.0.1:{port}", num_processes=1,
+                         process_id=0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        log(f"[{tag}] process group: {outcome}, NCCL, mesh {mesh.shape} "
+            f"on {mesh.device}")
+        out["dp"] = {
+            "mnist_fused_B128": dp_case(
+                tag, "mnist fused", lambda: grayscale_model(
+                    device, fused_inference=True, fused=True), GRAY_TRAIN,
+                "mnist", 128, ("K7", "K8"), mesh, device),
+            "flagship_per_sweep_B64": dp_case(
+                tag, "flagship per_sweep", lambda: flagship(device), TRAIN,
+                "cifar10", 64, ("K1", "K3"), mesh, device)}
+    finally:
+        torch.distributed.destroy_process_group()
+    out["sweep"] = sweep_case(tag, device)
+    cli_later(tag, "cnn_pde_tpu_torch.train", "mnist", "--synthetic",
+              "--dp", "--native-loader", "--epochs", "1", "--steps", "3",
+              "--batch-size", "16", "--quiet",
+              ok=lambda s: s["devices"] == 1 and s["native_loader"]
+              and s["steps"] == 3 and s["device"].startswith("cuda")
+              and np.isfinite(s["last_loss"]))
+    cli_later(tag, "cnn_pde_tpu_torch.serve", "mnist", "--dp",
+              ok=lambda s: s["devices"] == torch.cuda.device_count()
+              and len(s["predictions"]) == 8)
+    return out
+
+
 def trainer_cli(*args, popen=False):
     """The train CLI with ``args`` on the default device (cuda), unbuffered:
     its summary line, or (``popen``) the running process."""
@@ -4422,6 +4827,8 @@ def main():
                     for grade in ("bf16", "amp")}
     device_epoch = timed("device epoch", phase_device_epoch, device)
     serving = timed("serving", phase_serving, device)
+    analysis_dp = timed("analysis, native loader and data parallel",
+                        phase_analysis_dp, device)
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
@@ -4501,6 +4908,21 @@ def main():
         "launches_at_capture"]["K6"]
     per["K6"]["linearize_basis_launches"] = linearized["mnist_fused"][
         "basis_launches"]["K6"]
+    # this slice's paths: the spectra's bases and the data-parallel steps
+    # over the one-rank NCCL group (host loop, 10 steps)
+    spectra = analysis_dp["spectra"]
+    dp = analysis_dp["dp"]
+    for key, case in (("K1", "mnist_per_sweep"), ("K6", "mnist_fused")):
+        per[key]["spectrum_basis_launches"] = spectra[case][
+            "basis_launches"][key]
+    per["K1"]["flagship_spectrum_basis_launches"] = spectra[
+        "flagship_per_sweep"]["basis_launches"]["K1"]
+    per["K2"]["spectrum_basis_launches"] = spectra["flagship_fused"][
+        "basis_launches"]["K2"]
+    for key, case in (("K1", "flagship_per_sweep_B64"),
+                      ("K3", "flagship_per_sweep_B64"),
+                      ("K7", "mnist_fused_B128"), ("K8", "mnist_fused_B128")):
+        per[key]["dp_host_loop_launches"] = dp[case]["host"]["launches"][key]
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
@@ -4537,6 +4959,7 @@ def main():
               "hybrid": hybrid, "trainer": trainer,
               "device_epoch": device_epoch,
               "serving": serving,
+              "analysis_dp": analysis_dp,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -6,8 +6,10 @@ in-memory dataset (``pipeline``)."""
 from .augment import AugmentSpec
 from .pipeline import ArrayDataset, balance_classes, synthetic_dataset
 from .real import NORMALIZATION, load_dataset
-from .synthetic import SYNTHETIC_SPECS, make_synthetic
+from .synthetic import (SYNTHETIC_SPECS, make_synthetic,
+                        write_synthetic_tiny_imagenet)
 
 __all__ = ["AugmentSpec", "ArrayDataset", "balance_classes",
            "synthetic_dataset", "NORMALIZATION", "load_dataset",
-           "SYNTHETIC_SPECS", "make_synthetic"]
+           "SYNTHETIC_SPECS", "make_synthetic",
+           "write_synthetic_tiny_imagenet"]

@@ -51,11 +51,15 @@ class AugmentSpec:
 
 
 def draw(spec: AugmentSpec, shape, generator: torch.Generator,
-         device) -> dict:
+         device, rows=None) -> dict:
     """Every random number the augmentation of a batch of ``shape``
     (B, C, H, W) needs, one per image, from ``generator`` (which must live
-    on ``device``)."""
+    on ``device``).  ``rows`` = (rank, world): the numbers of a global
+    batch of ``world`` blocks of B images, drawn as a single device draws
+    them, and the rank's block kept (a data-parallel step)."""
     batch, _, height, width = shape
+    rank, world = rows or (0, 1)
+    local, batch = batch, batch * world
 
     def uniform(lo, hi):
         return lo + (hi - lo) * torch.rand(batch, generator=generator,
@@ -92,6 +96,8 @@ def draw(spec: AugmentSpec, shape, generator: torch.Generator,
                                        math.log(ERASE_RATIO[1]))
         d["erase_oy"] = randint(height)
         d["erase_ox"] = randint(width)
+    if world > 1:
+        d = {k: v[rank * local:(rank + 1) * local] for k, v in d.items()}
     return d
 
 
@@ -276,7 +282,9 @@ def apply(spec: AugmentSpec, images, d: dict):
     return x
 
 
-def augment(spec: AugmentSpec, images, generator: torch.Generator):
-    """Draw from ``generator`` and apply: the train step's augmentation."""
+def augment(spec: AugmentSpec, images, generator: torch.Generator,
+            rows=None):
+    """Draw from ``generator`` and apply: the train step's augmentation
+    (``rows``: see ``draw``)."""
     return apply(spec, images, draw(spec, images.shape, generator,
-                                    images.device))
+                                    images.device, rows))

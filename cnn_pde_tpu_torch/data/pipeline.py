@@ -5,8 +5,9 @@ The datasets stay host numpy arrays: each epoch's shuffle is a permutation
 from ``np.random.default_rng(seed)``, the train batches keep a fixed shape
 (the last partial batch dropped) and take their augmentation and
 normalisation on the device inside the train step; eval batches are
-normalised here (the deterministic test transform).  The native
-prefetching batcher is ROADMAP.md A16.
+normalised here (the deterministic test transform).  ``native=True``
+takes the train batches from the C++ prefetching batcher
+(``native/binding.py``), the JAX package's shuffle.
 """
 
 from __future__ import annotations
@@ -60,12 +61,17 @@ class ArrayDataset:
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Shuffled fixed-shape batches of raw [0, 1] images, the
         permutation from ``np.random.default_rng(seed)``, the remainder
-        dropped.  ``native=True`` (the C++ batcher) raises: ROADMAP.md
-        A16."""
+        dropped.  ``native=True``: the C++ prefetching batcher's batches
+        (a producer thread gathers the next batch while the device runs
+        the current step), the JAX package's native shuffle of the same
+        seed; it raises when the batcher cannot be built, with no
+        fallback to the numpy path."""
         if native:
-            raise NotImplementedError(
-                "the native prefetching batcher is not ported yet: "
-                "ROADMAP.md A16")
+            from ..native import NativeBatcher
+
+            yield from NativeBatcher(self.train_images, self.train_labels,
+                                     batch_size, seed=seed)
+            return
         n = self.train_images.shape[0]
         perm = np.random.default_rng(seed).permutation(n)
         for i in range(0, n - batch_size + 1, batch_size):

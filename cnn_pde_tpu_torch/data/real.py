@@ -12,8 +12,8 @@ Layouts under ``data_dir`` (torchvision's):
                                             val/{images,val_annotations.txt}}
 
 Images come back as float32 NCHW in [0, 1] and labels as int32: the same
-arrays as the JAX package's loaders for the same files.  Downloading
-(``data/fetch.py`` there) is ROADMAP.md A16.
+arrays as the JAX package's loaders for the same files.  ``data/fetch.py``
+downloads them into these layouts.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Deterministic procedural stand-ins for the ported datasets (MNIST,
 Fashion-MNIST, CIFAR-10) — the port's own copy of
-``cnn_pde_tpu/data/synthetic.py::make_synthetic`` (numpy only), so that
-training runs with no dataset on disk.
+``cnn_pde_tpu/data/synthetic.py`` (numpy only; PIL imported inside the
+writer), so that training runs with no dataset on disk, and
+``write_synthetic_tiny_imagenet`` puts the Tiny-ImageNet stand-in on disk
+in the dataset's folder layout.
 
 Images are float32 NCHW in [0, 1] (the post-ToTensor convention), labels
 int32; the same arrays as the JAX package's for the same arguments.
@@ -11,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SYNTHETIC_SPECS", "make_synthetic"]
+__all__ = ["SYNTHETIC_SPECS", "make_synthetic",
+           "write_synthetic_tiny_imagenet"]
 
 # dataset name: (channels, size, num_classes)
 SYNTHETIC_SPECS = {"mnist": (1, 28, 10), "fashion_mnist": (1, 28, 10),
@@ -90,3 +93,36 @@ def make_synthetic(name, *, train_per_class=20, test_per_class=5, seed=0):
     train = build(train_per_class, 0)
     test = build(test_per_class, 10_000)
     return train[0], train[1], test[0], test[1]
+
+
+def write_synthetic_tiny_imagenet(root_dir, *, num_classes=200,
+                                  train_per_class=20, val_total=1000):
+    """Write the synthetic dataset in the on-disk ``tiny-imagenet-200``
+    layout (per-class ``train/<id>/images/*.JPEG``, ``val/images/*.JPEG``
+    and ``val/val_annotations.txt``), the JAX package's files, names,
+    annotation lines and pixels, so that the folder loader runs without
+    the download.  Returns the dataset's root."""
+    import os
+
+    from PIL import Image
+
+    base = os.path.join(root_dir, "tiny-imagenet-200")
+    for c in range(num_classes):
+        class_id = f"n{c:08d}"
+        cdir = os.path.join(base, "train", class_id, "images")
+        os.makedirs(cdir, exist_ok=True)
+        for j in range(train_per_class):
+            img = _pattern_image(64, 3, c, j, num_classes)
+            Image.fromarray(img).save(os.path.join(cdir,
+                                                   f"{class_id}_{j}.JPEG"))
+
+    val_dir = os.path.join(base, "val", "images")
+    os.makedirs(val_dir, exist_ok=True)
+    with open(os.path.join(base, "val", "val_annotations.txt"), "w") as f:
+        for i in range(val_total):
+            c = i % num_classes
+            class_id = f"n{c:08d}"
+            img = _pattern_image(64, 3, c, i + 1000, num_classes)
+            Image.fromarray(img).save(os.path.join(val_dir, f"val_{i}.JPEG"))
+            f.write(f"val_{i}.JPEG\t{class_id}\t0\t0\t64\t64\n")
+    return base

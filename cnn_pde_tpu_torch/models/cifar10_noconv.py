@@ -31,30 +31,40 @@ __all__ = ["MultiScaleExtractor", "EnhancedFC", "CIFAR10PDENoConv",
 class Dropout(nn.Module):
     """Inverted dropout, as the JAX layer: in training keep each activation
     with probability 1 − p and scale it by 1/(1 − p), with the mask drawn
-    from ``self.generator``."""
+    from ``self.generator``.  ``self.rows`` = (rank, world), set by a
+    data-parallel step (``set_dropout_generator(rows=)``): the mask is
+    drawn for the global batch of ``world`` equal blocks and this rank's
+    block kept, so the ranks together draw the single-device mask."""
 
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
         self.generator = None
+        self.rows = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        draw = torch.rand(x.shape, generator=self.generator, device=x.device,
-                          dtype=x.dtype)
+        b = x.shape[0]
+        rank, world = self.rows or (0, 1)
+        draw = torch.rand((b * world,) + tuple(x.shape[1:]),
+                          generator=self.generator, device=x.device,
+                          dtype=x.dtype)[rank * b:(rank + 1) * b]
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
     def extra_repr(self):
         return f"p={self.p}"
 
 
-def set_dropout_generator(model, generator):
-    """Draw every Dropout mask of ``model`` from ``generator``."""
+def set_dropout_generator(model, generator, rows=None):
+    """Draw every Dropout mask of ``model`` from ``generator``; ``rows`` =
+    (rank, world) draws each for the global batch and keeps the rank's
+    block (a data-parallel step)."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.rows = rows
 
 
 class MultiScaleExtractor(nn.Module):

@@ -31,6 +31,7 @@ for every predict of that model: the graphs' buffers are not reentrant.
 
 from __future__ import annotations
 
+import copy
 import io
 import math
 import threading
@@ -218,7 +219,55 @@ class _CapturedPredict:
             return static_out[self.output][:n].clone()
 
 
-def make_predict_fn(model, output="logits", buckets=None):
+class _MeshPredict:
+    """``make_predict_fn(mesh=)``: one replica of the model a device of the
+    mesh's 'data' axis, all in this process (the model itself on its own
+    device, a copy on each other), each with its own predict (on the card
+    its own CUDA graph a batch size).  A request is padded to its bucket,
+    split into equal blocks of rows in device order, each block predicted
+    by its replica, and the outputs concatenated on the model's device:
+    no collective.  The replicas copy the weights when the predict is
+    made."""
+
+    def __init__(self, model, output, buckets, mesh):
+        if mesh.group is not None:
+            raise ValueError(
+                "make_predict_fn(mesh=): serving under a mesh runs in one "
+                "process, a replica a device; this mesh spans the ranks of "
+                "a process group, whose devices are not all local to this "
+                "process")
+        self.data = int(mesh.shape["data"])
+        self.sizes = sorted(int(b) for b in buckets) if buckets else []
+        bad = [b for b in self.sizes if b % self.data]
+        if bad:
+            raise ValueError(
+                f"buckets {bad} not divisible by the 'data' axis size "
+                f"{self.data} (required for --dp batch sharding)")
+        self.device = _device(model)
+        replicas, own = [], False
+        for dev in mesh.devices.flat:
+            if dev == self.device and not own:
+                replicas.append(model)
+                own = True
+            else:
+                replicas.append(copy.deepcopy(model).to(dev))
+        self.replicas = replicas
+        self.fns = [make_predict_fn(r, output) for r in replicas]
+
+    def __call__(self, images):
+        x = _batch(images, self.device)
+        n = x.shape[0]
+        target = _bucket(n, self.sizes)
+        if target % self.data:
+            raise ValueError(
+                f"batch {target} not divisible by the 'data' axis size "
+                f"{self.data} (required for batch sharding)")
+        blocks = _pad(x, target).split(target // self.data)
+        outs = [fn(b) for fn, b in zip(self.fns, blocks)]
+        return torch.cat([o.to(self.device) for o in outs])[:n]
+
+
+def make_predict_fn(model, output="logits", buckets=None, mesh=None):
     """output: 'logits' | 'probs' | 'labels'.
 
     ``buckets``: optional batch sizes to pad requests up to (the last row
@@ -231,7 +280,14 @@ def make_predict_fn(model, output="logits", buckets=None):
     model shares (``_CapturedPredict``); it is safe to call from several
     threads.  On a CPU model it runs eagerly.  The weights enter
     as the module's own storage (the JAX ``bind='args'``); there is no
-    ``bind`` argument."""
+    ``bind`` argument.
+
+    ``mesh`` (``parallel.make_mesh()`` outside a process group): batched
+    data-parallel serving over the mesh's 'data' axis, one replica a local
+    device (``_MeshPredict``); a batch or bucket that the axis does not
+    divide raises, and so does a mesh over a process group's ranks."""
+    if mesh is not None:
+        return _MeshPredict(model, output, buckets, mesh)
     if _device(model).type == "cuda":
         return _CapturedPredict(model, output, buckets)
     return make_eager_predict_fn(model, output, buckets)

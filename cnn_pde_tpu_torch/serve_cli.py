@@ -4,7 +4,7 @@
         [--torch-checkpoint model.pth | --checkpoint-dir DIR [--tag best]] \
         [--input batch.npy] [--amp] [--linearize [f32|bf16|int8|auto]] \
         [--export model.pt2] [--http PORT [--microbatch N] [--buckets ...]] \
-        [--device cuda]
+        [--dp] [--device cuda]
 
 Runs on the card unless ``--device cpu`` is given; without CUDA it exits
 non-zero rather than carry on on the CPU.  With no ``--input`` it predicts on
@@ -32,8 +32,13 @@ the JAX CLI's smoke batch and prints the same summary line.
   fresh model from the weight source, pins its caches again and warms its
   predicts before they are swapped in.
 
-``--dp`` is the parallel layer's (ROADMAP.md A15); the JAX ``--platform``
-is ``--device`` here.
+* ``--dp`` serves data-parallel in this process: one replica of the
+  model a visible card (or the CPU with ``--device cpu``), each request's
+  rows split into equal blocks over them (``make_predict_fn(mesh=)``); the
+  one-shot request and the HTTP server both go through it, and every
+  bucket must divide by the replicas.
+
+The JAX ``--platform`` is ``--device`` here.
 """
 
 from __future__ import annotations
@@ -44,16 +49,17 @@ import os
 import sys
 
 
-def warmed_predict_fns(model, buckets, images):
+def warmed_predict_fns(model, buckets, images, mesh=None):
     """The HTTP server's predict fns of ``model``, one an output, with every
     bucket (or ``images``' batch) run once before they take traffic: on the
     card that captures the model's graph of each, which the three outputs
-    share.  The server's start and every reload call this."""
+    share.  The server's start and every reload call this.  ``mesh``: the
+    fns serve over its replicas (``make_predict_fn(mesh=)``)."""
     import numpy as np
 
     from .serve import make_predict_fn
 
-    fns = {o: make_predict_fn(model, output=o, buckets=buckets)
+    fns = {o: make_predict_fn(model, output=o, buckets=buckets, mesh=mesh)
            for o in ("labels", "probs", "logits")}
     for fn in fns.values():
         for b in (buckets or (images.shape[0],)):
@@ -120,6 +126,9 @@ def main(argv=None):
                     help="with --http: poll the weight source every SECS "
                          "and hot-swap on change; 0 = off, reload stays "
                          "available via POST /reload")
+    ap.add_argument("--dp", action="store_true",
+                    help="shard each request's rows over one replica a "
+                         "visible device, in this process")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
     args = ap.parse_args(argv)
@@ -133,7 +142,8 @@ def main(argv=None):
     from .pde import enable_amp
     from .presets import SYNTHETIC_SPECS, get_preset
     from .serve import (cache_hoisted_operators, export_model,
-                        linearize_pde_layers, make_eager_predict_fn)
+                        linearize_pde_layers, make_eager_predict_fn,
+                        make_predict_fn)
     from .train.checkpoint import model_state_dict
 
     device = torch.device(args.device)
@@ -191,6 +201,17 @@ def main(argv=None):
                 serve_batch_size=serve_batch)
         return model, restored, n_cached, n_linearized
 
+    mesh = None
+    if args.dp:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(devices=[device] if device.type == "cpu" else None)
+        data = mesh.shape["data"]
+        bad = [b for b in (buckets or (images.shape[0],)) if b % data]
+        if bad:
+            sys.exit(f"--buckets {bad} not divisible by the 'data' axis "
+                     f"size {data} (required for --dp batch sharding)")
+
     model, restored, n_cached, n_linearized = load_model()
     if args.amp:
         # the summary's keys are the JAX CLI's; the route goes to stderr
@@ -208,23 +229,25 @@ def main(argv=None):
         elif args.checkpoint_dir:
             watch_paths = [os.path.join(args.checkpoint_dir,
                                         f"{args.tag}.ckpt")]
-        serve_http(warmed_predict_fns(model, buckets, images),
+        serve_http(warmed_predict_fns(model, buckets, images, mesh),
                    port=args.http,
                    default_output=args.output,
                    microbatch=args.microbatch,
                    microbatch_wait_ms=args.microbatch_wait_ms,
                    microbatch_pipeline=args.microbatch_pipeline,
                    reload_fn=lambda: warmed_predict_fns(
-                       load_model()[0], buckets, images),
+                       load_model()[0], buckets, images, mesh),
                    reload_watch_paths=(watch_paths if args.reload_watch > 0
                                        else None),
                    reload_watch_interval=args.reload_watch)
         return
 
     # one request: eager (a captured predict would warm and capture a
-    # graph to answer it)
-    out = make_eager_predict_fn(model, output=args.output)(
-        images).cpu().numpy()
+    # graph to answer it), or through the replicas with --dp
+    predict = (make_predict_fn(model, output=args.output, mesh=mesh)
+               if mesh is not None else
+               make_eager_predict_fn(model, output=args.output))
+    out = predict(images).cpu().numpy()
 
     summary = {
         "preset": preset["name"],
@@ -234,7 +257,7 @@ def main(argv=None):
         "amp_cached_layers": n_cached,
         "linearized_layers": n_linearized,
         "linearize_grade": grade,
-        "devices": 1,
+        "devices": mesh.size if mesh is not None else 1,
     }
     if args.export:
         summary["exported"] = args.export

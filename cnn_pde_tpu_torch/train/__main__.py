@@ -6,8 +6,8 @@
         [--checkpoint-dir DIR [--checkpoint-every N] [--async-checkpoint] \\
          [--resume]] [--metrics-out run/metrics.jsonl] [--bn-refresh K] \\
         [--amp] [--bf16-moments] [--init-from-torch model.pth] [--seed 0] \\
-        [--summary] [--debug-nans] [--quiet] [--no-preemption-handler] \\
-        [--device cuda]
+        [--summary] [--debug-nans] [--native-loader] [--quiet] \\
+        [--no-preemption-handler] [--dp] [--device cuda]
 
 Runs ``Trainer.fit`` on the card unless ``--device cpu`` is given; without
 CUDA it exits non-zero rather than carry on on the CPU.  The dataset is
@@ -22,7 +22,14 @@ at the next eval boundary with a 'last' checkpoint (unless
 trains the bf16 AMP grade (``pde.enable_amp``); ``--bf16-moments`` keeps
 AdamW's moments in bf16.  ``--summary`` prints the per-subtree parameter
 table; ``--debug-nans`` stops at the first step whose loss or gradients
-are not finite, naming it (``utils/debug.py``).  Prints the JAX CLI's
+are not finite, naming it (``utils/debug.py``).  ``--native-loader``
+feeds the host loop from the C++ prefetching batcher (``native/``).
+``--dp`` trains data-parallel over a process group, one process a device:
+under torchrun (``torchrun --nproc_per_node=N -m cnn_pde_tpu_torch.train
+--dp ...``), or, started alone, as a world of one over a local port
+(NCCL on the card, gloo with ``--device cpu``); ``--batch-size`` is the
+global batch, and only rank 0 prints.  ``--tp`` and ``--spatial`` exit
+non-zero (ROADMAP.md A15).  Prints the JAX CLI's
 summary JSON line (preset, best_acc, wall_s, epochs, and bn_refresh_acc
 or preempted when they apply) with the port's own keys beside: the
 device, the dataset's source, the batch, the steps run, the first and
@@ -102,6 +109,15 @@ def main(argv=None):
                     help="raise at the first step whose loss or gradients "
                          "are not finite, naming it (one host sync a step; "
                          "a chunk with --device-epoch)")
+    ap.add_argument("--native-loader", action="store_true",
+                    help="use the C++ prefetching batcher")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel over a process group, one process "
+                         "a device (torchrun, or a world of one)")
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="tensor parallelism: not ported (ROADMAP.md A15)")
+    ap.add_argument("--spatial", type=int, default=1, metavar="N",
+                    help="spatial parallelism: not ported (ROADMAP.md A15)")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
@@ -130,7 +146,20 @@ def main(argv=None):
         sys.exit(f"cnn_pde_tpu_torch.train: checkpoint backend "
                  f"{args.checkpoint_backend!r} has no PyTorch counterpart; "
                  "use 'pickle' (torch.save)")
+    if args.tp != 1 or args.spatial != 1:
+        sys.exit("cnn_pde_tpu_torch.train: --tp and --spatial (tensor and "
+                 "spatial parallelism) are not ported yet: ROADMAP.md A15")
     verbose = not args.quiet
+    mesh = None
+    if args.dp:
+        mesh = _dp_mesh(device)
+        device = mesh.device
+        verbose = verbose and mesh.rank == 0
+        if verbose:
+            print(f"Mesh: data={mesh.shape['data']}"
+                  f" x spatial={mesh.shape['spatial']}"
+                  f" x model={mesh.shape['model']} ({mesh.size} devices)")
+    leader = mesh is None or mesh.rank == 0
 
     preset = get_preset(args.preset)
     values = preset["train"]
@@ -171,8 +200,9 @@ def main(argv=None):
         values, epochs=epochs, batch_size=batch_size, seed=args.seed,
         grad_accum=args.grad_accum, max_steps_per_epoch=args.steps,
         moment_dtype=torch.bfloat16 if args.bf16_moments else None,
-        device_epoch=args.device_epoch, debug_nans=args.debug_nans)
-    trainer = Trainer(model, config, values)
+        device_epoch=args.device_epoch, debug_nans=args.debug_nans,
+        native_loader=args.native_loader)
+    trainer = Trainer(model, config, values, mesh=mesh)
     state = trainer.init_state(steps_per_epoch)
     if args.resume and args.checkpoint_dir:
         tag = ("last" if os.path.exists(
@@ -232,6 +262,8 @@ def main(argv=None):
         "gemm_route": (gemm_route(torch.bfloat16, device) if args.amp
                        else None),
         "bf16_moments": args.bf16_moments,
+        "native_loader": args.native_loader,
+        "devices": mesh.size if mesh is not None else 1,
     }
     if args.bn_refresh and not result["preempted"]:
         # refresh the best model, which fit's best_acc describes; without a
@@ -247,11 +279,32 @@ def main(argv=None):
             print(f"BN refresh ({args.bn_refresh} passes, {which}): test "
                   f"acc {refreshed:.2f}%")
         out["bn_refresh_acc"] = round(refreshed, 2)
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and leader:
             save_checkpoint(args.checkpoint_dir, state, tag="bn_refreshed")
     if result["preempted"]:
         out["preempted"] = True
-    print(json.dumps(out))
+    if leader:
+        print(json.dumps(out))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+
+
+def _dp_mesh(device):
+    """The data-parallel mesh of ``--dp``: the process group torchrun
+    configured, or a world of this process alone over a free local port;
+    NCCL on the card, gloo on the CPU."""
+    import socket
+
+    from ..parallel import initialize, make_mesh
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if initialize(backend=backend) == "single_process":
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                   backend=backend)
+    return make_mesh()
 
 
 if __name__ == "__main__":

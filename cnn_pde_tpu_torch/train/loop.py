@@ -25,9 +25,18 @@ the next eval.  Its eval keeps the test split on the device and replays a
 captured forward a batch.  On a CPU model the same loop runs its bodies
 without a graph, and ends on the host loop's weights bit for bit.
 
-Not ported yet, each raising with its ROADMAP.md item: the mesh, tensor-
-and spatial-parallel arguments (A15) and the native loader (A16; with
-``device_epoch`` it is ignored with a warning, as in JAX).
+``TrainConfig(native_loader=True)`` feeds the host loop from the C++
+prefetching batcher (``native/``); with ``device_epoch`` it is ignored
+with a warning, as in JAX.
+
+``Trainer(mesh=make_mesh())`` inside a process group (one process a
+device: torchrun, or ``parallel.initialize``) is the JAX data-parallel
+Trainer: ``batch_size`` is the global batch, each rank keeps the split and
+takes its rows of each global batch (host loop and device epoch alike),
+its step reduces across the ranks (``parallel/data_parallel.py``), eval
+gathers every rank's predictions, and checkpoints are written by rank 0
+behind a barrier and restored on every rank.  Tensor and spatial
+parallelism (``tp=``, ``image_spec=``) raise with ROADMAP.md A15.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..utils import debug
@@ -112,7 +122,7 @@ class TrainConfig:
     early_stop_patience: Optional[int] = None  # in evals (emotion 10)
     log_every: int = 100         # batches between log lines
     seed: int = 0
-    native_loader: bool = False  # ROADMAP.md A16
+    native_loader: bool = False  # the C++ batcher feeds the host loop
     grad_accum: int = 1          # micro-batches an update (optax.MultiSteps)
     moment_dtype: Optional[torch.dtype] = None  # AdamW's m and v storage
     device_epoch: bool = False   # the split on the device, a CUDA graph
@@ -170,13 +180,22 @@ class Trainer:
         schedule and optimizer settings; ``augment`` None for none).
         ``schedule``: the learning rate by update count; by default the
         preset's over the updates of an epoch, which ``init_state`` fixes
-        from the dataset.  ``mesh``, ``tp`` and ``image_spec`` raise
-        (ROADMAP.md A15)."""
-        if mesh is not None or tp or image_spec is not None:
-            _refuse("Trainer(mesh=, tp=, image_spec=)", "A15")
-        if config.native_loader and not config.device_epoch:
-            _refuse("TrainConfig(native_loader=True)", "A16")
-        if config.native_loader:
+        from the dataset.  ``mesh``: data-parallel training over the
+        mesh's process group (the model on this rank's device); ``tp`` and
+        ``image_spec`` raise (ROADMAP.md A15)."""
+        if tp or image_spec is not None:
+            _refuse("Trainer(tp=, image_spec=)", "A15")
+        self.mesh = mesh
+        self.rows = None  # (rank, world) of a data-parallel run
+        if mesh is not None and mesh.group is not None:
+            self.rows = (mesh.rank, mesh.world)
+            for name, b in (("batch_size", config.batch_size),
+                            ("eval batch", config.eval_bs)):
+                if b % mesh.world:
+                    raise ValueError(
+                        f"{name} {b} is not divisible by the 'data' axis "
+                        f"size {mesh.world}")
+        if config.native_loader and config.device_epoch:
             warnings.warn("device_epoch=True bypasses the native loader "
                           "(batching happens on device); native_loader "
                           "is ignored.")
@@ -205,10 +224,14 @@ class Trainer:
         schedule = self.schedule or make_schedule(
             self.train_values, max(1, steps_per_epoch // k))
         generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        if self.rows is not None:  # every rank starts from rank 0's weights
+            from ..parallel.data_parallel import replicate
+
+            replicate(self.mesh, self.model)
         step = make_train_step(self.model, self.train_values,
                                steps_per_epoch, generator,
                                optimizer=optimizer, schedule=schedule,
-                               grad_accum=k)
+                               grad_accum=k, mesh=self.mesh)
         return TrainState(self.model, optimizer, step, generator)
 
     # ---------------- epoch drivers ----------------
@@ -224,11 +247,16 @@ class Trainer:
                                               verbose=verbose)[0]
         t0 = time.time()
         losses, accs = [], []  # device scalars, fetched at the epoch's end
+        batch_kwargs = {"native": True} if cfg.native_loader else {}
         for bi, (images, labels) in enumerate(
-                dataset.train_batches(cfg.batch_size, seed=cfg.seed + epoch)):
+                dataset.train_batches(cfg.batch_size, seed=cfg.seed + epoch,
+                                      **batch_kwargs)):
             if (cfg.max_steps_per_epoch is not None
                     and bi >= cfg.max_steps_per_epoch):
                 break
+            if self.rows is not None:  # this rank's rows
+                lo, hi = self._block(images.shape[0])
+                images, labels = images[lo:hi], labels[lo:hi]
             loss, acc = state.train_step(images, labels)
             if cfg.debug_nans:
                 debug.check_step(loss, state.model, state.step)
@@ -242,6 +270,12 @@ class Trainer:
                  .cpu().numpy() if losses else np.zeros((2, 0), np.float32))
         dt = time.time() - t0  # after the fetch, which waits for the device
         return _epoch_record(stats, epoch, dt, 1, verbose)
+
+    def _block(self, n):
+        """This rank's rows [lo, hi) of a global batch of ``n``."""
+        from ..parallel.data_parallel import _rows
+
+        return _rows(self.mesh, n)
 
     # ---------------- the device epoch ----------------
 
@@ -285,12 +319,15 @@ class Trainer:
         t0 = time.time()
         tables = [self._epoch_indices(n, epoch0 + e) for e in range(n_epochs)]
         idx = np.concatenate(tables)
+        if self.rows is not None:  # this rank's rows of each batch
+            lo, hi = self._block(cfg.batch_size)
+            idx = idx[:, lo:hi]
         step0 = state.step
         runner = self._runner
         if (runner is None or runner.step is not state.train_step
                 or runner.capacity < idx.shape[0]):
             runner = self._runner = EpochRunner(
-                state.train_step, images, labels, cfg.batch_size,
+                state.train_step, images, labels, idx.shape[1],
                 idx.shape[0])
         # the updates of the whole run, which the learning-rate table covers
         horizon = cfg.epochs * tables[0].shape[0] // state.train_step.k + 1
@@ -313,6 +350,8 @@ class Trainer:
         the predictions and labels as numpy arrays.  With ``device_epoch``
         the split stays on the device and a captured forward is replayed a
         batch (``_evaluate_on_device``)."""
+        if self.rows is not None:
+            return self._evaluate_on_mesh(state, dataset, split=split)
         if self.config.device_epoch and hasattr(dataset, "eval_arrays"):
             return self._evaluate_on_device(state, dataset, split=split)
         model = state.model
@@ -360,6 +399,48 @@ class Trainer:
         return {"acc": 100.0 * correct / max(labels.shape[0], 1),
                 "predictions": preds, "labels": labels}
 
+    def _evaluate_on_mesh(self, state: TrainState, dataset, *, split):
+        """Eval under a data-parallel mesh: the split padded to an
+        eval-batch multiple, each rank's rows of every batch through the
+        model (a captured forward a batch with ``device_epoch``), the
+        predictions gathered from every rank once and put back in order."""
+        from ..parallel.data_parallel import _gather_rows
+
+        images, labels = dataset.eval_arrays(split)
+        n = images.shape[0]
+        bs = self.config.eval_bs
+        world = self.mesh.world
+        nb = max(-(-n // bs), 1)
+        padded = np.zeros((nb * bs,) + images.shape[1:], np.float32)
+        padded[:n] = images
+        per = bs // world
+        local = torch.as_tensor(np.ascontiguousarray(
+            padded.reshape((nb, world, per) + images.shape[1:])
+            [:, self.mesh.rank])).to(self.device)
+        if self.config.device_epoch:
+            cached = self._dev_eval.get(split)
+            if (cached is None or cached[0] is not dataset
+                    or cached[1].model is not state.model):
+                runner = EvalRunner(state.model, local.reshape(
+                    (nb * per,) + images.shape[1:]), per)
+                self._dev_eval[split] = (dataset, runner)
+            preds = torch.as_tensor(self._dev_eval[split][1].run()).to(
+                self.device)
+        else:
+            model = state.model
+            model.eval()
+            with torch.inference_mode():
+                preds = torch.cat([model(local[i]).argmax(dim=-1)
+                                   for i in range(nb)])
+        with torch.no_grad():
+            gathered = _gather_rows(self.mesh, preds.reshape(1, nb * per))
+        preds = (gathered.reshape(world, nb, per).permute(1, 0, 2)
+                 .reshape(-1)[:n].cpu().numpy())
+        labels = np.ascontiguousarray(labels)
+        correct = int(np.sum(preds == labels))
+        return {"acc": 100.0 * correct / max(n, 1), "predictions": preds,
+                "labels": labels}
+
     def refresh_bn_stats(self, state: TrainState, dataset, *, batches=66,
                          batch_size=None, seed=0):
         """Precise-BN refresh: recompute every BatchNorm's running
@@ -397,7 +478,11 @@ class Trainer:
         try:
             with torch.no_grad():
                 for i in range(batches):
-                    model(stack[i])
+                    if self.rows is not None:  # this rank's rows
+                        lo, hi = self._block(bs)
+                        model(stack[i][lo:hi])
+                    else:
+                        model(stack[i])
         finally:
             for m in norms:
                 m.eval()
@@ -428,6 +513,8 @@ class Trainer:
 
         cfg = self.config
         save = save_checkpoint_async if checkpoint_async else save_checkpoint
+        if self.rows is not None:
+            save = _rank0_saver(save, self.mesh)
         fuse = (cfg.device_epoch and cfg.multi_epoch_dispatch
                 and hasattr(dataset, "train_arrays"))
         best_acc, patience_count = 0.0, 0
@@ -521,8 +608,23 @@ class Trainer:
             history.extend(stats_list)
         if checkpoint_async and checkpoint_dir is not None:
             wait_for_checkpoints()
+            if self.rows is not None:
+                dist.barrier(group=self.mesh.group)
         return {"best_acc": best_acc, "history": history,
                 "preempted": preempted}
+
+
+def _rank0_saver(save, mesh):
+    """``save`` run by rank 0 alone, every rank then waiting at a barrier
+    (an asynchronous save is waited for at the end of ``fit``, before its
+    own barrier)."""
+
+    def saver(*args, **kwargs):
+        if mesh.rank == 0:
+            save(*args, **kwargs)
+        dist.barrier(group=mesh.group)
+
+    return saver
 
 
 def _epoch_record(stats, epoch, dt, chunk, verbose, log_every=None):

@@ -57,7 +57,7 @@ def preset_optimizer(model, train_values, moment_dtype=None):
 
 def make_train_step(model, train_values, steps_per_epoch, generator, *,
                     optimizer=None, moment_dtype=None, schedule=None,
-                    grad_accum=1):
+                    grad_accum=1, mesh=None):
     """``step(images, labels) -> (loss, acc)``, both 0-d tensors on the
     model's device: a ``TrainStep``.
 
@@ -77,10 +77,14 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
     of k, and every k-th step the mean is clipped and applied once; the
     schedule advances once an update.  ``step.state_dict()`` and
     ``step.load_state_dict(d)`` carry the update count, the micro-step and
-    the running mean across a checkpoint."""
+    the running mean across a checkpoint.
+
+    ``mesh`` (``parallel.make_mesh()`` inside a process group): the step
+    of one rank of a data-parallel run, called on its rows of each global
+    batch (``parallel/data_parallel.py``)."""
     return TrainStep(model, train_values, steps_per_epoch, generator,
                      optimizer=optimizer, moment_dtype=moment_dtype,
-                     schedule=schedule, grad_accum=grad_accum)
+                     schedule=schedule, grad_accum=grad_accum, mesh=mesh)
 
 
 class TrainStep:
@@ -105,7 +109,7 @@ class TrainStep:
 
     def __init__(self, model, train_values, steps_per_epoch, generator, *,
                  optimizer=None, moment_dtype=None, schedule=None,
-                 grad_accum=1):
+                 grad_accum=1, mesh=None):
         self.device = device = next(model.parameters()).device
         self.model = model
         self.generator = generator
@@ -129,7 +133,18 @@ class TrainStep:
         if self.k < 1:
             raise ValueError(f"grad_accum must be at least 1: {grad_accum}")
         self.params = list(model.parameters())
-        set_dropout_generator(model, generator)
+        # over a process group, this rank's part of the global step
+        # (parallel/data_parallel.py): its share of the loss, the summed
+        # gradients, global BatchNorm statistics and global draws
+        self.reducer = None
+        if mesh is not None:
+            from ..parallel.data_parallel import StepReducer, _check_mesh
+
+            _check_mesh(mesh)
+            if mesh.group is not None:
+                self.reducer = StepReducer(mesh, model, self.params)
+        self.rows = self.reducer.rows if self.reducer is not None else None
+        set_dropout_generator(model, generator, rows=self.rows)
         self.capturable = isinstance(self.optimizer, OptaxAdamW)
         self.updates = self.micro = 0  # the host's counts
         self.micro_t = torch.zeros((), device=device)
@@ -184,11 +199,14 @@ class TrainStep:
         model = self.model
         model.train()
         if self.spec is not None:
-            x = augment(self.spec, x, self.generator)
+            x = augment(self.spec, x, self.generator, self.rows)
         logits = model(x)
         loss = cross_entropy(logits, y, self.smoothing)
         if self.alphas is not None:
             loss = loss + hybrid_pde_regularization(model, *self.alphas)
+        if self.reducer is not None:
+            # this rank's share: its rows' sum over the global batch
+            loss = loss / self.reducer.world
         grads = [p.grad for p in self.params if p.grad is not None]
         if grads:
             torch._foreach_zero_(grads)
@@ -200,6 +218,11 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         with torch.no_grad():
+            if self.reducer is not None:
+                acc = (logits.argmax(dim=-1) == y).float().mean()
+                loss, acc = self.reducer.reduce(
+                    [p.grad for p in self.params], loss.detach(),
+                    acc / self.reducer.world)
             if self.k > 1:
                 self._accumulate(apply)
             if apply:
@@ -214,7 +237,8 @@ class TrainStep:
                                        self.schedule(self.updates))
                 self.optimizer.step()
                 self.update_t.add_(1)
-            acc = (logits.argmax(dim=-1) == y).float().mean()
+            if self.reducer is None:
+                acc = (logits.argmax(dim=-1) == y).float().mean()
         return loss.detach(), acc
 
     def _accumulate(self, apply):

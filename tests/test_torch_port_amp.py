@@ -53,6 +53,17 @@ from cnn_pde_tpu_torch.train.__main__ import main as train_main
 from cnn_pde_tpu_torch.train.optim import (OptaxAdamW, ParamGroup,
                                            set_learning_rates)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 PRESETS = ["cifar10_noconv", "mnist", "fashion_mnist", "svhn"]
 # (JAX class, port class, keywords, input shape): the JAX test's cases
 LAYERS = {

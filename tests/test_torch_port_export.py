@@ -32,6 +32,17 @@ from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
                                      linearize_pde_layers, load_exported,
                                      make_predict_fn)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPS = {"thomas_solve": torch.ops.cnn_pde_tpu_torch.thomas_solve,
        "fused_channel_fwd": torch.ops.cnn_pde_tpu_torch.fused_channel_fwd,

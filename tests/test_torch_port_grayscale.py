@@ -47,6 +47,17 @@ from cnn_pde_tpu_torch.train import (build_optimizer, cross_entropy,
 from cnn_pde_tpu_torch.train.__main__ import main as train_main
 from tests.golden.reference_numpy import grayscale_forward_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 PRESET_NAMES = ["mnist", "fashion_mnist"]
 JAX_MODELS = {"mnist": JaxMNIST, "fashion_mnist": JaxFashion}
 # the layer of each preset: (dt, num_steps, init_value)

@@ -10,8 +10,8 @@ sums, the JAX test's); bf16 storage at rtol and atol 2e-2 and int8 (W8A8)
 at 2e-2 of the largest entry (the JAX tests' grades); int8 ``q`` equal to
 JAX's except at exact .5 ties (both round half to even), its scale within
 1e-7 relative and the int8 apply on identical ``(q, scale)`` within 1e-6
-of the largest entry; emotion's logits (about 1e4 at random init) at 1e-4
-of the largest entry.
+of the largest entry.  The grade selection and emotion's classifier are
+in ``test_torch_port_linearize_grades.py``.
 """
 
 
@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from cnn_pde_tpu.models import CIFAR10PDENoConv as JaxFlagship
-from cnn_pde_tpu.models import EmotionClassifier as JaxEmotion
 from cnn_pde_tpu.nn.core import Ctx
 from cnn_pde_tpu.pde import ChannelCoupledDiffusion as JaxCoupled
 from cnn_pde_tpu.pde import FourierFTCSLayer as JaxFTCS
@@ -43,12 +42,24 @@ from cnn_pde_tpu_torch.pde import (ChannelCoupledDiffusion, FourierFTCSLayer,
 from cnn_pde_tpu_torch.pde.linearize import (QuantizedMatrix, _apply_mat,
                                              capture_linearized,
                                              quantize_int8)
-import cnn_pde_tpu_torch.serve as serve_module
 from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
                                      clear_linear_cache,
                                      clear_operator_cache,
-                                     linearize_pde_layers, make_predict_fn,
-                                     select_linearize_grade)
+                                     linearize_pde_layers, make_predict_fn)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """This file's tests on two intra-op threads, the default restored
+    after.  Tier-1 runs six test processes at once on the machine's cores,
+    and torch's default of one thread a core in each makes their threads
+    wait on one another (a ResNet-18 step measured 18x slower in six
+    processes at once than at two threads each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
 
 # (name, JAX layer, port layer, input shape): the JAX tests' seven layers
 LAYERS = [
@@ -193,10 +204,23 @@ def test_int8_quantization_matches_jax():
     assert out.dtype == np.float32 and _rel(out, ref) <= 2e-2
 
 
+def _flagship_pdes(port):
+    return [getattr(port.feature_extractor, f"pde{i}") for i in (1, 2, 3)]
+
+
+def _pin(port, mats):
+    """Pin the flagship's three matrices as ``linearize_pde_layers`` does."""
+    for layer, mat in zip(_flagship_pdes(port), mats):
+        layer.linear_cache = mat
+
+
 @pytest.fixture(scope="module")
 def flagship():
     """The JAX flagship (time coefficients moved off 0) and the port with
-    its weights, and a batch of 3."""
+    its weights, a batch of 3, the port's probs on it before linearizing,
+    and its three (3072, 3072) matrices, built once (each is the identity
+    basis through a layer's 17 or 26 sweeps on the CPU's plain versions)
+    and shared by the tests below."""
     rng = np.random.default_rng(5)
     model = JaxFlagship()
     params, state = jax.tree_util.tree_map(
@@ -209,14 +233,17 @@ def flagship():
     port = build_model("cifar10_noconv", device="cpu")
     port.load_state_dict(state_dict_from_jax(params, state), strict=True)
     x = rng.random((3, 3, 32, 32)).astype(np.float32)
-    return model, params, state, port, x
+    ref = make_predict_fn(port, output="probs")(x).numpy()
+    assert linearize_pde_layers(port, x) == 3
+    mats = [layer.linear_cache for layer in _flagship_pdes(port)]
+    assert clear_linear_cache(port) == 3
+    return model, params, state, port, x, ref, mats
 
 
 def test_flagship_linearized_predict_matches_jax(flagship):
-    model, params, state, port, x = flagship
-    ref = make_predict_fn(port, output="probs")(x).numpy()
+    model, params, state, port, x, ref, mats = flagship
     assert jax_linearize(model, params, state, jnp.asarray(x)) == 3
-    assert linearize_pde_layers(port, x) == 3
+    _pin(port, mats)
     try:
         jax_mats = [model.extractor.pdes[i].linear_cache for i in range(3)]
         port_mats = [getattr(port.feature_extractor, f"pde{i}").linear_cache
@@ -235,9 +262,9 @@ def test_flagship_linearized_predict_matches_jax(flagship):
 
 
 def test_train_mode_refusal_max_dim_gate_and_clear(flagship):
-    _, _, _, port, x = flagship
+    _, _, _, port, x, _, mats = flagship
     ref = make_predict_fn(port)(x)
-    assert linearize_pde_layers(port, x) == 3
+    _pin(port, mats)  # linearize_pde_layers' 3 layers (the fixture's)
     port.train()
     with pytest.raises(ValueError, match="linear_cache"):
         port(torch.from_numpy(x))
@@ -273,61 +300,3 @@ def test_linearize_composes_with_hoisted_operator_cache():
     np.testing.assert_allclose(_port_out(port, x), ref, rtol=1e-4,
                                atol=1e-5)
     assert clear_linear_cache(port) == 1 and clear_operator_cache(port) == 1
-
-
-def test_emotion_linearized_logits_match_jax():
-    """The emotion classifier's FTCS layer (D = 48·48) linearizes; its
-    random-init logits are about 1e4, so the bound is relative to the
-    largest entry and the labels must agree."""
-    model = JaxEmotion()
-    params, state = jax.tree_util.tree_map(
-        np.asarray, jax.jit(model.init)(jax.random.PRNGKey(2)))
-    port = build_model("emotion", device="cpu")
-    port.load_state_dict(state_dict_from_jax(params, state, "emotion"),
-                         strict=True)
-    x = np.random.default_rng(7).random((4, 1, 48, 48)).astype(np.float32)
-    ref = np.asarray(jax_predict_fn(model, params, state)(x))
-    assert jax_linearize(model, params, state, jnp.asarray(x)) == 1
-    assert linearize_pde_layers(port, x) == 1
-    assert _rel(port.pde.linear_cache, model.pde.linear_cache) <= 1e-5
-    out = make_predict_fn(port)(x).numpy()
-    jax_out = np.asarray(jax_predict_fn(model, params, state)(x))
-    assert _rel(out, jax_out) <= 1e-4 and _rel(out, ref) <= 1e-4
-    np.testing.assert_array_equal(out.argmax(-1), ref.argmax(-1))
-
-
-def test_select_linearize_grade_table():
-    """'auto' follows the port's own table, set from its H100 rates: int8
-    won at no batch and no D there, so every batch takes bf16."""
-    for batch in (1, 64, 256, 1024, 4096):
-        for dim in (None, 784, 2304, 3072):
-            assert select_linearize_grade(batch, dim) == torch.bfloat16
-
-
-def test_linearize_auto_grade_pins_the_tables_choice(monkeypatch):
-    """dtype='auto' resolves from the serving batch (default: the
-    sample's) and D through the table: bf16 at every batch with the
-    H100's; int8 where a table picks it."""
-    big = MixedChannelDiffusion(size=32, num_steps=1).eval()  # D = 3072
-    bx = np.random.default_rng(9).standard_normal((2, 3, 32, 32)).astype(
-        np.float32)
-    ref = _port_out(big, bx)
-    assert linearize_pde_layers(big, bx, dtype="auto",
-                                serve_batch_size=4096) == 1
-    assert big.linear_cache.dtype == torch.bfloat16
-    clear_linear_cache(big)
-    asked = []
-    monkeypatch.setattr(serve_module, "select_linearize_grade",
-                        lambda batch, feature_dim=None: asked.append(
-                            (batch, feature_dim)) or torch.int8)
-    assert linearize_pde_layers(big, bx, dtype="auto",
-                                serve_batch_size=256) == 1
-    assert asked == [(256, 3072)]
-    assert isinstance(big.linear_cache, QuantizedMatrix)
-    monkeypatch.undo()
-    assert _rel(_port_out(big, bx), ref) <= 2e-2
-    clear_linear_cache(big)
-    assert linearize_pde_layers(big, bx, dtype="auto") == 1
-    assert big.linear_cache.dtype == torch.bfloat16
-    with pytest.raises(ValueError, match="dtype"):
-        linearize_pde_layers(big, bx, dtype=torch.float16)

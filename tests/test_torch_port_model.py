@@ -24,6 +24,17 @@ from cnn_pde_tpu_torch.models.cifar10_noconv import MultiScaleExtractor
 from cnn_pde_tpu_torch.pde import MixedChannelDiffusion
 from tests.golden.reference_numpy import mixed_forward_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 SCALES = MultiScaleExtractor.SCALES
 CONFIGS = ["per_sweep", "fused_inference"]
 

@@ -26,6 +26,17 @@ from cnn_pde_tpu_torch.pde import MixedChannelDiffusion
 from cnn_pde_tpu_torch.pde.diffusion import _substep_times_np
 from tests.golden.reference_numpy import sweep_x_np, sweep_y_np, thomas_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 
 

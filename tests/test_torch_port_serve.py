@@ -28,6 +28,17 @@ from cnn_pde_tpu_torch.models import build_model
 from cnn_pde_tpu_torch.serve import make_predict_fn
 from cnn_pde_tpu_torch.serve_cli import main as port_cli_main
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -28,6 +28,17 @@ from cnn_pde_tpu_torch.serve import make_predict_fn
 from cnn_pde_tpu_torch.serve_batch import MicroBatcher
 from cnn_pde_tpu_torch.serve_http import serve_http
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 OUTPUTS = ("labels", "probs", "logits")
 
 

@@ -26,6 +26,16 @@ from cnn_pde_tpu_torch.utils import (format_summary, model_summary,
                                      param_group_counts)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_summary_matches_jax(preset):
     values = PRESETS[preset]

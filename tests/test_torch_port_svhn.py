@@ -39,6 +39,16 @@ from cnn_pde_tpu_torch.train.schedules import onecycle
 from cnn_pde_tpu_torch.train.step import make_schedule
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _max_err(x, y):
     return float(np.max(np.abs(np.asarray(x, np.float64)
                                - np.asarray(y, np.float64))))

@@ -30,6 +30,17 @@ from cnn_pde_tpu_torch.ops.tridiag import (
     _adjoint_band_grads, _adjoint_band_partials, _plan, _sum_band_partials,
     _transpose_system, pcr_apply, pcr_factor, tridiag_solve_plain)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 NS = [1, 2, 3, 5, 28, 32, 33, 64]
 DIMS = [-1, -2]
 BATCH, CHUNK = 7, 3

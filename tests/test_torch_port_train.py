@@ -45,6 +45,17 @@ from cnn_pde_tpu_torch.train.step import make_schedule
 
 from tests.test_torch_port_train_model import ZERO_IN_EXACT_ARITHMETIC
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = PRESETS["cifar10_noconv"]["train"]
 SPEC = paug.AugmentSpec(**TRAIN["augment"])

@@ -27,6 +27,17 @@ from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
     fused_channel_bwd, fused_channel_diffusion, fused_channel_fwd_res)
 from cnn_pde_tpu_torch.pde.diffusion import _substep_times_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: the suite runs six test
+    files at once on one host, and eight threads each oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 NAMES = ["alpha_base", "alpha_time_coeff", "beta_base", "beta_time_coeff",
          "channel_mixing"]
 

@@ -16,6 +16,7 @@ import json
 import os
 import signal
 import time
+import warnings
 
 import jax
 import numpy as np
@@ -88,8 +89,13 @@ def test_array_dataset_matches_jax():
     for a, b in zip(balance_classes(images, labels),
                     jax_balance(images, labels)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A16"):
-        next(ours.train_batches(16, native=True))
+    # the native batcher (ported): the JAX native shuffle, each batch of
+    # 16 (the remainder dropped)
+    native = list(ours.train_batches(16, seed=3, native=True))
+    assert len(native) == 5
+    for images, labels in native:
+        assert images.shape == (16,) + ours.train_images.shape[1:]
+        assert images.dtype == np.float32 and labels.dtype == np.int32
 
 
 def test_synthetic_dataset_is_the_jax_fixture():
@@ -347,10 +353,20 @@ def test_unported_trainer_options_raise():
     with pytest.warns(UserWarning, match="native_loader is ignored"):
         Trainer(model, TrainConfig(device_epoch=True, native_loader=True),
                 values)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A16"):
-        Trainer(model, TrainConfig(native_loader=True), values)
+    # the native loader (ported) feeds the host loop without a warning
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert Trainer(model, TrainConfig(native_loader=True),
+                       values).config.native_loader
+    # the mesh is ported (tests/test_torch_port_data_parallel.py); tensor
+    # and spatial parallelism still raise
+    from cnn_pde_tpu_torch.parallel import make_mesh
+
+    assert Trainer(model, TrainConfig(), values, mesh=make_mesh()).mesh
     with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        Trainer(model, TrainConfig(), values, mesh=object())
+        Trainer(model, TrainConfig(), values, tp=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
+        Trainer(model, TrainConfig(), values, image_spec=object())
 
 
 def test_graceful_preemption_latches_and_restores():
