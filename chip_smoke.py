@@ -181,6 +181,19 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    captured step; the sweep harness, 2 steps a configuration, with no
    traceback; the train CLI with --dp --native-loader and the serve CLI
    with --dp (queued);
+10e. the sharded-model half of the parallel layer (ROADMAP.md A15): K1
+   and K3 at the partitioned solve's block shapes (bands (64, 16),
+   right-hand sides of batch 1 and 96, and 3 and 98 with the two coupling
+   columns stacked) against their plain versions; in a process group of
+   one rank over NCCL, ``adi_strang_step_spatial`` and
+   ``adi_strang_step_partitioned`` at (B, H, W) = (96, 64, 64), smooth off
+   and on (3 K1 + 3 K3 a forward and backward, against the plain
+   versions); ``Trainer(mesh, tp=True)`` on the hybrid (bf16 grade) at
+   B = 64 on the device epoch, bit for bit against the meshless Trainer;
+   both spatial classifiers at full width against the unsharded models
+   (logits 1e-4 of their largest entry, one train step's loss and
+   gradients 1e-4).  A one-rank group shards nothing: the multi-rank
+   runs are ``dp_scale.py --tp N`` / ``--spatial N`` on four cards;
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -4135,6 +4148,231 @@ def phase_analysis_dp(device):
     return out
 
 
+# ---- phase 10e: the sharded-model half of the parallel layer (A15) ------
+
+SHARD_BANDS = (64, 16)   # (W, H/S): a y-sweep block of H = 64 over S = 4
+SHARD_RHS = (1, 96)      # its right-hand sides' batches (the partitioned
+                         # solve stacks two band-shaped ones beside them)
+SHARD_ADI = (96, 64, 64)  # (B, H, W) of the sharded ADI steps
+SHARD_SPEC = ("data", None, "spatial", None)
+TP_STEPS = 6             # steps of the compared TP device epoch
+TP_BATCH = 64
+SPATIAL_BATCHES = {"emotion": 64, "tiny_imagenet": 32}
+
+
+def sharded_kernels(tag, device):
+    """K1 and K3 at the partitioned solve's block shapes (bands
+    SHARD_BANDS; right-hand sides of SHARD_RHS and, stacked with the two
+    coupling columns, +2) against their plain versions: K1's solution and
+    K3's λ within KERNEL_TOL, K3's band gradients within GRAD_TOL of their
+    largest entry."""
+    rng = np.random.default_rng(SEED + 91)
+    W, m = SHARD_BANDS
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    r = t(0.01 * (rng.random((W, m)) + 0.2))
+    a, c = -r, -r
+    b = (1.0 + 2.0 * r + EPS).contiguous()
+    errs = {"K1": 0.0, "K3": (0.0, 0.0)}
+    for B in SHARD_RHS + tuple(n + 2 for n in SHARD_RHS):
+        d = t(rng.standard_normal((B, W, m)))
+        g = t(rng.standard_normal((B, W, m)))
+        reset_counts()
+        x = tridiag_solve(a, b, c, d)
+        lam, *bands = tridiag_adjoint(a, b, c, g, x)
+        if counts() != only(K1=1, K3=1):
+            raise AssertionError(f"{tag}: launches {counts()}")
+        e1 = check(f"K1 bands {SHARD_BANDS} B={B} vs plain", max_err(
+            x, tridiag_solve_plain(a, b, c, d)), KERNEL_TOL)
+        ref = tridiag_adjoint_plain(a, b, c, g, x)
+        e3 = check(f"K3 lambda bands {SHARD_BANDS} B={B} vs plain",
+                   max_err(lam, ref[0]), KERNEL_TOL)
+        e3b = max(check_rel(f"K3 band grad {i} B={B} vs plain",
+                            rel_err(got, want), GRAD_TOL)
+                  for i, (got, want) in enumerate(zip(bands, ref[1:])))
+        errs["K1"] = max(errs["K1"], e1)
+        errs["K3"] = (max(errs["K3"][0], e3), max(errs["K3"][1], e3b))
+    return errs
+
+
+def sharded_adi(tag, mesh, device):
+    """``adi_strang_step_spatial`` and ``_partitioned`` on this rank's
+    block (the whole field in a one-rank group) at SHARD_ADI, smooth off
+    and on: launch counts of a forward and its backward, and the output
+    and the fields' gradients against the same step on the plain
+    versions (KERNEL_TOL; GRAD_TOL of the largest entry).  A
+    non-contiguous band or right-hand side at a sharded call site makes
+    K1 or K3 raise here."""
+    from cnn_pde_tpu_torch.parallel import (adi_strang_step_partitioned,
+                                            adi_strang_step_spatial)
+    from cnn_pde_tpu_torch.parallel.spatial import block
+
+    rng = np.random.default_rng(SEED + 92)
+    B, H, W = SHARD_ADI
+    lo, hi = block(mesh, H)
+
+    def t(x):
+        return torch.tensor(x[..., lo:hi, :], dtype=torch.float32,
+                            device=device)
+    u = t(rng.standard_normal((B, H, W)))
+    fields_ = [t(rng.random((H, W)) + 0.2) for _ in range(2)]
+    gw = t(rng.random((B, H, W)))
+    out = {}
+    for fn in (adi_strang_step_spatial, adi_strang_step_partitioned):
+        for smooth in (False, True):
+            def run():
+                al, be = (f.clone().requires_grad_() for f in fields_)
+                y = fn(mesh, u, al, be, dt=0.01, smooth=smooth, eps=EPS)
+                grads = torch.autograd.grad((y * gw).sum(), (al, be))
+                return (y.detach(), *grads)
+            reset_counts()
+            got = run()
+            launched = counts()
+            with kernels.plain_versions():
+                ref = run()
+            label = f"{fn.__name__} smooth={smooth}"
+            if launched != only(K1=3, K3=3):
+                raise AssertionError(f"{tag}: {label} launches {launched}")
+            check(f"{label} vs plain", max_err(got[0], ref[0]), KERNEL_TOL)
+            for name, g, r in zip(("alpha", "beta"), got[1:], ref[1:]):
+                check_rel(f"{label} grad {name} vs plain", rel_err(g, r),
+                          GRAD_TOL)
+            out[label] = launched
+    log(f"[{tag}] sharded ADI steps at (B, H, W) = {SHARD_ADI}: "
+        + "; ".join(f"{k} {v['K1']} K1 + {v['K3']} K3 (forward and "
+                    "backward)" for k, v in out.items()))
+    return out
+
+
+def tp_device_epoch(tag, mesh, device):
+    """``Trainer(mesh, tp=True)`` on the full hybrid (bf16 grade, dropout
+    and the preset's augmentation) at B = TP_BATCH on the device epoch,
+    TP_STEPS steps, against the meshless Trainer from the same seeded
+    model: bit for bit, the step captured; K1/K3 launches of the epoch
+    (its eager warm-up steps and the capture; replays move none)."""
+    data = epoch_dataset("cifar10", TP_BATCH, SEED + 93)
+
+    def trainer(m):
+        config = TrainConfig.from_preset(
+            HYBRID_TRAIN, epochs=1, batch_size=TP_BATCH, seed=SEED,
+            max_steps_per_epoch=TP_STEPS, device_epoch=True,
+            log_every=10**9)
+        t = Trainer(hybrid_model(device), config, HYBRID_TRAIN, mesh=m,
+                    tp=m is not None)
+        return t, t.init_state(TP_STEPS)
+
+    (tt, ts), (rt, rs) = trainer(mesh), trainer(None)
+    reset_counts()
+    rec = tt.train_epoch(ts, data, 0, verbose=False)
+    launched = counts()
+    ref = rt.train_epoch(rs, data, 0, verbose=False)
+    if not (launched["K1"] and launched["K3"]):
+        raise AssertionError(f"{tag}: TP hybrid launches {launched}")
+    if device.type == "cuda" and tt._runner.graphs is None:
+        raise AssertionError(f"{tag}: TP hybrid: no CUDA graph captured")
+    sd, ref_sd = ts.model.state_dict(), rs.model.state_dict()
+    differ = [k for k, v in sd.items() if not torch.equal(v, ref_sd[k])]
+    if differ or rec["loss"] != ref["loss"]:
+        raise AssertionError(f"{tag}: TP hybrid device epoch differs from "
+                             f"the meshless one: {differ[:5]}, loss "
+                             f"{rec['loss']} vs {ref['loss']}")
+    ev, ref_ev = tt.evaluate(ts, data), rt.evaluate(rs, data)
+    if not np.array_equal(ev["predictions"], ref_ev["predictions"]):
+        raise AssertionError(f"{tag}: TP hybrid eval predictions differ")
+    log(f"[{tag}] Trainer(mesh, tp=True) hybrid bf16 B={TP_BATCH}, device "
+        f"epoch of {TP_STEPS} steps: {len(sd)} of {len(sd)} tensors and "
+        f"the loss bit for bit against the meshless Trainer, eval "
+        f"predictions equal; launches {launched} (eager warm-up and "
+        "capture)")
+    return {"launches": launched, "steps": TP_STEPS, "bitwise": True}
+
+
+def spatial_classifiers(tag, mesh, device):
+    """Both spatial classifiers at full width (emotion 48 x 48, Tiny-
+    ImageNet 64 x 64 with 200 classes) against the unsharded models with
+    the same weights: eval logits within LOGIT_TOL of their largest entry,
+    and one train step (the preset's augmentation and dropout, batch
+    SPATIAL_BATCHES) whose loss and every gradient are within GRAD_TOL of
+    the unsharded step's (bit for bit logged)."""
+    from cnn_pde_tpu_torch.parallel import (SpatialFTCSClassifier,
+                                            SpatialTinyImageNetClassifier,
+                                            make_dp_train_step, shard_batch)
+
+    rng = np.random.default_rng(SEED + 94)
+    out = {}
+    for name, make, cls, values, shape in (
+            ("emotion", emotion_model, SpatialFTCSClassifier, EMOTION_TRAIN,
+             (1, 48, 48)),
+            ("tiny_imagenet", tiny_model, SpatialTinyImageNetClassifier,
+             TINY_TRAIN, (3, 64, 64))):
+        ref = make(device)
+        model = cls(mesh, **PRESETS[name]["model_kwargs"]).to(device)
+        model.load_state_dict(ref.state_dict())
+        B = SPATIAL_BATCHES[name]
+        x = seeded_batch(rng, B, shape, device)
+        y = torch.tensor(rng.integers(0, 7 if name == "emotion" else 200,
+                                      B), device=device)
+        with torch.no_grad():
+            got, want = model.eval()(x), ref.eval()(x)
+        logit_err = check_rel(f"{name} spatial logits B={B} vs unsharded",
+                              rel_err(got, want), LOGIT_TOL)
+        reset_counts()
+        sstep = make_dp_train_step(
+            model, values, mesh, steps_per_epoch=3,
+            generator=torch.Generator(device).manual_seed(SEED),
+            image_spec=SHARD_SPEC)
+        sloss, _ = sstep(*shard_batch(mesh, (x, y)))
+        rstep = make_train_step(ref, values, 3,
+                                torch.Generator(device).manual_seed(SEED))
+        rloss, _ = rstep(x, y)
+        check(f"{name} spatial step loss vs unsharded",
+              abs(float(sloss) - float(rloss)), 1e-5 * abs(float(rloss)))
+        params = dict(ref.named_parameters())
+        worst = max((rel_err(p.grad, params[k].grad), k)
+                    for k, p in model.named_parameters())
+        check_rel(f"{name} spatial step gradients vs unsharded (worst "
+                  f"{worst[1]})", worst[0], GRAD_TOL)
+        bitwise = sum(torch.equal(p.grad, params[k].grad)
+                      for k, p in model.named_parameters())
+        out[name] = {"logit_rel_err": logit_err, "grad_rel_err": worst[0],
+                     "bitwise_grads": bitwise, "grads": len(params)}
+        log(f"[{tag}] {name} spatial classifier: {bitwise} of "
+            f"{len(params)} gradients bit for bit")
+    return out
+
+
+def phase_sharded(device):
+    """The sharded-model half of the parallel layer (ROADMAP.md A15) in a
+    process group of one rank over NCCL: K1 and K3 at the partitioned
+    solve's block shapes (``sharded_kernels``), the spatial and
+    partitioned ADI steps through the sharded call sites
+    (``sharded_adi``), ``Trainer(mesh, tp=True)`` on the hybrid's device
+    epoch (``tp_device_epoch``) and both spatial classifiers
+    (``spatial_classifiers``).  A one-rank group shards nothing; the
+    multi-rank runs are ``dp_scale.py --tp/--spatial`` on four cards."""
+    import socket
+
+    from cnn_pde_tpu_torch.parallel import initialize, make_mesh
+
+    tag = "sharded"
+    out = {"kernels": sharded_kernels(tag, device)}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"tcp://127.0.0.1:{port}", num_processes=1, process_id=0,
+               backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        mesh = make_mesh(spatial=1, model=1)
+        out["adi"] = sharded_adi(tag, make_mesh(spatial=1), device)
+        out["tp_hybrid"] = tp_device_epoch(tag, mesh, device)
+        out["spatial"] = spatial_classifiers(tag, make_mesh(spatial=1),
+                                             device)
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
 def trainer_cli(*args, popen=False):
     """The train CLI with ``args`` on the default device (cuda), unbuffered:
     its summary line, or (``popen``) the running process."""
@@ -4829,6 +5067,10 @@ def main():
     serving = timed("serving", phase_serving, device)
     analysis_dp = timed("analysis, native loader and data parallel",
                         phase_analysis_dp, device)
+    sharded = timed("sharded model parallel", phase_sharded, device)
+    errs["K1"] = max(errs["K1"], sharded["kernels"]["K1"])
+    errs["K3"] = tuple(max(a, b) for a, b in zip(errs["K3"],
+                                                 sharded["kernels"]["K3"]))
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
@@ -4923,6 +5165,17 @@ def main():
                       ("K3", "flagship_per_sweep_B64"),
                       ("K7", "mnist_fused_B128"), ("K8", "mnist_fused_B128")):
         per[key]["dp_host_loop_launches"] = dp[case]["host"]["launches"][key]
+    # the sharded entry points in a one-rank group (spatial = 1, model =
+    # 1: each runs its unsharded code, the partitioned solve one K1 over
+    # the whole axis): an ADI step's forward and backward (each strategy)
+    # and the TP hybrid's device epoch; the sharded paths' counts are
+    # dp_scale.py's on four cards
+    adi = sharded["adi"]
+    for key in ("K1", "K3"):
+        per[key]["one_rank_sharded_adi_step_launches"] = {
+            label: launched[key] for label, launched in adi.items()}
+        per[key]["one_rank_tp_hybrid_device_epoch_launches"] = sharded[
+            "tp_hybrid"]["launches"][key]
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
@@ -4960,6 +5213,8 @@ def main():
               "device_epoch": device_epoch,
               "serving": serving,
               "analysis_dp": analysis_dp,
+              "sharded": {k: v for k, v in sharded.items()
+                          if k != "kernels"},
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

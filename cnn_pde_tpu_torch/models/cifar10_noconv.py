@@ -6,7 +6,7 @@ reference checkpoint loads with ``load_state_dict(strict=True)``.
 ``fused_pde=True`` runs each branch as one trainable fused call (K4 forward,
 K5 backward on the card); ``fused_inference=True`` runs each branch as one K2
 launch in eval.  The lockstep, fused-multiscale and branch-sharded modes are
-later slices (ROADMAP.md A14, A15).
+later slices (ROADMAP.md A14).
 
 Dropout draws its mask from an explicit ``torch.Generator`` on the
 activations' device (``set_dropout_generator``); without one it uses
@@ -34,13 +34,18 @@ class Dropout(nn.Module):
     from ``self.generator``.  ``self.rows`` = (rank, world), set by a
     data-parallel step (``set_dropout_generator(rows=)``): the mask is
     drawn for the global batch of ``world`` equal blocks and this rank's
-    block kept, so the ranks together draw the single-device mask."""
+    block kept, so the ranks together draw the single-device mask.
+    In a tensor-parallel model (``parallel/tensor_parallel.py``) between a
+    column- and a row-parallel Linear the activations are this rank's
+    block of the features (``self.features.block``): the mask is drawn for
+    all of them and the block kept the same way."""
 
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
         self.generator = None
         self.rows = None
+        self.features = None  # a tensor-parallel model's FeatureBlock
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -48,9 +53,12 @@ class Dropout(nn.Module):
         keep = 1.0 - self.p
         b = x.shape[0]
         rank, world = self.rows or (0, 1)
-        draw = torch.rand((b * world,) + tuple(x.shape[1:]),
+        col, cols = (self.features and self.features.block) or (0, 1)
+        f = x.shape[1]
+        draw = torch.rand((b * world, f * cols) + tuple(x.shape[2:]),
                           generator=self.generator, device=x.device,
-                          dtype=x.dtype)[rank * b:(rank + 1) * b]
+                          dtype=x.dtype)[rank * b:(rank + 1) * b,
+                                         col * f:(col + 1) * f]
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
     def extra_repr(self):

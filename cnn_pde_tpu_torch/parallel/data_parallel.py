@@ -39,18 +39,21 @@ import torch.distributed as dist
 from torch import nn
 
 __all__ = ["make_dp_train_step", "make_train_step_body", "shard_batch",
-           "replicate", "sync_batch_norms", "GlobalBatchNorm1d",
-           "GlobalBatchNorm2d"]
+           "replicate", "sync_batch_norms", "spec_block",
+           "GlobalBatchNorm1d", "GlobalBatchNorm2d"]
 
 
-def _gather_rows(mesh, x):
-    """Every rank's equal-shaped ``x`` stacked along dim 0 in rank order,
-    on every rank (the all-reduce of a zero buffer holding this rank's
-    block)."""
-    buf = x.new_zeros((mesh.world,) + tuple(x.shape))
-    buf[mesh.rank].copy_(x)
-    dist.all_reduce(buf, group=mesh.group)
-    return buf.reshape((mesh.world * x.shape[0],) + tuple(x.shape[1:]))
+def _gather_rows(mesh, x, axis="data"):
+    """Every rank's equal-shaped ``x`` along ``axis`` stacked along dim 0
+    in axis order, on every rank (the all-reduce of a zero buffer holding
+    this rank's block)."""
+    group, index, size = mesh.axis(axis)
+    if size == 1:
+        return x
+    buf = x.new_zeros((size,) + tuple(x.shape))
+    buf[index].copy_(x)
+    dist.all_reduce(buf, group=group)
+    return buf.reshape((size * x.shape[0],) + tuple(x.shape[1:]))
 
 
 def _check_mesh(mesh):
@@ -62,19 +65,22 @@ def _check_mesh(mesh):
 
 
 def _rows(mesh, n):
-    """This rank's block [lo, hi) of a global batch of ``n`` rows."""
-    if n % mesh.world:
+    """This rank's block [lo, hi) of a global batch of ``n`` rows (its
+    block along the 'data' axis)."""
+    _, index, size = mesh.axis("data")
+    if n % size:
         raise ValueError(f"global batch {n} is not divisible by the 'data' "
-                         f"axis size {mesh.world}")
-    per = n // mesh.world
-    return mesh.rank * per, (mesh.rank + 1) * per
+                         f"axis size {size}")
+    per = n // size
+    return index * per, (index + 1) * per
 
 
 def shard_batch(mesh, batch):
     """This process's rows of a global batch (a tensor, array, or a tuple,
     list or dict of them), as tensors on its device.  In a process group
-    every process passes the whole global batch and keeps its rank's
-    block; a single-process mesh of one device keeps all of it."""
+    every process passes the whole global batch and keeps its block along
+    the 'data' axis; a single-process mesh of one device keeps all of
+    it."""
     _check_mesh(mesh)
 
     def make(x):
@@ -88,6 +94,22 @@ def shard_batch(mesh, batch):
     if isinstance(batch, (tuple, list)):
         return type(batch)(make(v) for v in batch)
     return make(batch)
+
+
+def spec_block(mesh, x, spec):
+    """This rank's block of ``x`` along each dim that ``spec`` (a tuple of
+    axis names or None a dim, as ``Trainer(image_spec=)``) shards over an
+    axis other than 'data' (the rows are cut by ``shard_batch``)."""
+    for dim, name in enumerate(spec):
+        if name is None or name == "data":
+            continue
+        _, index, size = mesh.axis(name)
+        if x.shape[dim] % size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over the {name!r} axis of {size}")
+        n = x.shape[dim] // size
+        x = x.narrow(dim, index * n, n)
+    return x.contiguous()
 
 
 def replicate(mesh, tree):
@@ -133,7 +155,7 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         means = parts[:, 0]
         mean = means.mean(0)
         m2 = parts[:, 1].sum(0) + n * (means - mean).square().sum(0)
-        total = n * mesh.world
+        total = n * parts.shape[0]
         invstd = torch.rsqrt(m2 / total + eps)
         xhat = (x - mean.view(shape)) * invstd.view(shape)
         y = xhat if weight is None else (xhat * weight.view(shape)
@@ -152,7 +174,7 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         sum_dy = dy.sum(dims)
         sum_dy_xhat = (dy * xhat).sum(dims)
         sums = _gather_rows(ctx.mesh, torch.stack([sum_dy, sum_dy_xhat])[None]
-                            ).reshape(ctx.mesh.world, 2, -1).sum(0)
+                            ).reshape(-1, 2, sum_dy.shape[0]).sum(0)
         scale = invstd if weight is None else weight * invstd
         dx = scale.view(shape) * (dy - (sums[0] / ctx.total).view(shape)
                                   - xhat * (sums[1] / ctx.total).view(shape))
@@ -170,8 +192,8 @@ class _GlobalBatchNorm:
 
     def forward(self, x):
         mesh = _GLOBAL_BN.get(self)
-        # a world of one: the local batch is the global one
-        if mesh is None or not self.training or mesh.world == 1:
+        # a 'data' axis of one: the local batch is the global one
+        if mesh is None or not self.training or mesh.shape["data"] == 1:
             return super().forward(x)
         self._check_input_dim(x)
         y, mean, var = _GlobalBatchNormFn.apply(x, self.weight, self.bias,
@@ -219,30 +241,42 @@ def sync_batch_norms(model, mesh):
 
 class StepReducer:
     """The collectives of a data-parallel ``TrainStep``: the gradients, the
-    loss and the accuracy summed across the mesh's ranks in one flat
-    buffer (made once: a CUDA graph captures the same all-reduce each
-    step).  ``rows`` = (rank, world) for the global draws."""
+    loss and the accuracy summed in one flat buffer (made once: a CUDA
+    graph captures the same all-reduce each step) over the mesh's
+    ('data', 'spatial') plane.  Each rank's loss is its rows' share,
+    divided by ``world`` = data·spatial: the ranks of the spatial axis
+    hold the same rows and each takes 1/S of the loss (the spatial
+    gathers' backward sums their gradients, ``collectives.all_gather``);
+    the ranks of the 'model' axis share one copy of the loss and reduce
+    apart (``tensor_parallel.py``).  ``rows`` = ('data' index, 'data'
+    size) for the global draws."""
 
     def __init__(self, mesh, model, params):
         self.mesh = mesh
-        self.rows = (mesh.rank, mesh.world)
-        self.world = mesh.world
+        _, index, size = mesh.axis("data")
+        self.rows = (index, size)
+        self.group, _, self.world = mesh.axis("data", "spatial")
         device = params[0].device
         numels = [p.numel() for p in params]
         self.flat = torch.zeros(sum(numels) + 2, device=device)
         self.views = [v.view_as(p) for v, p in
                       zip(self.flat[:-2].split(numels), params)]
         sync_batch_norms(model, mesh)
-        # the communicator exists before any capture: NCCL makes it at a
-        # group's first collective
-        dist.all_reduce(torch.zeros(1, device=device), group=mesh.group)
+        # every communicator of the step exists before any capture: NCCL
+        # makes one at a group's first collective
+        groups = [mesh.group] + [mesh.axis(*names)[0] for names in
+                                 (("data", "spatial"), ("data",),
+                                  ("spatial",), ("model",))]
+        for group in dict.fromkeys(g for g in groups if g is not None):
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
 
     def reduce(self, grads, loss, acc):
-        """Sum ``grads`` in place across the ranks; returns the summed
+        """Sum ``grads`` in place across the plane; returns the summed
         (loss, acc) as new tensors."""
         torch._foreach_copy_(self.views, grads)
         self.flat[-2:].copy_(torch.stack([loss, acc]))
-        dist.all_reduce(self.flat, group=self.mesh.group)
+        if self.world > 1:
+            dist.all_reduce(self.flat, group=self.group)
         torch._foreach_copy_(grads, self.views)
         return self.flat[-2].clone(), self.flat[-1].clone()
 
@@ -270,7 +304,7 @@ def make_dp_train_step(model, train_values, mesh, *, steps_per_epoch=1,
     from ..train.step import TrainStep
 
     device = next(model.parameters()).device
-    if mesh is not None:
+    if mesh is not None and getattr(model, "tp_layout", None) is None:
         replicate(mesh, model)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)

@@ -3,17 +3,19 @@
 A ``Mesh`` has the JAX axes ('data', 'spatial', 'model') over a grid of
 ``torch.device``s.  Inside an initialized ``torch.distributed`` process
 group (``multihost.initialize``, or torchrun) the grid holds one device a
-rank, in rank order, and the mesh carries the group: the data-parallel
-layer runs one process a device and reduces across the group.  Outside a
+rank, in rank order reshaped (data, spatial, model) as JAX reshapes its
+device list, and the mesh carries the group and one subgroup for each
+slice of each axis: ``mesh.axis("model")`` is this rank's (group, index
+along the axis, axis size).  Every rank creates every subgroup, in the
+same order (``dist.new_group`` asks it), when the mesh is made.  Outside a
 group the grid is the process's own devices (every visible card, or the
-CPU), as a single-process server's replicas use them.
-
-Only the 'data' axis is ported: 'spatial' and 'model' above 1 (spatial
-and tensor parallelism) raise, naming ROADMAP.md A15.
+CPU), as a single-process server's replicas use them, and may have any
+shape; the sharded layers refuse such a mesh past one device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -23,6 +25,9 @@ import torch.distributed as dist
 __all__ = ["Mesh", "make_mesh"]
 
 AXES = ("data", "spatial", "model")
+# the axis groups a mesh makes: each axis, and the (data, spatial) plane
+# that sums a sharded step's gradients (parallel/tensor_parallel.py)
+GROUPS = (("data",), ("spatial",), ("model",), ("data", "spatial"))
 
 
 class Mesh:
@@ -30,8 +35,9 @@ class Mesh:
 
     ``devices``: numpy object array of ``torch.device``s, shaped
     (data, spatial, model).  ``group``: the process group whose ranks own
-    the grid's devices (rank r the r-th), or None for a mesh of this
-    process's devices.  ``shape`` maps each axis name to its size."""
+    the grid's devices (rank r the r-th in row-major order), or None for a
+    mesh of this process's devices.  ``shape`` maps each axis name to its
+    size; ``coords`` is this rank's (data, spatial, model) index."""
 
     axis_names = AXES
 
@@ -41,6 +47,10 @@ class Mesh:
         self.shape = dict(zip(AXES, devices.shape))
         self.rank = dist.get_rank(group) if group is not None else 0
         self.world = dist.get_world_size(group) if group is not None else 1
+        self.coords = tuple(int(i) for i in np.unravel_index(
+            self.rank, devices.shape)) if group is not None else (0, 0, 0)
+        self._groups = _axis_groups(devices.shape, self.rank) \
+            if group is not None else {}
 
     @property
     def size(self):
@@ -57,6 +67,54 @@ class Mesh:
     def device(self):
         """This process's (first) device."""
         return self.local_devices[0]
+
+    def axis(self, *names):
+        """(group, index, size) of this rank along the named axes (one
+        axis, or ``"data", "spatial"`` for their plane, its index
+        row-major): the group is None where the size is 1 (nothing to
+        communicate), the whole world where the axes span it."""
+        size = math.prod(self.shape[n] for n in names)
+        index = 0
+        for n in names:
+            index = index * self.shape[n] + self.coords[AXES.index(n)]
+        if size == 1:
+            return None, 0, 1
+        if self.group is None:
+            raise ValueError(
+                f"the mesh's {'x'.join(names)} axis spans {size} devices: "
+                "sharded layers run one process a device, bring up a "
+                "process group first (parallel/multihost.py::initialize, "
+                "or torchrun)")
+        return self._groups[tuple(names)], index, size
+
+    def peer(self, axis, index):
+        """The global rank at ``index`` along ``axis``, this rank's other
+        coordinates held."""
+        coords = list(self.coords)
+        coords[AXES.index(axis)] = index
+        return int(np.ravel_multi_index(coords, self.devices.shape))
+
+
+def _axis_groups(shape, rank):
+    """{axes: this rank's group of them} for each of ``GROUPS`` larger than
+    one rank; every rank makes every group in the same order."""
+    world = math.prod(shape)
+    grid = np.arange(world).reshape(shape)
+    out = {}
+    for names in GROUPS:
+        dims = [AXES.index(n) for n in names]
+        size = math.prod(shape[d] for d in dims)
+        if size == 1:
+            continue
+        if size == world:
+            out[names] = dist.group.WORLD
+            continue
+        rest = [d for d in range(3) if d not in dims]
+        for ranks in grid.transpose(rest + dims).reshape(-1, size):
+            g = dist.new_group([int(r) for r in ranks])
+            if rank in ranks:
+                out[names] = g
+    return out
 
 
 def _rank_devices(world):
@@ -84,11 +142,8 @@ def make_mesh(data: Optional[int] = None, spatial: int = 1, model: int = 1,
     """A mesh with ('data', 'spatial', 'model') axes.  ``data`` None uses
     all devices / (spatial·model).  ``devices``: the grid's devices (in a
     process group, one a rank); by default the group's ranks' devices, or
-    this process's own outside a group."""
-    if spatial != 1 or model != 1:
-        raise NotImplementedError(
-            f"make_mesh(spatial={spatial}, model={model}): spatial and "
-            "tensor parallelism are not ported yet: ROADMAP.md A15")
+    this process's own outside a group.  In a group the mesh spans every
+    rank: data·spatial·model is the world size."""
     group = None
     if dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
@@ -106,9 +161,10 @@ def make_mesh(data: Optional[int] = None, spatial: int = 1, model: int = 1,
         assert n % (spatial * model) == 0, (n, spatial, model)
         data = n // (spatial * model)
     assert data * spatial * model <= n, (data, spatial, model, n)
-    if group is not None and data != n:
+    if group is not None and data * spatial * model != n:
         raise ValueError(f"a mesh in a process group spans every rank: "
-                         f"data={data} of {n}")
+                         f"data·spatial·model = {data * spatial * model} "
+                         f"of {n}")
     grid = np.empty(data * spatial * model, dtype=object)
     grid[:] = devices[: data * spatial * model]
     return Mesh(grid.reshape(data, spatial, model), group)

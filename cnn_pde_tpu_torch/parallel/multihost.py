@@ -82,17 +82,14 @@ def local_batch_slice(global_batch: int):
 def global_batch_from_local(mesh, local_tree, axis="data"):
     """The global batch assembled from each process's local rows (every
     process passes its ``local_batch_slice``; each leaf's leading dim is its
-    block): each leaf gathered across the mesh's group in rank order, on
+    block): each leaf gathered across the mesh's ``axis`` in axis order, on
     this process's device.  A single-process mesh returns the leaves as
     tensors on its device."""
-    if axis != "data":
-        raise NotImplementedError(f"only the 'data' axis is ported "
-                                  f"(ROADMAP.md A15), got {axis!r}")
     from .data_parallel import _gather_rows
 
     def make(x):
         x = torch.as_tensor(x).to(mesh.device)
-        return _gather_rows(mesh, x) if mesh.group is not None else x
+        return _gather_rows(mesh, x, axis) if mesh.group is not None else x
 
     if isinstance(local_tree, dict):
         return {k: make(v) for k, v in local_tree.items()}

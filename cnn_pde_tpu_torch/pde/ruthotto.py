@@ -32,6 +32,12 @@ computes them outside any Pallas kernel), one autograd Function
   backward's products, a float32 cotangent times a bf16 operand, are
   float32 products (never TF32) on every device, as JAX computes them.
   No product returns bf16.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) K.weight holds
+this rank's block of K's rows (its out features, JAX's ``w`` split on its
+out dim) and ``norm`` that block's features: y·Kᵀ is column-parallel, the
+BatchNorm per feature block, and σ(·)·K contracts over the same block,
+summed by one all-reduce over 'model' a call.  Both grades apply.
 """
 
 from __future__ import annotations
@@ -72,13 +78,16 @@ def _product(a, b):
 class _KProduct(torch.autograd.Function):
     """out = x·kᵀ (``transpose`` False: y·w) or x·k (True: s·wᵀ) for a
     SymmetricLayer's K as stored, (out, in): the float32 K.weight (the
-    exact grade) or its bf16 cast (the bf16 grade, x rounded to bf16)."""
+    exact grade) or its bf16 cast (the bf16 grade, x rounded to bf16).
+    ``round_gx`` False leaves x's cotangent in float32 (a tensor-parallel
+    product's partial cotangent, rounded after its all-reduce by
+    ``_RoundCotangent``)."""
 
     @staticmethod
-    def forward(ctx, x, k, transpose):
+    def forward(ctx, x, k, transpose, round_gx=True):
         if k.dtype == BF16:
             x = x.to(BF16)
-        ctx.transpose = transpose
+        ctx.transpose, ctx.round_gx = transpose, round_gx
         ctx.save_for_backward(x, k)
         return _product(x, k if transpose else k.t())
 
@@ -89,14 +98,28 @@ class _KProduct(torch.autograd.Function):
         gx = gk = None
         if ctx.needs_input_grad[0]:
             gx = _product(g, kk.t())
-            if k.dtype == BF16:  # the cotangent of x's bf16 cast
+            if k.dtype == BF16 and ctx.round_gx:  # x's bf16 cast's
                 gx = gx.to(BF16).float()
         if ctx.needs_input_grad[1]:
             gkk = _product(x.t(), g)
             gk = gkk if ctx.transpose else gkk.t()
             if k.dtype == BF16:
                 gk = gk.to(BF16)
-        return gx, gk, None
+        return gx, gk, None, None
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """Identity forward; the cotangent rounded to bf16 (returned in
+    float32): the bf16 cast of a product's operand whose cotangent is
+    summed across ranks first."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(BF16).float()
 
 
 class _CallCast(torch.autograd.Function):
@@ -134,6 +157,8 @@ class SymmetricLayer(nn.Module):
         self.K = nn.Linear(self.feature_dim, self.feature_dim, bias=False,
                            device=device)
         self.norm = nn.BatchNorm1d(self.feature_dim, device=device)
+        # (mesh, axis) once parallel/tensor_parallel.py shards K's rows
+        self.tp = None
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
@@ -162,8 +187,20 @@ class SymmetricLayer(nn.Module):
         k = self.K.weight
         if operand is not None:
             k = _CallCast.apply(k, operand)
-        ky = self.norm(_KProduct.apply(Y.reshape(Y.shape[0], -1), k, False))
-        return -_KProduct.apply(self.act(ky), k, True).reshape(Y.shape)
+        y = Y.reshape(Y.shape[0], -1)
+        if self.tp is not None:  # y·Kᵀ column-parallel on K's row block
+            from ..parallel.collectives import copy_to
+
+            if operand is not None:  # y's cotangent rounded once, summed
+                y = _RoundCotangent.apply(y)
+            y = copy_to(y, *self.tp)
+        ky = self.norm(_KProduct.apply(y, k, False, self.tp is None))
+        out = -_KProduct.apply(self.act(ky), k, True)
+        if self.tp is not None:  # s·K row-parallel: one all-reduce a call
+            from ..parallel.collectives import reduce_from
+
+            out = reduce_from(out, *self.tp)
+        return out.reshape(Y.shape)
 
 
 class ParabolicBlock(nn.Module):

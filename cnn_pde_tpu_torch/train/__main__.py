@@ -7,7 +7,8 @@
          [--resume]] [--metrics-out run/metrics.jsonl] [--bn-refresh K] \\
         [--amp] [--bf16-moments] [--init-from-torch model.pth] [--seed 0] \\
         [--summary] [--debug-nans] [--native-loader] [--quiet] \\
-        [--no-preemption-handler] [--dp] [--device cuda]
+        [--no-preemption-handler] [--dp] [--tp N] [--spatial N] \\
+        [--device cuda]
 
 Runs ``Trainer.fit`` on the card unless ``--device cpu`` is given; without
 CUDA it exits non-zero rather than carry on on the CPU.  The dataset is
@@ -28,8 +29,13 @@ feeds the host loop from the C++ prefetching batcher (``native/``).
 under torchrun (``torchrun --nproc_per_node=N -m cnn_pde_tpu_torch.train
 --dp ...``), or, started alone, as a world of one over a local port
 (NCCL on the card, gloo with ``--device cpu``); ``--batch-size`` is the
-global batch, and only rank 0 prints.  ``--tp`` and ``--spatial`` exit
-non-zero (ROADMAP.md A15).  Prints the JAX CLI's
+global batch, and only rank 0 prints.  ``--tp N`` shards the FC stacks
+and the Ruthotto K over N devices (the mesh's 'model' axis,
+``parallel/tensor_parallel.py``); ``--spatial N`` runs the emotion or
+Tiny-ImageNet model's PDE evolution on H blocks over N devices
+(``parallel/spatial_model.py``); either brings up the process group as
+``--dp`` does, and the rest of the world is the 'data' axis.  Prints the
+JAX CLI's
 summary JSON line (preset, best_acc, wall_s, epochs, and bn_refresh_acc
 or preempted when they apply) with the port's own keys beside: the
 device, the dataset's source, the batch, the steps run, the first and
@@ -115,9 +121,18 @@ def main(argv=None):
                     help="data-parallel over a process group, one process "
                          "a device (torchrun, or a world of one)")
     ap.add_argument("--tp", type=int, default=1, metavar="N",
-                    help="tensor parallelism: not ported (ROADMAP.md A15)")
+                    help="tensor-parallel the FC stacks and the Ruthotto K "
+                         "over N devices (Megatron column/row over the "
+                         "mesh's 'model' axis); the remaining devices form "
+                         "the 'data' axis, so --tp composes with --dp")
     ap.add_argument("--spatial", type=int, default=1, metavar="N",
-                    help="spatial parallelism: not ported (ROADMAP.md A15)")
+                    help="shard the PDE feature map's H axis over N "
+                         "devices (halo exchange a stencil step); for the "
+                         "presets with large maps: emotion (48x48 FTCS) "
+                         "and tiny_imagenet (64x64 Laplacian); the "
+                         "remaining devices form the 'data' axis; "
+                         "weights and checkpoints interchange with the "
+                         "unsharded model")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
@@ -146,13 +161,10 @@ def main(argv=None):
         sys.exit(f"cnn_pde_tpu_torch.train: checkpoint backend "
                  f"{args.checkpoint_backend!r} has no PyTorch counterpart; "
                  "use 'pickle' (torch.save)")
-    if args.tp != 1 or args.spatial != 1:
-        sys.exit("cnn_pde_tpu_torch.train: --tp and --spatial (tensor and "
-                 "spatial parallelism) are not ported yet: ROADMAP.md A15")
     verbose = not args.quiet
     mesh = None
-    if args.dp:
-        mesh = _dp_mesh(device)
+    if args.dp or args.tp > 1 or args.spatial > 1:
+        mesh = _dp_mesh(device, args.tp, args.spatial)
         device = mesh.device
         verbose = verbose and mesh.rank == 0
         if verbose:
@@ -177,14 +189,23 @@ def main(argv=None):
               f"{dataset.train_images.shape}, test "
               f"{dataset.test_images.shape}")
 
-    model = build_model(preset["model"], device=device,
-                        generator=torch.Generator().manual_seed(args.seed),
-                        **preset["model_kwargs"])
+    generator = torch.Generator().manual_seed(args.seed)
+    image_spec = None
+    if args.spatial > 1:
+        model = _spatial_model(preset, mesh, device, generator)
+        image_spec = ("data", None, "spatial", None)
+    else:
+        model = build_model(preset["model"], device=device,
+                            generator=generator, **preset["model_kwargs"])
     if verbose or args.summary:
         # the reference prints the parameter totals and the PDE groups'
-        # share at the start (cifar10.py:413-420, SVHN.py:310)
+        # share at the start (cifar10.py:413-420, SVHN.py:310); a spatial
+        # model's are its unsharded counterpart's
         channels, size, _ = SYNTHETIC_SPECS[preset["dataset"]]
-        summ = model_summary(model, (batch_size, channels, size, size))
+        summ = model_summary(
+            model if image_spec is None else build_model(
+                preset["model"], device="cpu", **preset["model_kwargs"]),
+            (batch_size, channels, size, size))
         pct = 100.0 * summ["pde_params"] / max(summ["total_params"], 1)
         print(f"Model: {summ['total_params']:,} parameters (PDE groups "
               f"{summ['pde_params']:,} = {pct:.1f}%)")
@@ -202,7 +223,8 @@ def main(argv=None):
         moment_dtype=torch.bfloat16 if args.bf16_moments else None,
         device_epoch=args.device_epoch, debug_nans=args.debug_nans,
         native_loader=args.native_loader)
-    trainer = Trainer(model, config, values, mesh=mesh)
+    trainer = Trainer(model, config, values, mesh=mesh, tp=args.tp > 1,
+                      image_spec=image_spec)
     state = trainer.init_state(steps_per_epoch)
     if args.resume and args.checkpoint_dir:
         tag = ("last" if os.path.exists(
@@ -279,7 +301,8 @@ def main(argv=None):
             print(f"BN refresh ({args.bn_refresh} passes, {which}): test "
                   f"acc {refreshed:.2f}%")
         out["bn_refresh_acc"] = round(refreshed, 2)
-        if args.checkpoint_dir and leader:
+        # a sharded model's checkpoint is gathered by every rank
+        if args.checkpoint_dir and (leader or args.tp > 1):
             save_checkpoint(args.checkpoint_dir, state, tag="bn_refreshed")
     if result["preempted"]:
         out["preempted"] = True
@@ -289,11 +312,32 @@ def main(argv=None):
         torch.distributed.destroy_process_group()
 
 
-def _dp_mesh(device):
-    """The data-parallel mesh of ``--dp``: the process group torchrun
-    configured, or a world of this process alone over a free local port;
-    NCCL on the card, gloo on the CPU."""
+def _spatial_model(preset, mesh, device, generator):
+    """The preset's spatially sharded model (``--spatial``), initialised
+    as ``build_model`` initialises the unsharded one."""
+    from ..parallel import SpatialFTCSClassifier, SpatialTinyImageNetClassifier
+
+    kwargs = preset["model_kwargs"]
+    if preset["model"] == "emotion":
+        model = SpatialFTCSClassifier(mesh, **kwargs)
+    elif preset["model"] == "tiny_imagenet":
+        model = SpatialTinyImageNetClassifier(mesh, **kwargs)
+    else:
+        sys.exit("--spatial supports the large-map presets only "
+                 "(emotion, tiny_imagenet); the 28-32 px families have "
+                 "nothing to shard")
+    model.reset_parameters(generator)
+    return model.to(device).eval()
+
+
+def _dp_mesh(device, tp=1, spatial=1):
+    """The mesh of ``--dp``/``--tp``/``--spatial``: the process group
+    torchrun configured, or a world of this process alone over a free
+    local port (NCCL on the card, gloo on the CPU); 'spatial' and 'model'
+    of the given sizes, the rest of the world 'data'."""
     import socket
+
+    import torch.distributed as dist
 
     from ..parallel import initialize, make_mesh
 
@@ -304,7 +348,11 @@ def _dp_mesh(device):
             port = s.getsockname()[1]
         initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
                    backend=backend)
-    return make_mesh()
+    world = dist.get_world_size()
+    if tp < 1 or spatial < 1 or world % (tp * spatial):
+        sys.exit(f"--tp {tp} x --spatial {spatial} must be >=1 and divide "
+                 f"the number of processes ({world})")
+    return make_mesh(spatial=spatial, model=tp)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,12 @@ generator's state (augmentation and dropout draws) and ``extra`` (fit's
 written by ``torch.save`` to a temporary file and renamed over the old
 one.  The JAX package's ``orbax`` backend has no PyTorch counterpart and
 raises.
+
+A model sharded by tensor parallelism (``parallel/tensor_parallel.py``,
+``model.tp_layout``) is saved unsharded: every rank gathers the blocks of
+its parameters, their Adam moments and accumulated gradients (a
+collective, so every rank calls ``save_checkpoint``), and rank 0 writes;
+``restore_state`` gives each rank its block back.
 """
 
 from __future__ import annotations
@@ -45,15 +51,51 @@ def _map_tensors(fn, tree):
     return tree
 
 
+def _param_names(state):
+    """The parameter names of the optimizer's state indices and of the
+    train step's accumulated gradients, in their orders."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    opt = [names[id(p)] for g in state.optimizer.param_groups
+           for p in g["params"]]
+    return opt, [n for n, _ in state.model.named_parameters()]
+
+
+def _reshard(state, payload, fn):
+    """``payload`` with ``fn(name, tensor)`` applied to each parameter-
+    shaped tensor: the model's, the optimizer's moments and the train
+    step's accumulated gradients, in one order on every rank."""
+    opt_names, step_names = _param_names(state)
+    payload["model"] = {k: fn(k, v) for k, v in payload["model"].items()}
+    osd = payload["optimizer"]
+    osd["state"] = {i: {k: (fn(opt_names[int(i)], v) if k != "step" else v)
+                        for k, v in st.items()}
+                    for i, st in sorted(osd["state"].items())}
+    acc = payload["train_step"].get("acc")
+    if acc is not None:
+        payload["train_step"]["acc"] = [fn(n, a)
+                                        for n, a in zip(step_names, acc)]
+    return payload
+
+
 def _payload(state, extra):
     payload = {"model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict(),
                "step": int(state.step),
                "train_step": state.train_step.state_dict(),
                "generator": state.generator.get_state()}
+    layout = getattr(state.model, "tp_layout", None)
+    if layout is not None:
+        payload = _reshard(state, payload, layout.whole)
     if extra:
         payload["extra"] = dict(extra)
     return payload
+
+
+def _writes(state):
+    """Whether this process writes: rank 0 of a sharded model's mesh (the
+    others only gather), or the one process."""
+    layout = getattr(state.model, "tp_layout", None)
+    return layout is None or layout.mesh.rank == 0
 
 
 def _write(directory, tag, payload):
@@ -70,9 +112,10 @@ def save_checkpoint(directory, state, tag="last", backend="pickle",
                     extra=None):
     """Save ``state`` (a ``loop.TrainState``) as ``<directory>/<tag>.ckpt``;
     ``extra``: a flat dict of plain numbers saved beside it.  Returns the
-    path."""
+    path (None on a rank of a sharded model that does not write)."""
     _check_backend(backend)
-    return _write(directory, tag, _payload(state, extra))
+    payload = _payload(state, extra)
+    return _write(directory, tag, payload) if _writes(state) else None
 
 
 class _Saver:
@@ -97,6 +140,10 @@ def save_checkpoint_async(directory, state, tag="last", backend="pickle",
     before reading the files or exiting."""
     _check_backend(backend)
     snapshot = _map_tensors(torch.clone, _payload(state, extra))
+    if not _writes(state):
+        fut = concurrent.futures.Future()
+        fut.set_result(None)
+        return fut
     if _SAVER.executor is None:
         _SAVER.executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ckpt")
@@ -127,6 +174,9 @@ def restore_state(state, directory, tag="last"):
     optimizer) in place from ``<directory>/<tag>.ckpt``; the model loads
     with ``strict=True``.  Returns the state."""
     payload = load_checkpoint(directory, tag)
+    layout = getattr(state.model, "tp_layout", None)
+    if layout is not None:
+        payload = _reshard(state, payload, layout.local)
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.train_step.load_state_dict(payload["train_step"])

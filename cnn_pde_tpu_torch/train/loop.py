@@ -35,8 +35,18 @@ Trainer: ``batch_size`` is the global batch, each rank keeps the split and
 takes its rows of each global batch (host loop and device epoch alike),
 its step reduces across the ranks (``parallel/data_parallel.py``), eval
 gathers every rank's predictions, and checkpoints are written by rank 0
-behind a barrier and restored on every rank.  Tensor and spatial
-parallelism (``tp=``, ``image_spec=``) raise with ROADMAP.md A15.
+behind a barrier and restored on every rank.
+
+``Trainer(mesh=make_mesh(data=2, model=2), tp=True)`` also shards the FC
+stacks and the Ruthotto K over the 'model' axis
+(``parallel/tensor_parallel.py``) after the init (or ``init_state``'s
+``initial`` weights), the optimizer's state living on the shards;
+checkpoints hold the unsharded tensors (every rank gathers, rank 0
+writes) and every rank restores its block.  ``image_spec=("data", None,
+"spatial", None)`` with a spatial classifier (``parallel/spatial_model.py``)
+hands the model each rank's block of H after the augmentation, which sees
+whole images.  The device epoch captures the subgroups' collectives in its
+graph on the card.
 """
 
 from __future__ import annotations
@@ -169,10 +179,6 @@ class TrainState:
         self.step = step
 
 
-def _refuse(what, item):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-
-
 class Trainer:
     def __init__(self, model: nn.Module, config: TrainConfig, train_values,
                  schedule=None, mesh=None, tp=False, image_spec=None):
@@ -181,20 +187,40 @@ class Trainer:
         ``schedule``: the learning rate by update count; by default the
         preset's over the updates of an epoch, which ``init_state`` fixes
         from the dataset.  ``mesh``: data-parallel training over the
-        mesh's process group (the model on this rank's device); ``tp`` and
-        ``image_spec`` raise (ROADMAP.md A15)."""
-        if tp or image_spec is not None:
-            _refuse("Trainer(tp=, image_spec=)", "A15")
+        mesh's process group (the model on this rank's device).  ``tp``:
+        shard the model over the mesh's 'model' axis as well.
+        ``image_spec``: the layout of image batches, a tuple of axis names
+        or None a dim (``("data", None, "spatial", None)``: each rank's
+        block of H as well as its rows).  Both need a mesh in a process
+        group."""
+        if (tp or image_spec is not None) and (mesh is None
+                                               or mesh.group is None):
+            raise ValueError(
+                "Trainer(tp=, image_spec=) shards over a mesh of one "
+                "process a device: bring up a process group and pass "
+                "mesh=make_mesh(...) (parallel/multihost.py::initialize, "
+                "or torchrun)")
+        if image_spec is not None:
+            image_spec = tuple(image_spec)
+            if image_spec[:1] != ("data",) or any(
+                    a not in (None, "data", "spatial", "model")
+                    for a in image_spec):
+                raise ValueError(f"image_spec {image_spec}: the batch dim "
+                                 "over 'data', the others None or a mesh "
+                                 "axis")
         self.mesh = mesh
-        self.rows = None  # (rank, world) of a data-parallel run
+        self.tp = bool(tp)
+        self.image_spec = image_spec
+        self.rows = None  # ('data' index, 'data' size) of a mesh run
         if mesh is not None and mesh.group is not None:
-            self.rows = (mesh.rank, mesh.world)
+            _, index, size = mesh.axis("data")
+            self.rows = (index, size)
             for name, b in (("batch_size", config.batch_size),
                             ("eval batch", config.eval_bs)):
-                if b % mesh.world:
+                if b % size:
                     raise ValueError(
                         f"{name} {b} is not divisible by the 'data' axis "
-                        f"size {mesh.world}")
+                        f"size {size}")
         if config.native_loader and config.device_epoch:
             warnings.warn("device_epoch=True bypasses the native loader "
                           "(batching happens on device); native_loader "
@@ -210,12 +236,29 @@ class Trainer:
 
     # ---------------- initialization ----------------
 
-    def init_state(self, steps_per_epoch=1) -> TrainState:
+    def init_state(self, steps_per_epoch=1, initial=None) -> TrainState:
         """A fresh optimizer, generator (seeded with ``config.seed``) and
-        train step for the model's current weights.  ``steps_per_epoch``:
-        the train steps an epoch, for the default schedule (updates an
-        epoch: steps // grad_accum)."""
+        train step for the model's current weights, or ``initial`` (an
+        unsharded ``state_dict`` to warm-start from, loaded strictly).
+        ``steps_per_epoch``: the train steps an epoch, for the default
+        schedule (updates an epoch: steps // grad_accum).  With ``tp`` the
+        model is sharded here, before the optimizer is made."""
         cfg = self.config
+        if initial is not None:
+            from ..parallel.tensor_parallel import load_full_state_dict
+
+            load_full_state_dict(self.model, initial)
+        if self.rows is not None:  # every rank starts from rank 0's weights
+            from ..parallel.data_parallel import replicate
+
+            if getattr(self.model, "tp_layout", None) is None:
+                replicate(self.mesh, self.model)
+        if self.tp and getattr(self.model, "tp_layout", None) is None:
+            from ..parallel.tensor_parallel import (shard_pytree,
+                                                    tp_param_specs)
+
+            shard_pytree(self.mesh, self.model,
+                         tp_param_specs(self.model, self.mesh))
         optimizer = preset_optimizer(self.model, self.train_values,
                                      cfg.moment_dtype)
         k = max(int(cfg.grad_accum or 1), 1)
@@ -224,14 +267,11 @@ class Trainer:
         schedule = self.schedule or make_schedule(
             self.train_values, max(1, steps_per_epoch // k))
         generator = torch.Generator(self.device).manual_seed(cfg.seed)
-        if self.rows is not None:  # every rank starts from rank 0's weights
-            from ..parallel.data_parallel import replicate
-
-            replicate(self.mesh, self.model)
         step = make_train_step(self.model, self.train_values,
                                steps_per_epoch, generator,
                                optimizer=optimizer, schedule=schedule,
-                               grad_accum=k, mesh=self.mesh)
+                               grad_accum=k, mesh=self.mesh,
+                               image_spec=self.image_spec)
         return TrainState(self.model, optimizer, step, generator)
 
     # ---------------- epoch drivers ----------------
@@ -276,6 +316,16 @@ class Trainer:
         from ..parallel.data_parallel import _rows
 
         return _rows(self.mesh, n)
+
+    def _layout(self, x):
+        """``x`` (.., B, C, H, W) cut to this rank's block of each image
+        dim that ``image_spec`` shards (the rows are cut already)."""
+        if self.image_spec is None:
+            return x
+        from ..parallel.data_parallel import spec_block
+
+        lead = x.dim() - len(self.image_spec)
+        return spec_block(self.mesh, x, (None,) * lead + self.image_spec)
 
     # ---------------- the device epoch ----------------
 
@@ -409,20 +459,20 @@ class Trainer:
         images, labels = dataset.eval_arrays(split)
         n = images.shape[0]
         bs = self.config.eval_bs
-        world = self.mesh.world
+        index, world = self.rows
         nb = max(-(-n // bs), 1)
         padded = np.zeros((nb * bs,) + images.shape[1:], np.float32)
         padded[:n] = images
         per = bs // world
-        local = torch.as_tensor(np.ascontiguousarray(
-            padded.reshape((nb, world, per) + images.shape[1:])
-            [:, self.mesh.rank])).to(self.device)
+        local = self._layout(torch.as_tensor(np.ascontiguousarray(
+            padded.reshape((nb * world, per) + images.shape[1:])
+            [index::world])).to(self.device))
         if self.config.device_epoch:
             cached = self._dev_eval.get(split)
             if (cached is None or cached[0] is not dataset
                     or cached[1].model is not state.model):
                 runner = EvalRunner(state.model, local.reshape(
-                    (nb * per,) + images.shape[1:]), per)
+                    (nb * per,) + local.shape[2:]), per)
                 self._dev_eval[split] = (dataset, runner)
             preds = torch.as_tensor(self._dev_eval[split][1].run()).to(
                 self.device)
@@ -480,7 +530,7 @@ class Trainer:
                 for i in range(batches):
                     if self.rows is not None:  # this rank's rows
                         lo, hi = self._block(bs)
-                        model(stack[i][lo:hi])
+                        model(self._layout(stack[i][lo:hi]))
                     else:
                         model(stack[i])
         finally:
@@ -615,13 +665,14 @@ class Trainer:
 
 
 def _rank0_saver(save, mesh):
-    """``save`` run by rank 0 alone, every rank then waiting at a barrier
-    (an asynchronous save is waited for at the end of ``fit``, before its
-    own barrier)."""
+    """``save`` written by rank 0 alone, every rank then waiting at a
+    barrier (an asynchronous save is waited for at the end of ``fit``,
+    before its own barrier).  A sharded model's checkpoint is gathered by
+    every rank, so every rank calls ``save`` and only rank 0 writes."""
 
-    def saver(*args, **kwargs):
-        if mesh.rank == 0:
-            save(*args, **kwargs)
+    def saver(directory, state, **kwargs):
+        if mesh.rank == 0 or getattr(state.model, "tp_layout", None):
+            save(directory, state, **kwargs)
         dist.barrier(group=mesh.group)
 
     return saver

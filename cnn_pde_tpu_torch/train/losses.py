@@ -22,16 +22,21 @@ def hybrid_pde_regularization(model, alpha1=2e-4, alpha2=1e-4, alpha3=1e-6):
     selects by path: α3·Σp² on every ``alpha_base``/``beta_base``,
     α2·‖p − I‖² on every ``channel_mixing``, α2·Σp² on every SymmetricLayer
     K (``….K.weight``) and α1·Σ|p| on ``combination_weights``.  The hybrid
-    preset calls it with (2e-4, 1e-4, 1e-6)."""
-    reg = 0.0
+    preset calls it with (2e-4, 1e-4, 1e-6).  The terms are summed by
+    ``parallel.tensor_parallel.model_total``: a block of a tensor sharded
+    by tensor parallelism has its term summed over the model axis, the
+    unsharded model's regulariser on every rank."""
+    from ..parallel.tensor_parallel import model_total
+
+    terms = []
     for name, p in model.named_parameters():
         if "alpha_base" in name or "beta_base" in name:
-            reg = reg + alpha3 * torch.sum(p ** 2)
+            terms.append((name, alpha3 * torch.sum(p ** 2)))
         elif "channel_mixing" in name:
             eye = torch.eye(p.shape[0], dtype=p.dtype, device=p.device)
-            reg = reg + alpha2 * torch.sum((p - eye) ** 2)
+            terms.append((name, alpha2 * torch.sum((p - eye) ** 2)))
         elif ".K." in name or name.endswith("K.weight"):
-            reg = reg + alpha2 * torch.sum(p ** 2)
+            terms.append((name, alpha2 * torch.sum(p ** 2)))
         elif "combination_weights" in name:
-            reg = reg + alpha1 * torch.sum(torch.abs(p))
-    return reg
+            terms.append((name, alpha1 * torch.sum(torch.abs(p))))
+    return model_total(model, terms)

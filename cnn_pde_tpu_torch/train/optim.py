@@ -175,17 +175,29 @@ def set_learning_rates(optimizer, lr):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm):
+def clip_by_global_norm_(params, max_norm, model=None):
     """optax's ``clip_by_global_norm``: g ← g·max_norm/‖g‖ when the global
     norm ‖g‖ of all gradients exceeds ``max_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``).  Each tensor's norm is summed in
-    float64 and the global norm rounded to float32 once: a float32 norm
-    of a large gradient (the hybrid's 3072 × 3072 K) on the CPU is off by
-    3.5e-4 of its value, where XLA's pairwise sum is not.  Returns ‖g‖."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads
-    ])).to(grads[0].dtype)
+    ``torch.nn.utils.clip_grad_norm_``).  Each tensor's squared norm is
+    taken in float64 and the global norm rounded to float32 once: a
+    float32 norm of a large gradient (the hybrid's 3072 × 3072 K) on the
+    CPU is off by 3.5e-4 of its value, where XLA's pairwise sum is not.
+
+    ``model``: the model of ``params``.  Where it is sharded by tensor
+    parallelism the squares of its sharded blocks are summed over the
+    model axis and the others counted once
+    (``parallel.tensor_parallel.model_total``): ‖g‖ is the unsharded
+    model's.  Returns ‖g‖."""
+    from ..parallel.tensor_parallel import model_total
+
+    params = [p for p in params if p.grad is not None]
+    names = ({id(p): n for n, p in model.named_parameters()}
+             if model is not None else {})
+    grads = [p.grad for p in params]
+    norm = model_total(model, [
+        (names.get(id(p)),
+         torch.linalg.vector_norm(p.grad, dtype=torch.float64).square())
+        for p in params]).sqrt().to(grads[0].dtype)
     keep = norm < max_norm  # stays on the device: no host sync
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

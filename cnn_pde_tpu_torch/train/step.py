@@ -57,7 +57,7 @@ def preset_optimizer(model, train_values, moment_dtype=None):
 
 def make_train_step(model, train_values, steps_per_epoch, generator, *,
                     optimizer=None, moment_dtype=None, schedule=None,
-                    grad_accum=1, mesh=None):
+                    grad_accum=1, mesh=None, image_spec=None):
     """``step(images, labels) -> (loss, acc)``, both 0-d tensors on the
     model's device: a ``TrainStep``.
 
@@ -81,10 +81,15 @@ def make_train_step(model, train_values, steps_per_epoch, generator, *,
 
     ``mesh`` (``parallel.make_mesh()`` inside a process group): the step
     of one rank of a data-parallel run, called on its rows of each global
-    batch (``parallel/data_parallel.py``)."""
+    batch (``parallel/data_parallel.py``); of a tensor-parallel one when
+    the model is sharded (``parallel/tensor_parallel.py``).
+    ``image_spec`` (a tuple of axis names or None a dim): the images cut
+    to this rank's block of each dim it shards after the augmentation
+    (a spatial classifier's H, ``parallel/spatial_model.py``)."""
     return TrainStep(model, train_values, steps_per_epoch, generator,
                      optimizer=optimizer, moment_dtype=moment_dtype,
-                     schedule=schedule, grad_accum=grad_accum, mesh=mesh)
+                     schedule=schedule, grad_accum=grad_accum, mesh=mesh,
+                     image_spec=image_spec)
 
 
 class TrainStep:
@@ -109,7 +114,7 @@ class TrainStep:
 
     def __init__(self, model, train_values, steps_per_epoch, generator, *,
                  optimizer=None, moment_dtype=None, schedule=None,
-                 grad_accum=1, mesh=None):
+                 grad_accum=1, mesh=None, image_spec=None):
         self.device = device = next(model.parameters()).device
         self.model = model
         self.generator = generator
@@ -144,6 +149,7 @@ class TrainStep:
             if mesh.group is not None:
                 self.reducer = StepReducer(mesh, model, self.params)
         self.rows = self.reducer.rows if self.reducer is not None else None
+        self.mesh, self.image_spec = mesh, image_spec
         set_dropout_generator(model, generator, rows=self.rows)
         self.capturable = isinstance(self.optimizer, OptaxAdamW)
         self.updates = self.micro = 0  # the host's counts
@@ -200,6 +206,10 @@ class TrainStep:
         model.train()
         if self.spec is not None:
             x = augment(self.spec, x, self.generator, self.rows)
+        if self.image_spec is not None:
+            from ..parallel.data_parallel import spec_block
+
+            x = spec_block(self.mesh, x, self.image_spec)
         logits = model(x)
         loss = cross_entropy(logits, y, self.smoothing)
         if self.alphas is not None:
@@ -227,7 +237,7 @@ class TrainStep:
                 self._accumulate(apply)
             if apply:
                 if self.clip is not None:
-                    clip_by_global_norm_(self.params, self.clip)
+                    clip_by_global_norm_(self.params, self.clip, self.model)
                 if self.capturable:
                     lrs = self.lr_table.index_select(1, self.update_t)
                     for g, group in enumerate(self.optimizer.param_groups):

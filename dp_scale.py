@@ -26,6 +26,36 @@ is the ranks' sum), the device epoch of ``Trainer(mesh=make_mesh())``:
   loss and the accuracy), 50 calls by CUDA events, and the NCCL kernels
   and their device time in a profiled epoch of 5 captured steps.
 
+With ``--tp N`` or ``--spatial N`` the mesh is data=ranks/(N·M) ×
+spatial × model and the script runs the sharded-model cases instead
+(``SHARDED_CASES``): at ``--tp`` the full hybrid (exact grade, 64 images
+a step) and, where the 'data' axis is 2 or more, the per-sweep flagship
+(64) through ``Trainer(mesh, tp=True)``; at ``--spatial`` the emotion and
+Tiny-ImageNet spatial classifiers (32 images) through
+``Trainer(mesh, image_spec=("data", None, "spatial", None))`` against
+their unsharded models, and the two ADI strategies (the all_to_all swap
+and the partitioned solve) on a (96, 64, 64) state.  For each: the first
+step's agreement with one card (the loss within 1e-5 relative and its
+clipped gradients within 1e-4 of each tensor's largest entry, held; the
+parameters after AdamW's first update recorded: lr·sign(g) moves 2·lr
+where another order of sums flips the sign of a small gradient), ms a
+captured step by CUDA events beside one card alone, and the collectives
+of one eager step by ``parallel/hlo_audit.py`` with the NCCL kernels'
+device time in a profiled captured epoch (the ADI steps: a forward and
+backward, eager and captured in a CUDA graph, and their K1/K3 launches).
+A tensor-parallel case's gradients are held against one card replaying
+the sharded step's ReLU decisions, and each decision that one card
+alone takes the other way must lie within the rounding between the runs
+(``_sharded_case``): a pre-activation at zero within rounding flips a
+ReLU, which moves a whole row of the next layer's gradient.  A case that
+fails is recorded with its error and the script exits non-zero after
+writing the others.
+
+    python3 dp_scale.py --ranks 4 --tp 4
+    python3 dp_scale.py --ranks 4 --tp 2
+    python3 dp_scale.py --ranks 4 --spatial 4
+    python3 dp_scale.py --ranks 4 --spatial 4 --device cpu --steps 2
+
 Rank 0 prints the card's name and power limit and one JSON line of the
 readings; the script exits non-zero if any rank fails or a check misses.
 """
@@ -49,6 +79,7 @@ PROFILE_STEPS = 5
 ALLREDUCE_CALLS = 50
 PARAM_TOL = 5e-5
 LOSS_TOL = 1e-5
+GRAD_TOL = 1e-4     # the sharded cases' first gradient, of its largest entry
 
 
 def _model(label, device):
@@ -165,6 +196,7 @@ def _case(label, ranks, steps, mesh, device):
            "nccl_device_us_per_step": nccl[1] / PROFILE_STEPS,
            "profiled_device_events": nccl[2]}
     dist.barrier()
+    missed = None
     if mesh.rank == 0:
         ref, ref_state = _trainer(label, device, B, steps, None)
         ref_rec = ref.train_epoch(ref_state, data, 0, verbose=False)
@@ -203,15 +235,442 @@ def _case(label, ranks, steps, mesh, device):
                f"{where} {worst:.3e}, loss {loss_err:.3e}")
         if not (worst <= PARAM_TOL and loss_err <= LOSS_TOL
                 and np.isfinite(ref_rec["loss"])):
-            raise AssertionError(f"{label}: DP over {ranks} ranks against "
-                                 f"one card: {where} {worst} (tolerance "
-                                 f"{PARAM_TOL}), loss {loss_err} "
-                                 f"(tolerance {LOSS_TOL})")
-    dist.barrier()
+            missed = (f"{label}: DP over {ranks} ranks against one card: "
+                      f"{where} {worst} (tolerance {PARAM_TOL}), loss "
+                      f"{loss_err} (tolerance {LOSS_TOL})")
+    dist.barrier()  # every rank here before rank 0 may raise
+    if missed:
+        raise AssertionError(missed)
     return out
 
 
-def worker(rank, ranks, port, device, steps, out_path):
+# the sharded cases: label -> (dataset, global batch, train values key,
+# tensor parallel, image_spec)
+SHARDED_CASES = {
+    "hybrid exact": ("cifar10", 64, "HYBRID_TRAIN", True, None),
+    "flagship per_sweep": ("cifar10", 64, "TRAIN", True, None),
+    "emotion": ("emotion", 32, "EMOTION_TRAIN", False,
+                ("data", None, "spatial", None)),
+    "tiny_imagenet": ("tiny_imagenet", 32, "TINY_TRAIN", False,
+                      ("data", None, "spatial", None)),
+}
+ADI_SHAPE = (96, 64, 64)
+ADI_CALLS = 20
+
+
+def _progress(mesh, label, what, t0=time.perf_counter()):
+    """Rank 0's progress line (a hung collective shows where it stopped)."""
+    if mesh.rank == 0:
+        print(f"[dp-scale] {time.perf_counter() - t0:8.1f} s {label}: {what}",
+              flush=True)
+
+
+def _sharded_labels(mesh):
+    if mesh.shape["model"] > 1:
+        return ["hybrid exact"] + (["flagship per_sweep"]
+                                   if mesh.shape["data"] > 1 else [])
+    return ["emotion", "tiny_imagenet", "adi"]
+
+
+def _sharded_model(label, device, mesh):
+    """The case's model from chip_smoke's seeded model functions; a
+    spatial case's sharded classifier carries the unsharded one's
+    weights."""
+    import chip_smoke as cs
+    from cnn_pde_tpu_torch.parallel import (SpatialFTCSClassifier,
+                                            SpatialTinyImageNetClassifier)
+
+    if label == "hybrid exact":
+        return cs.hybrid_model(device, grade="exact")
+    if label == "flagship per_sweep":
+        return cs.flagship(device)
+    ref = (cs.emotion_model(device) if label == "emotion"
+           else cs.tiny_model(device))
+    if mesh is None or mesh.shape["spatial"] == 1:
+        return ref
+    cls = (SpatialFTCSClassifier if label == "emotion"
+           else SpatialTinyImageNetClassifier)
+    kwargs = {} if label == "emotion" else {"num_classes": 200}
+    model = cls(mesh, **kwargs).to(device)
+    model.load_state_dict(ref.state_dict())
+    return model
+
+
+def _sharded_trainer(label, device, B, steps, mesh):
+    import chip_smoke as cs
+    from cnn_pde_tpu_torch.train import TrainConfig, Trainer
+
+    name, _, values_key, tp, spec = SHARDED_CASES[label]
+    values = getattr(cs, values_key)
+    config = TrainConfig.from_preset(values, epochs=4, batch_size=B,
+                                     seed=cs.SEED,
+                                     max_steps_per_epoch=COMPARED_STEPS,
+                                     device_epoch=True, log_every=10**9)
+    sharded = mesh is not None
+    trainer = Trainer(_sharded_model(label, device, mesh), config, values,
+                      mesh=mesh, tp=tp and sharded,
+                      image_spec=spec if sharded else None)
+    return trainer, trainer.init_state(steps)
+
+
+def _relu_inputs(model, mesh=None):
+    """Forward pre-hooks that record the input of every call of each
+    ``nn.ReLU`` of ``model`` made whole: on a tensor-parallel rank the
+    feature block gathered over 'model' (between a column- and a
+    row-parallel Linear, and inside a sharded SymmetricLayer) and the rows
+    over 'data', a collective on every rank.  Returns ({name: [input a
+    call]}, the hooks' handles)."""
+    import torch
+    from torch import nn
+
+    from cnn_pde_tpu_torch.parallel.collectives import gather_dim
+    from cnn_pde_tpu_torch.parallel.tensor_parallel import (
+        ColumnParallelLinear)
+    from cnn_pde_tpu_torch.pde.ruthotto import SymmetricLayer
+
+    modules = dict(model.named_modules())
+    block = next((m.features for m in modules.values()
+                  if isinstance(m, ColumnParallelLinear)), None)
+    record, handles = {}, []
+    for name, m in modules.items():
+        if not isinstance(m, nn.ReLU):
+            continue
+        owner = modules[name.rpartition(".")[0]]
+
+        def hook(mod, args, name=name, owner=owner):
+            with torch.no_grad():
+                x = args[0].detach()
+                if mesh is not None:
+                    if ((block is not None and block.block is not None)
+                            or (isinstance(owner, SymmetricLayer)
+                                and owner.tp is not None)):
+                        x = gather_dim(x, mesh, "model", -1)
+                    x = gather_dim(x, mesh, "data", 0)
+                record.setdefault(name, []).append(x.clone())
+        handles.append(m.register_forward_pre_hook(hook))
+    return record, handles
+
+
+def _force_relu(model, inputs):
+    """Forward hooks that make each ``nn.ReLU`` call of ``model`` take the
+    branches of ``inputs`` (``_relu_inputs``' record of another run, in
+    call order): x·[that run's input > 0].  Returns the handles."""
+    from torch import nn
+
+    calls = {}
+
+    def make(name):
+        def hook(mod, args, out):
+            i = calls[name] = calls.get(name, -1) + 1
+            return args[0] * (inputs[name][i] > 0).to(args[0].dtype)
+        return hook
+    return [m.register_forward_hook(make(n))
+            for n, m in model.named_modules() if isinstance(m, nn.ReLU)]
+
+
+def _relu_flips(got, ref):
+    """The ReLU decisions of two runs (``_relu_inputs``' records):
+    (entries whose sign differs, the largest |ref input| at such an entry
+    and the largest difference of the entries whose sign agrees, both of
+    the tensor's largest |ref input|, where (ReLU names), and whether every
+    flipped entry sits within the rounding that separates the runs: its
+    |ref input| no larger than the largest difference where they agree)."""
+    n, at, rounding, where, within = 0, 0.0, 0.0, [], True
+    for name, calls in ref.items():
+        for r, g in zip(calls, got[name]):
+            flip = (r > 0) != (g > 0)
+            if not flip.any():
+                continue
+            scale = float(r.abs().max())
+            top = float(r[flip].abs().max())
+            agree = float((g - r)[~flip].abs().max())
+            n += int(flip.sum())
+            at, rounding = max(at, top / scale), max(rounding, agree / scale)
+            where.append(name)
+            within = within and top <= agree
+    return n, at, rounding, sorted(set(where)), within
+
+
+def _grad_errors(grads, sd, ref_state, zero):
+    """(worst gradient error, where; worst parameter error, where) of one
+    run's first step (``grads``, ``sd``: full tensors) against a reference
+    ``TrainState``'s, each of the reference tensor's largest entry."""
+    ref_sd = ref_state.model.state_dict()
+    g_worst, g_where, worst, where = 0.0, None, 0.0, None
+    for k, p in ref_state.model.named_parameters():
+        moved = p.grad.abs() > GRAD_FLOOR
+        # a gradient that vanishes in exact arithmetic (a bias before a
+        # train-mode BatchNorm) is rounding in both runs
+        if k in zero or not moved.any():
+            continue
+        # the first step's (clipped) gradient, which AdamW's first update
+        # turns into lr·sign(g)
+        g_err = float((grads[k] - p.grad).abs().max() / p.grad.abs().max())
+        if g_err >= g_worst:
+            g_worst, g_where = g_err, k
+        err = float((sd[k] - ref_sd[k])[moved].abs().max()
+                    / ref_sd[k].abs().max().clamp_min(1e-30))
+        if err >= worst:
+            worst, where = err, k
+    return g_worst, g_where, worst, where
+
+
+def _sharded_case(label, steps, mesh, device):
+    """One sharded Trainer case: the first step against one card, ms a
+    captured step, the collectives of an eager step and the NCCL kernels
+    of a profiled captured epoch.  A tensor-parallel case records every
+    ReLU input of its first step and one card replays that step twice:
+    alone, and with each ReLU forced to the sharded run's decisions (the
+    same branch of the piecewise-linear model); the gradients are held
+    against the replay, whose only difference from the sharded step is
+    the order of sums, and every ReLU decision that differs from one card
+    alone must sit within the rounding that separates the two runs."""
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from cnn_pde_tpu_torch.parallel import full_state_dict
+    from cnn_pde_tpu_torch.parallel.hlo_audit import audit
+
+    name, B, _, tp, _ = SHARDED_CASES[label]
+    data = _dataset(name, B, steps, cs.SEED + 92)
+    _progress(mesh, label, "sharding the model")
+    trainer, state = _sharded_trainer(label, device, B, steps, mesh)
+    _progress(mesh, label, "the first step")
+    relu, handles = (_relu_inputs(state.model, mesh) if tp
+                     else (None, []))
+    rec = trainer.train_epoch(state, data, 0, verbose=False)
+    for h in handles:
+        h.remove()
+    sharded_sd = {k: v.clone() for k, v in
+                  full_state_dict(state.model).items()}
+    layout = getattr(state.model, "tp_layout", None)
+    sharded_grads = {k: (p.grad if layout is None
+                         else layout.whole(k, p.grad)).clone()
+                     for k, p in state.model.named_parameters()}
+    _progress(mesh, label, "the captured epoch")
+    ms = _step_ms(trainer, state, data, steps, device)
+    _progress(mesh, label, "the profiled epoch")
+    trainer.config.max_steps_per_epoch = PROFILE_STEPS
+    nccl = _nccl_profile(lambda: trainer.train_epoch(state, data, 3,
+                                                     verbose=False))
+    _progress(mesh, label, "the audited eager step")
+    lo, hi = trainer._block(B)
+    x = data.train_images[:B][lo:hi]
+    y = data.train_labels[:B][lo:hi]
+    collectives = audit(state.train_step, x, y)[0]
+    _progress(mesh, label, "one card's reference")
+    out = {"global_batch": B, "mesh": mesh.shape, "step_ms": ms,
+           "images_per_s": 1e3 * B / ms,
+           "collectives_per_eager_step": collectives,
+           "nccl_kernels_per_step": nccl[0] / PROFILE_STEPS,
+           "nccl_device_us_per_step": nccl[1] / PROFILE_STEPS,
+           "profiled_device_events": nccl[2]}
+    dist.barrier()
+    missed = None
+    if mesh.rank == 0:
+        zero = (cs.ZERO_IN_EXACT_ARITHMETIC | cs.HYBRID_ZERO
+                | cs.EMOTION_ZERO | cs.TINY_ZERO)
+        ref, ref_state = _sharded_trainer(label, device, B, steps, None)
+        ref_relu, handles = _relu_inputs(ref_state.model) if tp else (
+            None, [])
+        ref_rec = ref.train_epoch(ref_state, data, 0, verbose=False)
+        for h in handles:
+            h.remove()
+        g_worst, g_where, worst, where = _grad_errors(
+            sharded_grads, sharded_sd, ref_state, zero)
+        held, within = g_worst, True
+        if tp:
+            flips = _relu_flips(relu, ref_relu)
+            within = flips[4]
+            replay, replay_state = _sharded_trainer(label, device, B,
+                                                    steps, None)
+            handles = _force_relu(replay_state.model, relu)
+            replay.train_epoch(replay_state, data, 0, verbose=False)
+            for h in handles:
+                h.remove()
+            replayed = _grad_errors(sharded_grads, sharded_sd,
+                                    replay_state, zero)
+            held = replayed[0]
+            out.update({"relu_flips": flips[0],
+                        "relu_flip_input_rel": flips[1],
+                        "relu_agreeing_diff_rel": flips[2],
+                        "relu_flip_where": flips[3],
+                        "relu_flips_within_rounding": within,
+                        "replayed_grad_rel_err": replayed[0],
+                        "replayed_grad_where": replayed[1],
+                        "replayed_rel_err": replayed[2],
+                        "replayed_where": replayed[3]})
+        loss_err = abs(rec["loss"] - ref_rec["loss"])
+        out.update({"worst_rel_err": worst, "worst_where": where,
+                    "grad_rel_err": g_worst, "grad_where": g_where,
+                    "loss_err": loss_err,
+                    "loss_rel_err": loss_err / max(abs(ref_rec["loss"]),
+                                                   1e-30),
+                    "single_step_ms": _step_ms(ref, ref_state, data, steps,
+                                               device)})
+        out["single_images_per_s"] = 1e3 * B / out["single_step_ms"]
+        replay_note = "" if not tp else (
+            f"; {out['relu_flips']} ReLU decisions differ "
+            f"({out['relu_flip_where']}: input at most "
+            f"{out['relu_flip_input_rel']:.3e} of the tensor's largest, "
+            f"agreeing entries differ by up to "
+            f"{out['relu_agreeing_diff_rel']:.3e}; within rounding "
+            f"{within}); one card replaying the sharded ReLU decisions: "
+            f"gradient {out['replayed_grad_where']} "
+            f"{out['replayed_grad_rel_err']:.3e}, parameter "
+            f"{out['replayed_where']} {out['replayed_rel_err']:.3e}")
+        cs.log(f"[dp-scale] {label}: mesh {mesh.shape}, B = {B}: {ms:.3f} "
+               f"ms a captured step ({out['images_per_s']:.1f} images/s); "
+               f"one card alone {out['single_step_ms']:.3f} ms; "
+               f"collectives of an eager step {collectives}; NCCL kernels "
+               f"a captured step {out['nccl_kernels_per_step']:g} "
+               f"({out['nccl_device_us_per_step']:.1f} us); after "
+               f"{COMPARED_STEPS} step against one card: loss {loss_err:.3e}, "
+               f"worst gradient {g_where} {g_worst:.3e} and parameter "
+               f"{where} {worst:.3e} of their largest entry{replay_note}")
+        # the loss and the gradients are held (a TP case's against the
+        # replay of its ReLU decisions, each differing decision within
+        # rounding); an AdamW parameter is recorded (lr·sign(g) moves 2·lr
+        # where another order of sums flips a gradient's sign)
+        if not (out["loss_rel_err"] <= LOSS_TOL and held <= GRAD_TOL
+                and within and np.isfinite(ref_rec["loss"])):
+            missed = (f"{label}: mesh {mesh.shape} against one card: loss "
+                      f"{loss_err} (relative tolerance {LOSS_TOL}), "
+                      f"gradient {held} (tolerance {GRAD_TOL}, "
+                      f"{'replayed' if tp else 'alone'}), ReLU flips "
+                      f"within rounding {within}")
+    dist.barrier()  # every rank here before rank 0 may raise
+    if missed:
+        raise AssertionError(missed)
+    return out
+
+
+def _events_ms(fn, device, calls=ADI_CALLS):
+    import torch
+
+    for _ in range(3):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def _captured_ms(fn, device):
+    """ms a replay of ``fn`` captured in a CUDA graph (after two eager
+    runs on the capturing stream), or None on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return _events_ms(graph.replay, device)
+
+
+def _adi_case(mesh, device):
+    """The two ADI strategies on an ADI_SHAPE state, H sharded over
+    'spatial': a forward and the fields' gradients against one card's
+    unsharded sweeps (rtol 2e-5 / atol 2e-6, gradients 1e-4 of their
+    largest entry), the K1/K3 launches of one forward and backward on a
+    rank, ms a forward and backward eager and captured, the collectives
+    of one call and the NCCL kernels' device time of the captured
+    replays."""
+    import torch
+
+    import chip_smoke as cs
+    from cnn_pde_tpu_torch.ops.adi import sweep_x, sweep_y
+    from cnn_pde_tpu_torch.parallel import (adi_strang_step_partitioned,
+                                            adi_strang_step_spatial)
+    from cnn_pde_tpu_torch.parallel.hlo_audit import audit
+    from cnn_pde_tpu_torch.parallel.spatial import block
+
+    rng = np.random.default_rng(cs.SEED + 95)
+    B, H, W = ADI_SHAPE
+    full = [rng.standard_normal((B, H, W)), rng.random((H, W)) + 0.2,
+            rng.random((H, W)) + 0.2, rng.random((B, H, W))]
+    full = [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in full]
+    lo, hi = block(mesh, H)
+    u, al, be, gw = (t[..., lo:hi, :].contiguous() for t in full)
+
+    def reference(u, al, be, gw):
+        al, be = al.clone().requires_grad_(), be.clone().requires_grad_()
+        x = sweep_x(u, al, 0.005, 1.0, eps=1e-6)
+        x = sweep_y(x, be, 0.01, 1.0, eps=1e-6)
+        x = sweep_x(x, al, 0.005, 1.0, eps=1e-6)
+        return (x.detach(),
+                *torch.autograd.grad((x * gw).sum(), (al, be)))
+
+    ref = reference(*full)
+    out = {"single_ms": _events_ms(lambda: reference(*full), device),
+           "single_captured_ms": _captured_ms(lambda: reference(*full),
+                                              device)}
+    for fn in (adi_strang_step_spatial, adi_strang_step_partitioned):
+        _progress(mesh, fn.__name__, "eager, captured and audited")
+
+        def step(fn=fn):
+            a, b = al.clone().requires_grad_(), be.clone().requires_grad_()
+            x = fn(mesh, u, a, b, dt=0.01)
+            return (x.detach(), *torch.autograd.grad((x * gw).sum(),
+                                                     (a, b)))
+        cs.reset_counts()
+        got = step()
+        launched = {k: cs.counts()[k] for k in ("K1", "K3")}
+        x_err = float((got[0] - ref[0][..., lo:hi, :]).abs().max())
+        g_err = max(float((g - r[lo:hi]).abs().max() / r.abs().max())
+                    for g, r in zip(got[1:], ref[1:]))
+        counts, shapes, _ = audit(step)
+        res = {"max_abs_err": x_err, "grad_rel_err": g_err,
+               "launches": launched,
+               "eager_ms": _events_ms(step, device),
+               "captured_ms": _captured_ms(step, device),
+               "collectives_per_call": counts, "gathered": shapes}
+        out[fn.__name__] = res
+        cs.log(f"[dp-scale] {fn.__name__} on {ADI_SHAPE}, mesh "
+               f"{mesh.shape}: max abs err {x_err:.3e}, gradients "
+               f"{g_err:.3e} of their largest entry against one card; "
+               f"K1/K3 launches a forward and backward {launched}; "
+               f"{res['eager_ms']:.3f} ms eager, captured "
+               f"{res['captured_ms']} ms (one card "
+               f"{out['single_ms']:.3f} / {out['single_captured_ms']} ms); "
+               f"collectives a call {counts}, gathered {shapes}")
+        if not (x_err <= 2e-6 + 2e-5 * float(ref[0].abs().max())
+                and g_err <= 1e-4):
+            raise AssertionError(f"{fn.__name__}: {x_err}, {g_err}")
+    return out
+
+
+def _sharded_cases(steps, mesh, device):
+    results, failed = {}, []
+    for label in _sharded_labels(mesh):
+        try:
+            results[label] = (_adi_case(mesh, device) if label == "adi"
+                              else _sharded_case(label, steps, mesh, device))
+        except Exception as exc:  # recorded; the script exits non-zero
+            results[label] = {"error": f"{type(exc).__name__}: {exc}"}
+            failed.append(label)
+    return results, failed
+
+
+def worker(rank, ranks, port, device, steps, out_path, tp=1, spatial=1):
     import torch
 
     from cnn_pde_tpu_torch.parallel import initialize, make_mesh
@@ -221,7 +680,7 @@ def worker(rank, ranks, port, device, steps, out_path):
     initialize(f"tcp://127.0.0.1:{port}", num_processes=ranks,
                process_id=rank, backend=backend)
     try:
-        mesh = make_mesh()
+        mesh = make_mesh(spatial=spatial, model=tp)
         if device.type == "cuda":
             import chip_smoke as cs
 
@@ -231,11 +690,17 @@ def worker(rank, ranks, port, device, steps, out_path):
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             device = mesh.device
-        results = {label: _case(label, ranks, steps, mesh, device)
-                   for label in CASES}
+        failed = []
+        if tp == spatial == 1:
+            results = {label: _case(label, ranks, steps, mesh, device)
+                       for label in CASES}
+        else:
+            results, failed = _sharded_cases(steps, mesh, device)
         if rank == 0:
             with open(out_path, "w") as f:
-                json.dump(results, f)
+                json.dump(results, f, default=str)
+        if failed:
+            raise SystemExit(f"dp_scale rank {rank}: failed {failed}")
     finally:
         torch.distributed.destroy_process_group()
 
@@ -245,11 +710,20 @@ def main(argv=None):
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="the 'model' axis: the tensor-parallel cases")
+    ap.add_argument("--spatial", type=int, default=1, metavar="N",
+                    help="the 'spatial' axis: the spatial cases")
     args = ap.parse_args(argv)
+    if args.ranks % (args.tp * args.spatial):
+        raise SystemExit(f"--tp {args.tp} x --spatial {args.spatial} must "
+                         f"divide --ranks {args.ranks}")
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "build", "dp_scale")
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, "results.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -258,10 +732,12 @@ def main(argv=None):
         env["OMP_NUM_THREADS"] = "2"
     code = ("import sys, dp_scale; dp_scale.worker(int(sys.argv[1]), "
             "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], "
-            "int(sys.argv[5]), sys.argv[6])")
+            "int(sys.argv[5]), sys.argv[6], int(sys.argv[7]), "
+            "int(sys.argv[8]))")
     procs = [subprocess.Popen([sys.executable, "-u", "-c", code, str(r),
                                str(args.ranks), str(port), args.device,
-                               str(args.steps), out_path], cwd=root, env=env)
+                               str(args.steps), out_path, str(args.tp),
+                               str(args.spatial)], cwd=root, env=env)
              for r in range(args.ranks)]
     try:
         codes = [p.wait(timeout=1500) for p in procs]
@@ -269,11 +745,11 @@ def main(argv=None):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            print(json.dumps(json.load(f)))
     if any(codes):
         raise SystemExit(f"dp_scale: ranks exited {codes}")
-    with open(out_path) as f:
-        results = json.load(f)
-    print(json.dumps(results))
     return 0
 
 

@@ -382,9 +382,15 @@ def test_make_mesh_shapes_match_jax():
         assert make_mesh(devices=cpus, **kw).shape == dict(
             jmesh(devices=jax.devices()[:8], **kw).shape)
     assert make_mesh().devices.shape == (1, 1, 1)
-    for kw in ({"spatial": 2}, {"model": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-            make_mesh(devices=cpus, **kw)
+    # the spatial and model axes (ported: a mesh outside a process group
+    # may take any shape; the sharded layers refuse it past one device)
+    for kw in ({"spatial": 2}, {"model": 2},
+               {"data": 2, "spatial": 2, "model": 2}):
+        ours = make_mesh(devices=cpus, **kw)
+        ref = jmesh(devices=jax.devices()[:8], **kw)
+        assert ours.devices.shape == ref.devices.shape
+        assert ours.shape == dict(ref.shape)
+        assert ours.axis_names == ref.axis_names
     with pytest.raises(AssertionError):
         make_mesh(data=9, devices=cpus)
 

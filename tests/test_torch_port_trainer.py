@@ -15,6 +15,7 @@ largest entry).
 import json
 import os
 import signal
+import socket
 import time
 import warnings
 
@@ -358,15 +359,39 @@ def test_unported_trainer_options_raise():
         warnings.simplefilter("error")
         assert Trainer(model, TrainConfig(native_loader=True),
                        values).config.native_loader
-    # the mesh is ported (tests/test_torch_port_data_parallel.py); tensor
-    # and spatial parallelism still raise
-    from cnn_pde_tpu_torch.parallel import make_mesh
+    # the mesh is ported (tests/test_torch_port_data_parallel.py), and so
+    # are tensor and spatial parallelism (test_torch_port_tensor_parallel,
+    # test_torch_port_spatial): in a process group (here a world of one)
+    # Trainer takes tp= and image_spec=, outside one they raise
+    import torch.distributed as dist
+
+    from cnn_pde_tpu_torch.parallel import initialize, make_mesh
 
     assert Trainer(model, TrainConfig(), values, mesh=make_mesh()).mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        Trainer(model, TrainConfig(), values, tp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        Trainer(model, TrainConfig(), values, image_spec=object())
+    for kw in ({"tp": True}, {"image_spec": ("data", None, "spatial", None)}):
+        with pytest.raises(ValueError, match="process group"):
+            Trainer(model, TrainConfig(), values, **kw)
+        with pytest.raises(ValueError, match="process group"):
+            Trainer(model, TrainConfig(), values, mesh=make_mesh(), **kw)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+               backend="gloo")
+    try:
+        mesh = make_mesh()
+        trainer = Trainer(model, TrainConfig(batch_size=16), values,
+                          mesh=mesh, tp=True,
+                          image_spec=("data", None, "spatial", None))
+        assert trainer.tp and trainer.image_spec == ("data", None,
+                                                     "spatial", None)
+        state = trainer.init_state()
+        assert state.model.tp_layout.mesh is mesh
+        with pytest.raises(ValueError, match="image_spec"):
+            Trainer(model, TrainConfig(), values, mesh=mesh,
+                    image_spec=(None, "data"))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_graceful_preemption_latches_and_restores():
