@@ -194,6 +194,23 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    (logits 1e-4 of their largest entry, one train step's loss and
    gradients 1e-4).  A one-rank group shards nothing: the multi-rank
    runs are ``dp_scale.py --tp N`` / ``--spatial N`` on four cards;
+10f. the study variants (ROADMAP.md A14): K1 and K3 at the lockstep's
+   shapes (bands (3, 3, 32, 32) with an exhausted branch's identity rows,
+   d (64, 3, 3, 32, 32), both axes) against their plain versions, and the
+   solver impls 'scan', 'pcr', 'pcr2' (no K1/K3 launch) and 'pallas'
+   (K1/K3) against 'auto' (1e-5, gradients 1e-4); the flagship's per-sweep
+   lockstep (24 K1 a forward, 24 K1 + 24 K3 a step), hoisted lockstep
+   in float32 and the ``enable_amp`` bf16 grade (2 K1 a forward or step,
+   the operator builds) served at B = 64 and 1024 and stepped at 64
+   against their plain versions and the sequential model (logits and
+   gradients 1e-4; bf16 4e-3 / 6e-3 of its plain versions with a
+   bf16-output control that must miss), the per-sweep lockstep's step
+   under 'scan', 'pcr' and 'pcr2' (no K1/K3); each mode's captured
+   predict bit for bit against eager and its device epoch bit for bit
+   against the eager Trainer, captured ms a request and a step beside
+   the sequential per-sweep and fused flagship's; ``enable_branch_
+   parallel`` in a one-rank NCCL group, both Trainer loops bit for bit
+   against the meshless hoisted lockstep;
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -661,13 +678,14 @@ def phase_kernels(device):
 
 
 def flagship(device, fused=False, fused_pde=False, dropout_rate=0.3,
-             fields_seed=SEED + 1):
+             fields_seed=SEED + 1, fused_multiscale=False):
     """The flagship with init from a seeded generator and its PDE fields
     replaced by trained-looking ones seeded by ``fields_seed``, so the
     clamps and the time bookkeeping are exercised."""
     model = build_model("cifar10_noconv", device=device,
                         generator=torch.Generator().manual_seed(SEED),
                         fused_inference=fused, fused_pde=fused_pde,
+                        fused_multiscale=fused_multiscale,
                         dropout_rate=dropout_rate)
     USED_DEVICES.add(next(model.parameters()).device)
     rng = np.random.default_rng(fields_seed)
@@ -4080,6 +4098,27 @@ def sweep_case(tag, device):
     return {r["description"]: r["accuracy"] for r in results}
 
 
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A process group of this process alone over tcp://127.0.0.1 (NCCL on
+    the card, gloo on the CPU), destroyed on exit; yields the bring-up
+    outcome (``parallel/multihost.py::initialize``)."""
+    import socket
+
+    from cnn_pde_tpu_torch.parallel import initialize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outcome = initialize(f"tcp://127.0.0.1:{port}", num_processes=1,
+                         process_id=0,
+                         backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        yield outcome
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def phase_analysis_dp(device):
     """Analysis, the native loader and data parallelism (ROADMAP.md A16 and
     A15's data-parallel half): the evolution spectra's bases on the card
@@ -4093,9 +4132,7 @@ def phase_analysis_dp(device):
     on fused mnist at B = 128 and the per-sweep flagship at B = 64
     (``dp_case``), the sweep harness (``sweep_case``), and the train CLI
     with --dp --native-loader and the serve CLI with --dp (queued)."""
-    import socket
-
-    from cnn_pde_tpu_torch.parallel import initialize, make_mesh
+    from cnn_pde_tpu_torch.parallel import make_mesh
 
     tag, out = "analysis-dp", {}
     out["spectra"] = {
@@ -4116,12 +4153,7 @@ def phase_analysis_dp(device):
     out["summary"] = summary_case(tag, device)
     out["native"] = native_case(tag, device)
     out["predict"] = dp_predict_case(tag, device)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    outcome = initialize(f"tcp://127.0.0.1:{port}", num_processes=1,
-                         process_id=0, backend="nccl")
-    try:
+    with one_rank_group(device) as outcome:
         mesh = make_mesh()
         log(f"[{tag}] process group: {outcome}, NCCL, mesh {mesh.shape} "
             f"on {mesh.device}")
@@ -4133,8 +4165,6 @@ def phase_analysis_dp(device):
             "flagship_per_sweep_B64": dp_case(
                 tag, "flagship per_sweep", lambda: flagship(device), TRAIN,
                 "cifar10", 64, ("K1", "K3"), mesh, device)}
-    finally:
-        torch.distributed.destroy_process_group()
     out["sweep"] = sweep_case(tag, device)
     cli_later(tag, "cnn_pde_tpu_torch.train", "mnist", "--synthetic",
               "--dp", "--native-loader", "--epochs", "1", "--steps", "3",
@@ -4351,26 +4381,376 @@ def phase_sharded(device):
     epoch (``tp_device_epoch``) and both spatial classifiers
     (``spatial_classifiers``).  A one-rank group shards nothing; the
     multi-rank runs are ``dp_scale.py --tp/--spatial`` on four cards."""
-    import socket
-
-    from cnn_pde_tpu_torch.parallel import initialize, make_mesh
+    from cnn_pde_tpu_torch.parallel import make_mesh
 
     tag = "sharded"
     out = {"kernels": sharded_kernels(tag, device)}
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    initialize(f"tcp://127.0.0.1:{port}", num_processes=1, process_id=0,
-               backend="nccl" if device.type == "cuda" else "gloo")
-    try:
+    with one_rank_group(device):
         mesh = make_mesh(spatial=1, model=1)
         out["adi"] = sharded_adi(tag, make_mesh(spatial=1), device)
         out["tp_hybrid"] = tp_device_epoch(tag, mesh, device)
         out["spatial"] = spatial_classifiers(tag, make_mesh(spatial=1),
                                              device)
-    finally:
-        torch.distributed.destroy_process_group()
     return out
+
+
+STUDY_BATCH = 64          # the lockstep kernels' and train step's batch
+STUDY_SERVE = (64, 1024)  # the study modes' served batches
+STUDY_EPOCH_STEPS = 12    # steps of each compared and timed epoch
+# the flagship's configurations of this phase: the three study modes and
+# the two they are timed beside
+STUDY_MODES = ("lockstep", "hoisted_f32", "hoisted_bf16")
+STUDY_BESIDE = ("per_sweep", "fused")
+STUDY_LAUNCHES = {"per_sweep": {"K1": 51}, "lockstep": {"K1": 24},
+                  "hoisted_f32": {"K1": 2}, "hoisted_bf16": {"K1": 2}}
+
+
+def study_model(device, mode, dropout_rate=0.3):
+    """The flagship (``flagship``'s seeded init and fields) in ``mode``:
+    'per_sweep' (the sequential branches), 'fused' (K2 in eval, K4/K5 in
+    training), 'lockstep' (``fused_multiscale=True``), 'hoisted_f32' and
+    'hoisted_bf16' (``lockstep_hoisted``; bf16 by ``enable_amp``)."""
+    model = flagship(device, fused=mode == "fused", fused_pde=mode == "fused",
+                     dropout_rate=dropout_rate,
+                     fused_multiscale=mode == "lockstep")
+    model.feature_extractor.lockstep_hoisted = mode.startswith("hoisted")
+    if mode == "hoisted_bf16":
+        enable_amp(model)
+    return model
+
+
+def lockstep_bands(rng, device, dim):
+    """Bands (3, 3, 32, 32) of one lockstep sweep along ``dim`` at t = 0.004:
+    the three branches' clamped fields times their dt/2/dx² (x) or dt/dy²
+    (y), the third branch exhausted (identity rows: a = c = 0, b = 1)."""
+    stacks = [fields(rng, device) for _ in range(3)]
+    field = torch.stack([_coeff_at(f["alpha_base"], f["alpha_time_coeff"],
+                                   0.004, EPS, CMAX) for f in stacks])
+    dtfac = [(s["dt"] / 2 / s["dx"] ** 2) if dim == -1 else
+             (s["dt"] / s["dy"] ** 2) for s in SCALES]
+    scale = torch.tensor([f if k < 2 else 0.0 for k, f in enumerate(dtfac)],
+                         dtype=torch.float32, device=device).view(3, 1, 1, 1)
+    r = field * scale
+    live = (scale > 0).float()
+    return -r, (_neumann_b(r, dim) + EPS * live).contiguous(), -r
+
+
+def study_kernels(tag, device):
+    """K1 and K3 at the lockstep's shapes (bands (3, 3, 32, 32) with an
+    exhausted branch's identity rows, d (STUDY_BATCH, 3, 3, 32, 32)), both
+    axes, against their plain versions (KERNEL_TOL; band gradients
+    GRAD_TOL of their largest entry); the identity branch's solution is
+    its right-hand side; then 'scan', 'pcr' and 'pcr2' (no K1/K3 launch)
+    and 'pallas' (K1/K3, as 'auto') against 'auto': the solution within
+    KERNEL_TOL, the four inputs' gradients within GRAD_TOL."""
+    rng = np.random.default_rng(SEED + 101)
+    errs = {"K1": 0.0, "K3": (0.0, 0.0)}
+    impls = {}
+    for dim in (-1, -2):
+        a, b, c = lockstep_bands(rng, device, dim)
+        d = seeded_batch(rng, STUDY_BATCH, (3, 3, 32, 32), device)
+        g = torch.from_numpy(rng.standard_normal(
+            (STUDY_BATCH, 3, 3, 32, 32)).astype(np.float32)).to(device)
+        reset_counts()
+        x = tridiag_solve(a, b, c, d, dim)
+        lam, *bands = tridiag_adjoint(a, b, c, g, x, dim)
+        if counts() != only(K1=1, K3=1):
+            raise AssertionError(f"{tag}: launches {counts()}")
+        e1 = check(f"K1 lockstep bands dim={dim} B={STUDY_BATCH} vs plain",
+                   max_err(x, tridiag_solve_plain(a, b, c, d, dim)),
+                   KERNEL_TOL)
+        check(f"K1 lockstep dim={dim}: the exhausted branch's solution vs "
+              "its right-hand side", max_err(x[:, 2], d[:, 2]), KERNEL_TOL)
+        ref = tridiag_adjoint_plain(a, b, c, g, x, dim)
+        e3 = check(f"K3 lambda lockstep bands dim={dim} vs plain",
+                   max_err(lam, ref[0]), KERNEL_TOL)
+        e3b = max(check_rel(f"K3 band grad {i} dim={dim} vs plain",
+                            rel_err(got, want), GRAD_TOL)
+                  for i, (got, want) in enumerate(zip(bands, ref[1:])))
+        errs["K1"] = max(errs["K1"], e1)
+        errs["K3"] = (max(errs["K3"][0], e3), max(errs["K3"][1], e3b))
+
+        def solve(impl):
+            args = [t.clone().requires_grad_() for t in (a, b, c, d)]
+            reset_counts()
+            out = tridiag_solve(*args, dim=dim, impl=impl)
+            grads = torch.autograd.grad((out * g).sum(), args)
+            return out.detach(), grads, counts()
+        x_auto, g_auto, launched = solve("auto")
+        for impl in ("scan", "pcr", "pcr2", "pallas"):
+            x_i, g_i, launched_i = solve(impl)
+            want = launched if impl == "pallas" else only()
+            if launched_i != want:
+                raise AssertionError(f"{tag}: impl {impl} launched "
+                                     f"{launched_i}, expected {want}")
+            err = check(f"impl {impl} dim={dim} vs 'auto' (launches "
+                        f"{launched_i['K1']} K1 + {launched_i['K3']} K3)",
+                        max_err(x_i, x_auto), KERNEL_TOL)
+            gerr = max(check_rel(f"impl {impl} dim={dim} grad {n} vs "
+                                 "'auto'", rel_err(gi, ga), GRAD_TOL)
+                       for n, gi, ga in zip("abcd", g_i, g_auto))
+            impls.setdefault(impl, []).append((err, gerr))
+    return errs, {k: {"max_abs_err": max(e for e, _ in v),
+                      "max_rel_err_grads": max(e for _, e in v)}
+                  for k, v in impls.items()}
+
+
+def study_checks(tag, device):
+    """Each study mode at B = STUDY_BATCH (eval also at 1024) against its
+    plain versions and the sequential per-sweep model: the eval forward's
+    launches (24 K1 lockstep, 2 K1 hoisted for the operator builds) and
+    logits (LOGIT_TOL; the bf16 grade AMP_OUT_TOL against its plain
+    versions, the extractor's features too, with a control whose GEMMs
+    return bf16 that must miss); one train step (dropout 0; the kernel
+    run's ReLU and max-pool decisions replayed): launches (24 K1 + 24 K3,
+    or 2 K1) and the loss and every gradient within GRAD_TOL of the plain
+    versions and the sequential step (bf16: AMP_GRAD_TOL of its plain
+    versions).  Then the per-sweep lockstep's train step under each plain
+    solver ('scan', 'pcr', 'pcr2'): no K1/K3 launch, within GRAD_TOL of
+    the K1/K3 step."""
+    rng = np.random.default_rng(SEED + 102)
+    y = torch.from_numpy(rng.integers(0, 10, STUDY_BATCH)).to(device)
+    xs = {B: seeded_batch(rng, B, (3, 32, 32), device) for B in STUDY_SERVE}
+    x = xs[STUDY_BATCH]
+    smoothing = TRAIN["label_smoothing"]
+    out = {}
+    for mode in STUDY_MODES:
+        # fresh models: a train step moves BatchNorm's running statistics
+        model = study_model(device, mode, dropout_rate=0.0)
+        seq = study_model(device, "per_sweep", dropout_rate=0.0)
+        per = STUDY_LAUNCHES[mode]
+        res = out[mode] = {}
+        for B, xb in xs.items():
+            with torch.no_grad():
+                reset_counts()
+                got = model.eval()(xb)
+                launched = counts()
+                with kernels.plain_versions():
+                    plain = model(xb)
+                ref = seq.eval()(xb)
+            if launched != only(**per):
+                raise AssertionError(f"{tag}: {mode} forward B={B} launched "
+                                     f"{launched}, expected {per}")
+            tol = AMP_OUT_TOL if mode == "hoisted_bf16" else LOGIT_TOL
+            res[f"B{B}_logits_vs_plain"] = check_rel(
+                f"{mode} logits B={B} vs its plain versions",
+                rel_err(got, plain), tol)
+            err = rel_err(got, ref)
+            if mode == "hoisted_bf16":
+                log(f"  {mode} logits B={B} vs the float32 sequential "
+                    f"model: {err:.3e} of the largest entry (logged)")
+            else:
+                check_rel(f"{mode} logits B={B} vs sequential", err,
+                          LOGIT_TOL)
+            res[f"B{B}_logits_vs_sequential"] = err
+        if mode == "hoisted_bf16":
+            with torch.no_grad():
+                feats = model.feature_extractor(x)
+                with kernels.plain_versions():
+                    plain = model.feature_extractor(x)
+                with bf16_gemm_outputs():
+                    control = model.feature_extractor(x)
+            res["features_vs_plain"] = check_rel(
+                f"{mode} features vs its plain versions",
+                rel_err(feats, plain), AMP_OUT_TOL)
+            res["control_features_vs_plain"] = rel_err(control, plain)
+            log(f"  {mode} control (bf16 GEMM outputs) features vs plain: "
+                f"{res['control_features_vs_plain']:.3e} (must exceed "
+                f"{AMP_OUT_TOL:.0e})")
+            if not res["control_features_vs_plain"] > AMP_OUT_TOL:
+                raise AssertionError(f"{tag}: the bf16 control passed")
+        masks = {}
+        reset_counts()
+        got = train_grads(model, x, y, smoothing, masks)
+        launched = counts()
+        step = only(K1=per["K1"], K3=per["K1"] if mode == "lockstep" else 0)
+        if launched != step:
+            raise AssertionError(f"{tag}: {mode} train step launched "
+                                 f"{launched}, expected {step}")
+        with kernels.plain_versions():
+            plain = train_grads(model, x, y, smoothing, masks)
+        ref = train_grads(seq, x, y, smoothing, masks)
+        res["train_launches"] = launched
+        if mode == "hoisted_bf16":
+            res["grads_vs_plain"] = compare_grads(
+                f"{mode} train step vs its plain versions", got, plain,
+                AMP_GRAD_TOL, ZERO_IN_EXACT_ARITHMETIC)[0]
+            compare_grads(f"{mode} train step vs the float32 sequential "
+                          "step", got, ref, None, ZERO_IN_EXACT_ARITHMETIC,
+                          rel_check=False)
+        else:
+            res["grads_vs_plain"] = compare_grads(
+                f"{mode} train step vs its plain versions", got, plain,
+                GRAD_TOL, ZERO_IN_EXACT_ARITHMETIC)[0]
+            res["grads_vs_sequential"] = compare_grads(
+                f"{mode} train step vs sequential", got, ref, GRAD_TOL,
+                ZERO_IN_EXACT_ARITHMETIC)[0]
+        if mode == "lockstep":
+            for impl in ("scan", "pcr", "pcr2"):
+                previous = tridiag_module.set_default_impl(impl)
+                try:
+                    reset_counts()
+                    other = train_grads(model, x, y, smoothing, masks)
+                    launched = counts()
+                finally:
+                    tridiag_module.set_default_impl(previous)
+                if launched != only():
+                    raise AssertionError(f"{tag}: {impl} step launched "
+                                         f"{launched}")
+                res[f"{impl}_grads_vs_auto"] = compare_grads(
+                    f"lockstep train step under set_default_impl({impl!r}) "
+                    "(no K1/K3 launch) vs 'auto'", other, got, GRAD_TOL,
+                    ZERO_IN_EXACT_ARITHMETIC)[0]
+        log(f"[{tag}] {mode}: a forward launches {only(**per)}, a train "
+            f"step {launched if mode != 'lockstep' else step}")
+    return out
+
+
+def study_serving(tag, device):
+    """``make_predict_fn`` (one CUDA graph a bucket, STUDY_SERVE) of each
+    study mode and of the sequential per-sweep and fused (K2) flagship:
+    captured logits bit for bit against the eager predict's; ms a request
+    by CUDA events (median of 5 groups of 10 after warm-up) and images/s."""
+    rng = np.random.default_rng(SEED + 103)
+    xs = {B: seeded_batch(rng, B, (3, 32, 32), device) for B in STUDY_SERVE}
+    out = {}
+    for mode in STUDY_BESIDE + STUDY_MODES:
+        model = study_model(device, mode).eval()
+        predict = make_predict_fn(model, buckets=STUDY_SERVE)
+        eager = make_eager_predict_fn(model, buckets=STUDY_SERVE)
+        res = out[mode] = {}
+        for B, x in xs.items():
+            got, ref = predict(x), eager(x)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{tag}: {mode} captured predict B={B} "
+                                     f"differs from eager: "
+                                     f"{rel_err(got, ref):.3e}")
+            ms = time_ms(lambda: predict(x), groups=5, per_group=10)
+            res[f"B{B}"] = {"ms": ms, "images_per_s": 1e3 * B / ms}
+        log(f"[{tag}] {mode} captured predict bit for bit against eager; "
+            + "; ".join(f"B={B}: {r['ms']:.3f} ms, {r['images_per_s']:.1f} "
+                        "images/s" for B, r in zip(STUDY_SERVE,
+                                                   res.values()))
+            + " (CUDA events)")
+    return out
+
+
+def study_training(tag, device):
+    """The device-epoch Trainer (the step captured in a CUDA graph) of each
+    study mode against the eager Trainer from the same seeded model, an
+    epoch of STUDY_EPOCH_STEPS steps at STUDY_BATCH: bit for bit; then a
+    second captured epoch timed by CUDA events, beside the sequential
+    per-sweep and fused (K4/K5) flagship's."""
+    data = epoch_dataset("cifar10", STUDY_BATCH, SEED + 104)
+    out = {}
+    for mode in STUDY_BESIDE + STUDY_MODES:
+        def trainer(device_epoch):
+            config = TrainConfig.from_preset(
+                TRAIN, epochs=2, batch_size=STUDY_BATCH, seed=SEED,
+                max_steps_per_epoch=STUDY_EPOCH_STEPS,
+                device_epoch=device_epoch, log_every=10**9)
+            t = Trainer(study_model(device, mode), config, TRAIN)
+            return t, t.init_state(STUDY_EPOCH_STEPS)
+
+        graph, gs = trainer(True)
+        rec = graph.train_epoch(gs, data, 0, verbose=False)
+        if device.type == "cuda" and graph._runner.graphs is None:
+            raise AssertionError(f"{tag}: {mode}: no CUDA graph captured")
+        res = out[mode] = {}
+        if mode in STUDY_MODES:
+            eager, es = trainer(False)
+            ref = eager.train_epoch(es, data, 0, verbose=False)
+            ref_sd = es.model.state_dict()
+            differ = [k for k, v in gs.model.state_dict().items()
+                      if not torch.equal(v, ref_sd[k])]
+            if differ or rec["loss"] != ref["loss"]:
+                raise AssertionError(
+                    f"{tag}: {mode} captured epoch differs from eager: "
+                    f"{differ[:5]}, loss {rec['loss']} vs {ref['loss']}")
+            res["bitwise"] = True
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.train_epoch(gs, data, 1, verbose=False)
+        stop.record()
+        stop.synchronize()
+        ms = start.elapsed_time(stop) / STUDY_EPOCH_STEPS
+        res.update(step_ms=ms, images_per_s=1e3 * STUDY_BATCH / ms)
+        log(f"[{tag}] {mode} device epoch B={STUDY_BATCH}"
+            + (" bit for bit against the eager Trainer after "
+               f"{STUDY_EPOCH_STEPS} steps" if mode in STUDY_MODES else "")
+            + f"; captured {ms:.3f} ms a step, {1e3 * STUDY_BATCH / ms:.1f} "
+            "images/s (CUDA events over an epoch)")
+    return out
+
+
+def study_branch_parallel(tag, device):
+    """``enable_branch_parallel`` over a process group of one rank (NCCL):
+    ``Trainer(mesh=)`` on the host loop and the device epoch, bit for bit
+    against the meshless Trainer on the hoisted lockstep; its eval
+    predictions equal.  One rank splits nothing: the multi-rank runs are
+    ``dp_scale.py --branch`` on four cards."""
+    from cnn_pde_tpu_torch.parallel import enable_branch_parallel, make_mesh
+
+    data = epoch_dataset("cifar10", STUDY_BATCH, SEED + 105)
+    out = {}
+    with one_rank_group(device):
+        mesh = make_mesh(model=1)
+        for device_epoch in (False, True):
+            def trainer(m):
+                config = TrainConfig.from_preset(
+                    TRAIN, epochs=1, batch_size=STUDY_BATCH, seed=SEED,
+                    max_steps_per_epoch=STUDY_EPOCH_STEPS // 2,
+                    device_epoch=device_epoch, log_every=10**9)
+                model = study_model(device, "hoisted_f32" if m is None
+                                    else "per_sweep")
+                if m is not None and enable_branch_parallel(model, m) != 1:
+                    raise AssertionError(f"{tag}: no extractor switched")
+                t = Trainer(model, config, TRAIN, mesh=m)
+                return t, t.init_state(STUDY_EPOCH_STEPS // 2)
+
+            (bt, bs), (rt, rs) = trainer(mesh), trainer(None)
+            reset_counts()
+            rec = bt.train_epoch(bs, data, 0, verbose=False)
+            launched = counts()
+            ref = rt.train_epoch(rs, data, 0, verbose=False)
+            sd, ref_sd = bs.model.state_dict(), rs.model.state_dict()
+            differ = [k for k, v in sd.items() if not torch.equal(v, ref_sd[k])]
+            if differ or rec["loss"] != ref["loss"]:
+                raise AssertionError(
+                    f"{tag}: branch-parallel Trainer (device_epoch="
+                    f"{device_epoch}) differs from the meshless one: "
+                    f"{differ[:5]}, loss {rec['loss']} vs {ref['loss']}")
+            if (device_epoch and device.type == "cuda"
+                    and bt._runner.graphs is None):
+                raise AssertionError(f"{tag}: no CUDA graph captured")
+            ev, ref_ev = bt.evaluate(bs, data), rt.evaluate(rs, data)
+            if not np.array_equal(ev["predictions"], ref_ev["predictions"]):
+                raise AssertionError(f"{tag}: eval predictions differ")
+            mode = "graph" if device_epoch else "host"
+            out[mode] = {"launches": launched, "bitwise": True}
+            log(f"[{tag}] enable_branch_parallel, one NCCL rank, {mode} "
+                f"loop: {len(sd)} of {len(sd)} tensors and the loss bit for "
+                f"bit against the meshless hoisted lockstep after "
+                f"{STUDY_EPOCH_STEPS // 2} steps, eval predictions equal; "
+                f"launches {launched}")
+    return out
+
+
+def phase_study(device):
+    """The study variants (ROADMAP.md A14) at full width on the card:
+    K1/K3 at the lockstep's shapes and the solver impls
+    (``study_kernels``), the three modes against their plain versions and
+    the sequential model (``study_checks``), captured serving and
+    training (``study_serving``, ``study_training``) and branch
+    parallelism in a one-rank group (``study_branch_parallel``)."""
+    tag = "study"
+    errs, impls = study_kernels(tag, device)
+    return {"kernels": errs, "impls": impls,
+            "checks": study_checks(tag, device),
+            "serving": study_serving(tag, device),
+            "training": study_training(tag, device),
+            "branch_parallel": study_branch_parallel(tag, device)}
 
 
 def trainer_cli(*args, popen=False):
@@ -5068,9 +5448,11 @@ def main():
     analysis_dp = timed("analysis, native loader and data parallel",
                         phase_analysis_dp, device)
     sharded = timed("sharded model parallel", phase_sharded, device)
-    errs["K1"] = max(errs["K1"], sharded["kernels"]["K1"])
-    errs["K3"] = tuple(max(a, b) for a, b in zip(errs["K3"],
-                                                 sharded["kernels"]["K3"]))
+    study = timed("study variants", phase_study, device)
+    for phase_errs in (sharded["kernels"], study["kernels"]):
+        errs["K1"] = max(errs["K1"], phase_errs["K1"])
+        errs["K3"] = tuple(max(a, b) for a, b in zip(errs["K3"],
+                                                     phase_errs["K3"]))
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     times.update(timed("grayscale kernel times", times_grayscale, device,
@@ -5176,6 +5558,21 @@ def main():
             label: launched[key] for label, launched in adi.items()}
         per[key]["one_rank_tp_hybrid_device_epoch_launches"] = sharded[
             "tp_hybrid"]["launches"][key]
+    # the study variants: the lockstep's sweeps (a forward, a train step)
+    # and the hoisted lockstep's operator builds
+    checks = study["checks"]
+    per["K1"]["lockstep_launches_per_forward"] = STUDY_LAUNCHES[
+        "lockstep"]["K1"]
+    per["K1"]["lockstep_launches_per_train_step"] = checks["lockstep"][
+        "train_launches"]["K1"]
+    per["K3"]["lockstep_launches_per_train_step"] = checks["lockstep"][
+        "train_launches"]["K3"]
+    per["K1"]["hoisted_lockstep_launches_per_train_step"] = checks[
+        "hoisted_f32"]["train_launches"]["K1"]
+    for key in ("K1", "K3"):
+        per[key]["one_rank_branch_parallel_launches"] = {
+            mode: r["launches"][key]
+            for mode, r in study["branch_parallel"].items()}
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
@@ -5215,6 +5612,7 @@ def main():
               "analysis_dp": analysis_dp,
               "sharded": {k: v for k, v in sharded.items()
                           if k != "kernels"},
+              "study": {k: v for k, v in study.items() if k != "kernels"},
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -5,8 +5,22 @@ Attribute names follow the reference's ``state_dict`` namespace, so a
 reference checkpoint loads with ``load_state_dict(strict=True)``.
 ``fused_pde=True`` runs each branch as one trainable fused call (K4 forward,
 K5 backward on the card); ``fused_inference=True`` runs each branch as one K2
-launch in eval.  The lockstep, fused-multiscale and branch-sharded modes are
-later slices (ROADMAP.md A14).
+launch in eval.  The JAX package's three study modes of the extractor
+(``pde/fused_multiscale.py``), with its precedence:
+
+* a branch layout (``parallel/branch_parallel.py::enable_branch_parallel``)
+  or ``lockstep_hoisted = True``: the three branches in lockstep on
+  precomputed operators, 24 stacked GEMM sweeps, the operators built by
+  two K1 launches a forward at the first branch's ``operator_dtype`` (bf16
+  after ``enable_amp``), eps and clamp;
+* ``fused=True`` (``CIFAR10PDENoConv(fused_multiscale=True)``): the
+  per-sweep lockstep, 24 K1 launches a forward and 24 K3 a backward
+  (51 each on the sequential path); after ``enable_amp`` each sweep is a
+  bf16 operator built at the call ('matinv_bf16'), as the JAX package's
+  global solver default makes it;
+* otherwise the sequential branches.
+
+The parameters keep their per-branch names in every mode.
 
 Dropout draws its mask from an explicit ``torch.Generator`` on the
 activations' device (``set_dropout_generator``); without one it uses
@@ -22,6 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..pde import MixedChannelDiffusion
+from ..pde.fused_multiscale import (fused_multiscale_evolve,
+                                    hoisted_lockstep_evolve, lockstep_tables)
 from .attention import SpatialAttention
 
 __all__ = ["MultiScaleExtractor", "EnhancedFC", "CIFAR10PDENoConv",
@@ -77,15 +93,28 @@ def set_dropout_generator(model, generator, rows=None):
 
 class MultiScaleExtractor(nn.Module):
     """Three Strang PDE branches at different temporal and spatial scales,
-    each gated by SpatialAttention, combined by softmax weights."""
+    each gated by SpatialAttention, combined by softmax weights.
+
+    ``fused``: the per-sweep lockstep; ``lockstep_hoisted``: the lockstep
+    on precomputed operators; ``branch_mesh`` / ``branch_axis``: the
+    hoisted lockstep with its branch axis split over that mesh axis (set
+    by ``enable_branch_parallel``).  The lockstep's time tables are
+    buffers on the model's device (not in the state dict)."""
 
     SCALES = [dict(dt=0.001, num_steps=5, dx=1.0, dy=1.0),
               dict(dt=0.002, num_steps=8, dx=2.0, dy=2.0),
               dict(dt=0.005, num_steps=4, dx=1.5, dy=1.5)]
 
     def __init__(self, input_size=32, channels=3, fused_inference=False,
-                 fused_pde=False, device=None):
+                 fused_pde=False, fused=False, device=None):
         super().__init__()
+        if fused and (fused_pde or fused_inference):
+            raise ValueError("MultiScaleExtractor: the lockstep (fused=True) "
+                             "excludes fused_pde and fused_inference")
+        self.fused = fused
+        self.lockstep_hoisted = False
+        self.branch_mesh = None
+        self.branch_axis = "model"
         for i, scale in enumerate(self.SCALES, start=1):
             self.add_module(f"pde{i}", MixedChannelDiffusion(
                 input_size, channels, splitting="strang",
@@ -95,6 +124,39 @@ class MultiScaleExtractor(nn.Module):
                             SpatialAttention(channels, input_size, device))
         self.combine_weights = nn.Parameter(
             torch.full((3,), 1.0 / 3.0, device=device))
+        for name, t in lockstep_tables(**self._scales(), device=device
+                                       ).items():
+            self.register_buffer(f"lockstep_{name}", t, persistent=False)
+
+    @classmethod
+    def _scales(cls):
+        """The branches' settings as the lockstep functions take them."""
+        return {"dts": [s["dt"] for s in cls.SCALES],
+                "steps_list": [s["num_steps"] for s in cls.SCALES],
+                "dxs": [s["dx"] for s in cls.SCALES],
+                "dys": [s["dy"] for s in cls.SCALES]}
+
+    def _branches(self, x):
+        """The three branches' evolutions of x, in the configured mode."""
+        pdes = [getattr(self, f"pde{i}") for i in (1, 2, 3)]
+        params = [dict(p.named_parameters()) for p in pdes]
+        tables = {"ts": self.lockstep_ts, "active": self.lockstep_active,
+                  "dtfac": self.lockstep_dtfac}
+        if self.lockstep_hoisted or self.branch_mesh is not None:
+            first = pdes[0]
+            stacked = hoisted_lockstep_evolve(
+                x, params, **self._scales(), eps=first.eps,
+                clamp_max=first.clamp_max,
+                operator_dtype=first.operator_dtype, tables=tables,
+                branch_mesh=self.branch_mesh, branch_axis=self.branch_axis)
+            return [stacked[:, i] for i in range(3)]
+        if self.fused:
+            impl = ("matinv_bf16" if pdes[0].operator_dtype == torch.bfloat16
+                    else None)
+            stacked = fused_multiscale_evolve(x, params, **self._scales(),
+                                              tables=tables, impl=impl)
+            return [stacked[i] for i in range(3)]
+        return [pde(x) for pde in pdes]
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
@@ -105,8 +167,8 @@ class MultiScaleExtractor(nn.Module):
         self.combine_weights.fill_(1.0 / 3.0)
 
     def forward(self, x):
-        feats = [getattr(self, f"attention{i}")(getattr(self, f"pde{i}")(x))
-                 for i in (1, 2, 3)]
+        feats = [getattr(self, f"attention{i}")(f)
+                 for i, f in enumerate(self._branches(x), start=1)]
         w = torch.softmax(self.combine_weights, dim=0)
         return w[0] * feats[0] + w[1] * feats[1] + w[2] * feats[2]
 
@@ -148,11 +210,11 @@ class CIFAR10PDENoConv(nn.Module):
     EnhancedFC([512, 256, 128, 64] → 10)."""
 
     def __init__(self, dropout_rate=0.3, fused_inference=False,
-                 fused_pde=False, device=None):
+                 fused_pde=False, fused_multiscale=False, device=None):
         super().__init__()
         self.feature_extractor = MultiScaleExtractor(
             32, 3, fused_inference=fused_inference, fused_pde=fused_pde,
-            device=device)
+            fused=fused_multiscale, device=device)
         self.feature_bn = nn.BatchNorm2d(3, device=device)
         self.classifier = EnhancedFC(96, [512, 256, 128, 64], 10,
                                      dropout_rate, device=device)

@@ -52,6 +52,13 @@ accumulation and a float32 result; the route (``gemm_route``) is chosen
 once per device by the torch version, not by trying.
 ``set_default_impl('matinv' | 'matinv_bf16')`` sends ``tridiag_solve``
 itself through an operator built at each call.
+
+The JAX package's XLA solvers are opt-ins here too
+(``set_default_impl('scan' | 'pcr' | 'pcr2')``, or ``impl=`` a call):
+the Thomas recurrence, PCR and PCR with the right-hand side updated in
+fused level pairs (``tridiag_solve_pcr_fused``), plain PyTorch on every
+device, with the JAX custom VJP (``_PlainSolve``); 'pallas', the JAX TPU
+kernel, is K1 and K3 here, as 'auto' is.
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ import torch
 from . import kernels
 
 __all__ = ["tridiag_solve", "tridiag_solve_plain", "tridiag_solve_pcr",
-           "thomas_solve_op",
+           "tridiag_solve_pcr_fused", "thomas_solve_op",
            "pcr_factor", "pcr_apply", "tridiag_adjoint",
            "tridiag_adjoint_plain", "tridiag_inverse_operator",
            "tridiag_solve_precomputed", "tridiag_solve_with_operator",
@@ -287,6 +294,35 @@ def _(a, b, c, d, dim):
 thomas_solve_op = torch.ops.cnn_pde_tpu_torch.thomas_solve.default
 
 
+class _PlainSolve(torch.autograd.Function):
+    """A solve by one of the JAX package's XLA solvers ('scan', 'pcr',
+    'pcr2'), plain PyTorch on any device, with the JAX custom VJP: λ =
+    T⁻ᵀg by the same solver, then the band gradients."""
+
+    @staticmethod
+    def forward(ctx, a, b, c, d, dim, impl):
+        x = _plain_solve(impl, a, b, c, d, dim)
+        ctx.dim, ctx.impl = dim, impl
+        ctx.save_for_backward(a, b, c, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, c, x = ctx.saved_tensors
+        lam = _plain_solve(ctx.impl, *_transpose_system(a, b, c, ctx.dim), g,
+                           ctx.dim)
+        return (*_adjoint_band_grads(a, b, c, x, lam, ctx.dim), lam, None,
+                None)
+
+
+def _plain_solve(impl, a, b, c, d, dim):
+    if impl == "scan":
+        return tridiag_solve_plain(a, b, c, d, dim)
+    solve = tridiag_solve_pcr if impl == "pcr" else tridiag_solve_pcr_fused
+    a, b, c, d = (t.movedim(dim, -1) for t in (a, b, c, d))
+    return solve(a, b, c, d).movedim(-1, dim)
+
+
 class _TridiagSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, c, d, dim):
@@ -310,16 +346,19 @@ class _TridiagSolve(torch.autograd.Function):
 def tridiag_solve(a, b, c, d, dim=-1, impl=None):
     """x = T⁻¹d along axis ``dim`` of the band shape: K1 on a CUDA tensor,
     the plain version on a CPU tensor; differentiable in all four inputs
-    (K3 or its plain version).  Under ``set_default_impl('matinv')`` or
-    ``'matinv_bf16'`` the solve is an inverse operator built from the
-    bands at this call and applied by a GEMM, as the JAX impls do.
-    ``impl`` (one of ``set_default_impl``'s) chooses the solver for this
-    call alone; None takes the global default."""
+    (K3 or its plain version).  ``impl`` (one of ``set_default_impl``'s)
+    chooses the solver for this call alone; None takes the global
+    default.  'scan', 'pcr' and 'pcr2' are plain PyTorch on every device
+    and launch no kernel; 'matinv' and 'matinv_bf16' build an inverse
+    operator from the bands at this call and apply it by a GEMM, as the
+    JAX impls do."""
     impl = _DEFAULT_IMPL if impl is None else impl
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS}")
-    if impl == "auto":
+    if impl in ("auto", "pallas"):
         return _TridiagSolve.apply(a, b, c, d, dim)
+    if impl in ("scan", "pcr", "pcr2"):
+        return _PlainSolve.apply(a, b, c, d, dim, impl)
     dtype = torch.bfloat16 if impl == "matinv_bf16" else d.dtype
     a, b, c, d = (t.movedim(dim, -1) for t in (a, b, c, d))
     X = tridiag_inverse_operator(a, b, c, dtype)
@@ -391,6 +430,41 @@ def tridiag_solve_pcr(a, b, c, d):
     return pcr_apply(pcr_factor(a, b, c), d)
 
 
+def tridiag_solve_pcr_fused(a, b, c, d):
+    """PCR along the last axis with the batched right-hand side updated in
+    fused level pairs — the port of the JAX ``tridiag_solve_pcr_fused``
+    ('pcr2').  The coefficient chain stays batch-free (``pcr_factor``'s
+    levels); two consecutive levels (α₁, γ₁, s) and (α₂, γ₂, 2s) compose
+    into one 7-tap pass over d with the batch-free weights
+    w[∓3s] = α₂·α₁[i−2s] | γ₂·γ₁[i+2s], w[∓2s] = α₂ | γ₂,
+    w[−s] = α₁ + α₂·γ₁[i−2s], w[+s] = γ₁ + γ₂·α₁[i+2s];
+    an odd count of levels ends with one single level.  The same system
+    as ``tridiag_solve_pcr``, summed in another order."""
+    alphas, gammas, b = pcr_factor(a, b, c)
+    i, s = 0, 1
+    while i < len(alphas):
+        a1, g1 = alphas[i], gammas[i]
+        if i + 1 < len(alphas):
+            a2, g2 = alphas[i + 1], gammas[i + 1]
+            w_m3 = a2 * _shift(a1, 2 * s, 0.0, True)
+            w_m1 = a1 + a2 * _shift(g1, 2 * s, 0.0, True)
+            w_p1 = g1 + g2 * _shift(a1, 2 * s, 0.0, False)
+            w_p3 = g2 * _shift(g1, 2 * s, 0.0, False)
+            d = (d
+                 + w_m1 * _shift(d, s, 0.0, True)
+                 + w_p1 * _shift(d, s, 0.0, False)
+                 + a2 * _shift(d, 2 * s, 0.0, True)
+                 + g2 * _shift(d, 2 * s, 0.0, False)
+                 + w_m3 * _shift(d, 3 * s, 0.0, True)
+                 + w_p3 * _shift(d, 3 * s, 0.0, False))
+            i, s = i + 2, 4 * s
+        else:
+            d = (d + a1 * _shift(d, s, 0.0, True)
+                 + g1 * _shift(d, s, 0.0, False))
+            i, s = i + 1, 2 * s
+    return d / b
+
+
 def _adjoint_band_partials(lam, x, dim, chunk):
     """K3's in-block band sums: for each chunk of ``chunk`` consecutive
     images of λ and x (both (batch, *S)), Σ λ[i]x[i−1], Σ λx and
@@ -426,26 +500,24 @@ def _sum_band_partials(partials, slices=8):
 # ---- inverse-operator solves (the AMP grade) --------------------------------
 
 _DEFAULT_IMPL = "auto"
-_IMPLS = ("auto", "matinv", "matinv_bf16")
-_UNPORTED_IMPLS = ("scan", "pcr", "pcr2", "pallas")
+_IMPLS = ("scan", "pcr", "pcr2", "matinv", "matinv_bf16", "pallas", "auto")
 # aten::bmm.dtype (bf16 operands, a float32 result) has a CUDA kernel from
 # torch 2.8 on; no CPU kernel
 _BMM_OUT_DTYPE_FROM = (2, 8)
 
 
 def set_default_impl(impl: str) -> str:
-    """The solver ``tridiag_solve`` runs: 'auto' (K1 and K3, or their plain
-    versions), 'matinv' (an inverse operator at the RHS's dtype, built at
-    each call, applied by one GEMM; the backward one transposed GEMM) or
-    'matinv_bf16' (the operator and the GEMM's operands in bf16, float32
-    accumulation: the grade ``enable_amp`` gives the ADI layers; it leaves
-    this default as it is).  The JAX package's 'scan', 'pcr', 'pcr2' and
-    'pallas' are not ported (ROADMAP.md A14).  Returns the previous
-    setting."""
+    """The solver ``tridiag_solve`` runs, the JAX package's seven names:
+    'auto' and 'pallas' (the JAX TPU kernel: here K1 and K3, or their
+    plain versions on a CPU tensor); 'scan' (the Thomas recurrence,
+    ``tridiag_solve_plain``), 'pcr' (``tridiag_solve_pcr``) and 'pcr2'
+    (``tridiag_solve_pcr_fused``), plain PyTorch on every device, their
+    backward λ = T⁻ᵀg by the same solver; 'matinv' (an inverse operator
+    at the RHS's dtype, built at each call, applied by one GEMM; the
+    backward one transposed GEMM) or 'matinv_bf16' (the operator and the
+    GEMM's operands in bf16, float32 accumulation).  ``enable_amp``
+    leaves this default as it is.  Returns the previous setting."""
     global _DEFAULT_IMPL
-    if impl in _UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"set_default_impl({impl!r}) is not ported: ROADMAP.md A14")
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS}")
     prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl

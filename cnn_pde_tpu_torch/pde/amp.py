@@ -11,10 +11,14 @@
   implicit sweeps (``use_implicit=True``) build their operator at the call
   and apply it in bf16 by one GEMM.  The JAX ``enable_amp`` reaches this
   layer through the global solver default ('matinv_bf16'), which also
-  serves its unported callers outside an ADI layer (the multiscale fused
-  path and the distributed solve, ROADMAP.md A14).  Here the route is the
-  layer's own and the global default stays as it is, so ``tridiag_solve``
-  keeps K1 for every other per-sweep layer in the process;
+  serves its other callers outside an ADI layer.  Here the route is the
+  caller's own and the global default stays as it is, so
+  ``tridiag_solve`` keeps K1 for every other per-sweep layer in the
+  process: the flagship's lockstep modes read the first branch's
+  ``operator_dtype`` (the hoisted lockstep builds its operators at bf16,
+  the per-sweep lockstep solves by a bf16 operator built at each sweep,
+  ``models/cifar10_noconv.py``), and the partitioned solve keeps its
+  exact grade;
 * with ``dense=True`` (the default), every port ``Conv2d``
   (``layers.py``) to ``compute_dtype=torch.bfloat16`` (bf16 operands, a
   bf16 output cast to float32) and every ``SymmetricLayer``

@@ -46,7 +46,10 @@ writes) and every rank restores its block.  ``image_spec=("data", None,
 "spatial", None)`` with a spatial classifier (``parallel/spatial_model.py``)
 hands the model each rank's block of H after the augmentation, which sees
 whole images.  The device epoch captures the subgroups' collectives in its
-graph on the card.
+graph on the card.  A model whose extractor's branches are split over the
+'model' axis (``parallel/branch_parallel.py::enable_branch_parallel``)
+trains under ``Trainer(mesh=)`` on either loop; with ``tp`` or
+``image_spec`` it raises.
 """
 
 from __future__ import annotations
@@ -193,6 +196,15 @@ class Trainer:
         or None a dim (``("data", None, "spatial", None)``: each rank's
         block of H as well as its rows).  Both need a mesh in a process
         group."""
+        if tp or image_spec is not None:
+            from ..parallel.branch_parallel import branch_parallel_extractors
+
+            if branch_parallel_extractors(model):
+                raise ValueError(
+                    "Trainer(tp=, image_spec=) with a branch-parallel model "
+                    "(enable_branch_parallel): branch parallelism combined "
+                    "with tensor parallelism or spatial sharding is not "
+                    "covered")
         if (tp or image_spec is not None) and (mesh is None
                                                or mesh.group is None):
             raise ValueError(

@@ -43,7 +43,12 @@ captured step by CUDA events beside one card alone, and the collectives
 of one eager step by ``parallel/hlo_audit.py`` with the NCCL kernels'
 device time in a profiled captured epoch (the ADI steps: a forward and
 backward, eager and captured in a CUDA graph, and their K1/K3 launches).
-A tensor-parallel case's gradients are held against one card replaying
+With ``--branch N`` the mesh is data=ranks/N × model=N and the case is
+the flagship's hoisted lockstep with its three PDE branches split over
+'model' (``enable_branch_parallel``, 64 images a step, through
+``Trainer(mesh)``) against one card's meshless hoisted lockstep, at the
+tensor-parallel cases' first-step bars.  A tensor-parallel case's
+gradients are held against one card replaying
 the sharded step's ReLU decisions, and each decision that one card
 alone takes the other way must lie within the rounding between the runs
 (``_sharded_case``): a pre-activation at zero within rounding flips a
@@ -54,6 +59,8 @@ writing the others.
     python3 dp_scale.py --ranks 4 --tp 4
     python3 dp_scale.py --ranks 4 --tp 2
     python3 dp_scale.py --ranks 4 --spatial 4
+    python3 dp_scale.py --ranks 3 --branch 3
+    python3 dp_scale.py --ranks 4 --branch 2
     python3 dp_scale.py --ranks 4 --spatial 4 --device cpu --steps 2
 
 Rank 0 prints the card's name and power limit and one JSON line of the
@@ -253,6 +260,7 @@ SHARDED_CASES = {
                 ("data", None, "spatial", None)),
     "tiny_imagenet": ("tiny_imagenet", 32, "TINY_TRAIN", False,
                       ("data", None, "spatial", None)),
+    "flagship branch": ("cifar10", 64, "TRAIN", False, None),
 }
 ADI_SHAPE = (96, 64, 64)
 ADI_CALLS = 20
@@ -265,7 +273,9 @@ def _progress(mesh, label, what, t0=time.perf_counter()):
               flush=True)
 
 
-def _sharded_labels(mesh):
+def _sharded_labels(mesh, branch=False):
+    if branch:
+        return ["flagship branch"]
     if mesh.shape["model"] > 1:
         return ["hybrid exact"] + (["flagship per_sweep"]
                                    if mesh.shape["data"] > 1 else [])
@@ -284,6 +294,14 @@ def _sharded_model(label, device, mesh):
         return cs.hybrid_model(device, grade="exact")
     if label == "flagship per_sweep":
         return cs.flagship(device)
+    if label == "flagship branch":
+        from cnn_pde_tpu_torch.parallel import enable_branch_parallel
+
+        if mesh is None:  # one card: the meshless hoisted lockstep
+            return cs.study_model(device, "hoisted_f32")
+        model = cs.study_model(device, "per_sweep")
+        enable_branch_parallel(model, mesh)
+        return model
     ref = (cs.emotion_model(device) if label == "emotion"
            else cs.tiny_model(device))
     if mesh is None or mesh.shape["spatial"] == 1:
@@ -658,9 +676,9 @@ def _adi_case(mesh, device):
     return out
 
 
-def _sharded_cases(steps, mesh, device):
+def _sharded_cases(steps, mesh, device, branch=False):
     results, failed = {}, []
-    for label in _sharded_labels(mesh):
+    for label in _sharded_labels(mesh, branch):
         try:
             results[label] = (_adi_case(mesh, device) if label == "adi"
                               else _sharded_case(label, steps, mesh, device))
@@ -670,7 +688,8 @@ def _sharded_cases(steps, mesh, device):
     return results, failed
 
 
-def worker(rank, ranks, port, device, steps, out_path, tp=1, spatial=1):
+def worker(rank, ranks, port, device, steps, out_path, tp=1, spatial=1,
+           branch=1):
     import torch
 
     from cnn_pde_tpu_torch.parallel import initialize, make_mesh
@@ -680,7 +699,7 @@ def worker(rank, ranks, port, device, steps, out_path, tp=1, spatial=1):
     initialize(f"tcp://127.0.0.1:{port}", num_processes=ranks,
                process_id=rank, backend=backend)
     try:
-        mesh = make_mesh(spatial=spatial, model=tp)
+        mesh = make_mesh(spatial=spatial, model=tp * branch)
         if device.type == "cuda":
             import chip_smoke as cs
 
@@ -691,11 +710,12 @@ def worker(rank, ranks, port, device, steps, out_path, tp=1, spatial=1):
             torch.backends.cudnn.allow_tf32 = False
             device = mesh.device
         failed = []
-        if tp == spatial == 1:
+        if tp == spatial == branch == 1:
             results = {label: _case(label, ranks, steps, mesh, device)
                        for label in CASES}
         else:
-            results, failed = _sharded_cases(steps, mesh, device)
+            results, failed = _sharded_cases(steps, mesh, device,
+                                             branch > 1)
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(results, f, default=str)
@@ -714,10 +734,16 @@ def main(argv=None):
                     help="the 'model' axis: the tensor-parallel cases")
     ap.add_argument("--spatial", type=int, default=1, metavar="N",
                     help="the 'spatial' axis: the spatial cases")
+    ap.add_argument("--branch", type=int, default=1, metavar="N",
+                    help="the 'model' axis: the branch-parallel case")
     args = ap.parse_args(argv)
-    if args.ranks % (args.tp * args.spatial):
-        raise SystemExit(f"--tp {args.tp} x --spatial {args.spatial} must "
-                         f"divide --ranks {args.ranks}")
+    if args.branch > 1 and (args.tp > 1 or args.spatial > 1):
+        raise SystemExit("--branch runs alone: branch parallelism with "
+                         "--tp or --spatial is not covered")
+    if args.ranks % (args.tp * args.spatial * args.branch):
+        raise SystemExit(f"--tp {args.tp} x --spatial {args.spatial} x "
+                         f"--branch {args.branch} must divide --ranks "
+                         f"{args.ranks}")
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "build", "dp_scale")
     os.makedirs(out_dir, exist_ok=True)
@@ -733,11 +759,12 @@ def main(argv=None):
     code = ("import sys, dp_scale; dp_scale.worker(int(sys.argv[1]), "
             "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], "
             "int(sys.argv[5]), sys.argv[6], int(sys.argv[7]), "
-            "int(sys.argv[8]))")
+            "int(sys.argv[8]), int(sys.argv[9]))")
     procs = [subprocess.Popen([sys.executable, "-u", "-c", code, str(r),
                                str(args.ranks), str(port), args.device,
                                str(args.steps), out_path, str(args.tp),
-                               str(args.spatial)], cwd=root, env=env)
+                               str(args.spatial), str(args.branch)],
+                              cwd=root, env=env)
              for r in range(args.ranks)]
     try:
         codes = [p.wait(timeout=1500) for p in procs]

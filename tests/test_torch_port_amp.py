@@ -168,8 +168,9 @@ def test_precomputed_gives_x_a_zero_gradient():
 def test_set_default_impl(restore_impls):
     """'matinv' sends tridiag_solve (either axis) through an operator built
     at the call and matches 'auto'; 'matinv_bf16' stays within the JAX
-    test's bar (0.02 of the largest entry); the JAX impls the port lacks
-    raise naming ROADMAP.md A14."""
+    test's bar (0.02 of the largest entry); the JAX package's other impls
+    ('scan', 'pcr', 'pcr2', 'pallas') are taken and match 'auto' at the
+    exact bar; an unknown name raises."""
     rng = np.random.default_rng(3)
     a, b, c = (torch.from_numpy(t) for t in _bands(rng, 6, 12))
     d = torch.from_numpy(rng.standard_normal((4, 6, 12)).astype(np.float32))
@@ -180,9 +181,12 @@ def test_set_default_impl(restore_impls):
         assert tridiag.set_default_impl("matinv_bf16") == "matinv"
         assert _rel(tridiag.tridiag_solve(a, b, c, d, dim), exact) <= 0.02
         tridiag.set_default_impl("auto")
-    for impl in ("scan", "pcr", "pcr2", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-            tridiag.set_default_impl(impl)
+    for dim in (-1, -2):
+        exact = tridiag.tridiag_solve(a, b, c, d, dim)
+        for impl in ("scan", "pcr", "pcr2", "pallas"):
+            assert tridiag.set_default_impl(impl) == "auto"
+            assert _rel(tridiag.tridiag_solve(a, b, c, d, dim), exact) <= 5e-6
+            assert tridiag.set_default_impl("auto") == impl
     with pytest.raises(ValueError):
         tridiag.set_default_impl("nope")
     assert tridiag._DEFAULT_IMPL == "auto"

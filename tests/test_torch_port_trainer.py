@@ -57,6 +57,31 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_jax_batcher():
+    """The JAX package's batcher built into a library of this process's
+    own under the checkout's ``build/native/``, from the same source with
+    the same flags; the JAX binding's state restored after.  The JAX
+    binding builds into one fixed file beside its source
+    (``libbatcher.so.tmp``, then renamed): test processes that build it
+    at once race on that file, and the one whose rename loses marks the
+    library unavailable for the rest of its life."""
+    from cnn_pde_tpu.native import binding as jax_binding
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(repo, "build", "native",
+                        f"libbatcher-jax-{os.getpid()}.so")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_binding, "_SO", path)
+        mp.setattr(jax_binding, "_lib", None)
+        mp.setattr(jax_binding, "_build_failed", False)
+        yield
+    for f in (path, path + ".tmp"):
+        if os.path.exists(f):
+            os.remove(f)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
