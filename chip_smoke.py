@@ -211,6 +211,19 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    the sequential per-sweep and fused flagship's; ``enable_branch_
    parallel`` in a one-rank NCCL group, both Trainer loops bit for bit
    against the meshless hoisted lockstep;
+10g. what closes the port: the device epoch in the AMP grade (the
+   flagship per-sweep at B = 64, svhn at 256, the flagship also with bf16
+   Adam moments) against the eager Trainer, 2 K1 a layer a step (the
+   operator builds) and no K3; a bf16-moments checkpoint restored into the
+   live captured run, and into a fresh one, continuing bit for bit;
+   ``remat`` on the per-sweep flagship (B = 64) and mnist (B = 128) and
+   the AMP flagship, its captured epoch against the eager one and against
+   the epoch without ``remat`` bit for bit, 2 K1 + 1 K3 a sweep a step
+   (the AMP grade's 2 K1 a layer), and the eager step's peak memory with
+   and without it at B = 256; three captured
+   flagship steps under ``utils.profile_trace`` and ``annotate``; the
+   four port examples (``examples/torch_0[1-4]_*.py``) queued for phase
+   12, each on the card;
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -242,6 +255,7 @@ import copy
 import json
 import os
 import pickle
+import re
 import shutil
 import signal
 import statistics
@@ -293,8 +307,9 @@ from cnn_pde_tpu_torch.ops.tridiag import (gemm_route, tridiag_adjoint,
                                            tridiag_adjoint_plain,
                                            tridiag_inverse_operator,
                                            tridiag_solve, tridiag_solve_plain)
-from cnn_pde_tpu_torch.pde import (SymmetricLayer, enable_amp,
-                                   iter_adi_layers)
+from cnn_pde_tpu_torch.pde import (GrayscaleDiffusion, MixedChannelDiffusion,
+                                   SymmetricLayer, enable_amp,
+                                   iter_adi_layers, iter_modules)
 from cnn_pde_tpu_torch.pde.diffusion import (_coeff_at, _coeff_at_times,
                                              _substep_times_np)
 from cnn_pde_tpu_torch.presets import PRESETS
@@ -307,7 +322,9 @@ from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
 from cnn_pde_tpu_torch.train import (TrainConfig, Trainer, cross_entropy,
                                      hybrid_pde_regularization,
                                      make_train_step, train_steps)
+from cnn_pde_tpu_torch.train.checkpoint import restore_state, save_checkpoint
 from cnn_pde_tpu_torch.train.graph import WARMUP_ROUNDS
+from cnn_pde_tpu_torch.utils import annotate, profile_trace
 
 SEED = 0
 EPS = 1e-6
@@ -2918,7 +2935,8 @@ def epoch_dataset(name, B, seed):
 
 
 def epoch_case(tag, label, make_model, values, name, B, expect, accum=1,
-               cudnn_deterministic=False):
+               cudnn_deterministic=False, moment_dtype=None, keep=None,
+               steps=EPOCH_STEPS, timed_runs=("graph", "eager")):
     """The Trainer with ``device_epoch`` (the step captured in a CUDA graph)
     beside the same Trainer run eagerly, from the same seeded model
     ``make_model()`` on ``epoch_dataset(name, B)``: the first epoch of
@@ -2933,7 +2951,13 @@ def epoch_case(tag, label, make_model, values, name, B, expect, accum=1,
     sum the convolution backward in no fixed order, so that two eager runs
     differ; the captured run is held at those algorithms against the
     eager runs' own spread (``default_cudnn_case``), and then bit for bit
-    with cuDNN's deterministic algorithms.  Returns the readings."""
+    with cuDNN's deterministic algorithms.  ``moment_dtype``: AdamW's
+    moments' storage (``TrainConfig.moment_dtype``).  ``keep``: a dict
+    that gets the captured run's weights after the first epoch
+    (``"weights"``).  ``steps``: the first epoch's steps (at most
+    EPOCH_STEPS, the data's).  ``timed_runs``: the runs timed and
+    profiled after it.  Returns the readings, with the launches
+    at warm-up and capture (``"launches_at_capture"``)."""
     data = epoch_dataset(name, B, SEED + 40)
     device = torch.device("cuda", 0)
     if cudnn_deterministic:
@@ -2942,7 +2966,8 @@ def epoch_case(tag, label, make_model, values, name, B, expect, accum=1,
     torch.backends.cudnn.deterministic = previous or cudnn_deterministic
     try:
         out = _epoch_case(tag, label, make_model, values, data, B, expect,
-                          accum, device)
+                          accum, device, moment_dtype, keep, steps,
+                          timed_runs)
     finally:
         torch.backends.cudnn.deterministic = previous
     if cudnn_deterministic:
@@ -2998,16 +3023,25 @@ def default_cudnn_case(tag, label, make_model, values, data, B):
             "captured_where": err[1], "limit": limit}
 
 
+def epoch_trainer(make_model, values, B, device_epoch, accum=1,
+                  moment_dtype=None, steps=EPOCH_STEPS):
+    """The Trainer and fresh state of the compared epochs: 3 epochs of at
+    most ``steps`` steps of B from ``make_model()``."""
+    config = TrainConfig.from_preset(
+        values, epochs=3, batch_size=B, grad_accum=accum, seed=SEED,
+        max_steps_per_epoch=steps, device_epoch=device_epoch,
+        moment_dtype=moment_dtype, log_every=10**9)
+    t = Trainer(make_model(), config, values)
+    return t, t.init_state(steps)
+
+
 def _epoch_case(tag, label, make_model, values, data, B, expect, accum,
-                device):
+                device, moment_dtype=None, keep=None, steps=EPOCH_STEPS,
+                timed_runs=("graph", "eager")):
 
     def trainer(device_epoch):
-        config = TrainConfig.from_preset(
-            values, epochs=3, batch_size=B, grad_accum=accum, seed=SEED,
-            max_steps_per_epoch=EPOCH_STEPS, device_epoch=device_epoch,
-            log_every=10**9)
-        t = Trainer(make_model(), config, values)
-        return t, t.init_state(EPOCH_STEPS)
+        return epoch_trainer(make_model, values, B, device_epoch, accum,
+                             moment_dtype, steps)
 
     (graph, gs), (eager, es) = trainer(True), trainer(False)
     reset_counts()
@@ -3023,6 +3057,9 @@ def _epoch_case(tag, label, make_model, values, data, B, expect, accum,
     if runner.graphs is None or len(runner.graphs) != (2 if accum > 1
                                                        else 1):
         raise AssertionError(f"{label}: no CUDA graph captured")
+    if keep is not None:
+        keep["weights"] = {k: v.clone()
+                           for k, v in gs.model.state_dict().items()}
     reference = eager.train_epoch(es, data, 0, verbose=False)
     worst, where, equal = 0.0, None, 0
     eager_sd = es.model.state_dict()
@@ -3035,7 +3072,7 @@ def _epoch_case(tag, label, make_model, values, data, B, expect, accum,
         if err >= worst:
             worst, where = err, key
     total = len(eager_sd)
-    log(f"[{tag}] {label} B={B}: the captured epoch ({EPOCH_STEPS} steps, "
+    log(f"[{tag}] {label} B={B}: the captured epoch ({steps} steps, "
         f"warm-up and capture {capture_s:.2f} s, launches at warm-up and "
         f"capture {captured}) against the eager one: {equal} of {total} "
         f"tensors bit for bit" + ("" if where is None else
@@ -3058,10 +3095,15 @@ def _epoch_case(tag, label, make_model, values, data, B, expect, accum,
         f"equals the host eval: accuracy {on_device['acc']:.2f}%")
 
     out = {"bitwise_tensors": equal, "tensors": total,
-           "worst_rel_err": worst, "capture_s": capture_s}
+           "worst_rel_err": worst, "capture_s": capture_s,
+           "launches_at_capture": captured}
     for mode, trainer_, state in (("graph", graph, gs),
                                   ("eager", eager, es)):
-        timed = EPOCH_TIMED_STEPS[mode]
+        if mode not in timed_runs:
+            continue
+        # no longer than the first epoch: a longer chunk outgrows the
+        # device epoch's runner, which is made anew and captures again
+        timed = min(EPOCH_TIMED_STEPS[mode], steps)
         trainer_.config.max_steps_per_epoch = timed
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -3070,6 +3112,8 @@ def _epoch_case(tag, label, make_model, values, data, B, expect, accum,
         stop.record()
         stop.synchronize()
         ms = start.elapsed_time(stop) / timed
+        if mode == "graph" and graph._runner is not runner:
+            raise AssertionError(f"{label}: the timed epoch captured again")
         trainer_.config.max_steps_per_epoch = EPOCH_PROFILE_STEPS
         busy = device_busy(lambda: trainer_.train_epoch(
             state, data, 2, verbose=False), 1, device, warm=False)
@@ -4753,6 +4797,308 @@ def phase_study(device):
             "branch_parallel": study_branch_parallel(tag, device)}
 
 
+# ---- phase 10g: what closes the port --------------------------------------
+
+# (label, model, preset values, dataset, B, ADI layers): the AMP grade's
+# device epochs; each layer builds its x and y operator stacks by one K1
+# launch each a step, and its backward is GEMMs (no K3)
+CLOSING_AMP = (("flagship per_sweep", "flagship", TRAIN, "cifar10", 64, 3),
+               ("svhn per_sweep", "svhn", SVHN_TRAIN, "svhn", 256, 1))
+# (label, model, preset values, dataset, B, AMP grade, launches a step):
+# the layers that honour ``remat`` (the JAX package's two).  Per-sweep, a
+# step launches K1 twice a sweep (the forward and the backward's
+# recompute) and K3 once (51 sweeps a flagship forward, 30 an mnist one);
+# in the AMP grade the recompute is GEMMs on the operators built once a
+# forward, 2 K1 a layer
+CLOSING_REMAT = (
+    ("flagship per_sweep", "flagship", TRAIN, "cifar10", 64, False,
+     {"K1": 2 * 51, "K3": 51}),
+    ("mnist per_sweep", "mnist", GRAY_TRAIN, "mnist", 128, False,
+     {"K1": 2 * 30, "K3": 30}),
+    ("flagship per_sweep AMP", "flagship", TRAIN, "cifar10", 64, True,
+     {"K1": 2 * 3}))
+REMAT_MEMORY_BATCH = 256  # the flagship's eager step, remat or not
+# steps of each compared and timed epoch; the captured step alone is timed
+# and profiled (the eager one is phase 10b's, at 10-200 ms a step)
+CLOSING_EPOCH_STEPS = 12
+RESUME_BATCH = 64         # the resumed bf16-moments run's batch
+RESUME_STEPS = 8          # and its steps an epoch
+PROFILED_STEPS = 3        # captured flagship steps under profile_trace
+PROFILE_SPAN = "chip_smoke_captured_steps"
+# each port example on the card (phase 12) and the lines it must print
+EXAMPLES = (
+    ("torch_01_train_preset.py", ("mnist", "1"),
+     (r"^mnist \(synthetic data, cuda\): [\d,]+ params",
+      r"^best test acc: \d+\.\d\d%$")),
+    ("torch_02_custom_pde_layer.py", (),
+     (r"^final loss 0\.\d+; learned alpha=",)),
+    ("torch_03_serving.py", (),
+     (r"^linearized 3 PDE branches; int8 predictions: \[",
+      r"reloaded logits shape \(8, 10\)$")),
+    ("torch_04_multichip.py", (),
+     (r"^step 2: loss \d+\.\d+ \(batch 8 over 1 data shards, cuda\)$",)))
+
+
+def closing_model(device, name, remat=False, amp=False):
+    """The seeded model ``name`` ('flagship', 'svhn' or 'mnist', each
+    per-sweep), with ``remat`` on its MixedChannelDiffusion and
+    GrayscaleDiffusion layers or in the AMP grade (``enable_amp``)."""
+    model = {"flagship": flagship, "svhn": svhn_model,
+             "mnist": grayscale_model}[name](device)
+    for layer in iter_modules(model, (MixedChannelDiffusion,
+                                      GrayscaleDiffusion)):
+        layer.remat = remat
+    return amp_switch(model, "bf16") if amp else model
+
+
+def launches_as_predicted(tag, label, got, want):
+    if got != want:
+        raise AssertionError(f"{tag}: {label}: launches at warm-up and "
+                             f"capture {got}, predicted {want}")
+    log(f"[{tag}] {label}: launches at warm-up and capture ({WARMUP_ROUNDS} "
+        f"eager steps and the capture) {got}, as predicted")
+
+
+def snapshot(state):
+    """The weights and AdamW moments of ``state``, cloned."""
+    out = {f"model.{k}": v.clone()
+           for k, v in state.model.state_dict().items()}
+    for i, p in enumerate(state.model.parameters()):
+        for key, t in state.optimizer.state[p].items():
+            out[f"{key}.{i}"] = t.clone()
+    return out
+
+
+def differing(a, b):
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def closing_amp(tag, device):
+    """The device epoch in the AMP grade (``epoch_case``: captured
+    against eager, timed, profiled), the flagship also with bf16 Adam
+    moments; the launches at warm-up and capture as predicted."""
+    out = {}
+    cases = [case + (None,) for case in CLOSING_AMP]
+    cases.append(CLOSING_AMP[0] + (torch.bfloat16,))
+    for label, name, values, data, B, n, moments in cases:
+        label = f"{label} AMP" + (" bf16 moments" if moments else "")
+        res = epoch_case(tag, label, lambda: closing_model(
+            device, name, amp=True), values, data, B, ("K1",),
+            moment_dtype=moments, steps=CLOSING_EPOCH_STEPS,
+            timed_runs=("graph",))
+        launches_as_predicted(tag, label, res["launches_at_capture"],
+                              only(K1=2 * n * (WARMUP_ROUNDS + 1)))
+        out[f"{label} B{B}".replace(" ", "_")] = res
+    return out
+
+
+def closing_resume(tag, device):
+    """A bf16-moments AMP flagship device epoch checkpointed after its
+    first epoch: the second epoch after the checkpoint is restored into
+    the live run (its CUDA graph replayed on the restored tensors) and in
+    a fresh Trainer ends bit for bit on the uninterrupted second epoch."""
+    data = epoch_dataset("cifar10", RESUME_BATCH, SEED + 40)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "closing_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer():
+        return epoch_trainer(lambda: closing_model(device, "flagship",
+                                                   amp=True),
+                             TRAIN, RESUME_BATCH, True,
+                             moment_dtype=torch.bfloat16, steps=RESUME_STEPS)
+
+    try:
+        live, state = trainer()
+        live.train_epoch(state, data, 0, verbose=False)
+        if device.type == "cuda" and live._runner.graphs is None:
+            raise AssertionError(f"{tag}: no CUDA graph captured")
+        moments = {t.dtype for s in state.optimizer.state.values()
+                   for t in s.values()}
+        if moments != {torch.bfloat16}:
+            raise AssertionError(f"{tag}: moments stored as {moments}")
+        save_checkpoint(root, state, tag="mid")
+        live.train_epoch(state, data, 1, verbose=False)
+        straight = snapshot(state)
+        restore_state(state, root, "mid")
+        live.train_epoch(state, data, 1, verbose=False)
+        again = snapshot(state)
+        fresh, fresh_state = trainer()
+        restore_state(fresh_state, root, "mid")
+        fresh.train_epoch(fresh_state, data, 1, verbose=False)
+        resumed = snapshot(fresh_state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for label, got in (("restored into the live run", again),
+                       ("restored into a fresh Trainer", resumed)):
+        bad = differing(straight, got)
+        if bad:
+            raise AssertionError(f"{tag}: bf16-moments checkpoint {label}: "
+                                 f"{len(bad)} tensors differ ({bad[:4]})")
+    log(f"[{tag}] flagship AMP bf16 moments B={RESUME_BATCH}: a "
+        f"checkpoint after epoch 1 ({RESUME_STEPS} steps), restored into the "
+        "live captured run and into a fresh Trainer, ends epoch 2 bit for "
+        f"bit on the uninterrupted run ({len(straight)} tensors: weights, "
+        "BatchNorm statistics, bf16 moments)")
+    return {"steps_per_epoch": RESUME_STEPS, "tensors": len(straight),
+            "bitwise": True}
+
+
+def remat_peak(device, remat):
+    """(peak allocated MiB during an eager flagship train step at
+    REMAT_MEMORY_BATCH, its rise over what was allocated before the
+    step), the second step of a fresh model so that AdamW's moments
+    exist."""
+    model = closing_model(device, "flagship", remat=remat)
+    step = make_train_step(model, TRAIN, 1,
+                           torch.Generator(device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 61)
+    x = seeded_batch(rng, REMAT_MEMORY_BATCH, (3, 32, 32), device)
+    y = torch.from_numpy(rng.integers(0, 10, REMAT_MEMORY_BATCH)).to(device)
+    step(x, y)
+    sync(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    step(x, y)
+    sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    return peak / 2**20, (peak - before) / 2**20
+
+
+def closing_remat(tag, device):
+    """``remat`` on the layers that honour it: the captured epoch against
+    the eager one (``epoch_case``) and against the captured epoch without
+    ``remat`` bit for bit, the launches as predicted; then the eager
+    step's peak memory with and without it.  Returns the readings and the
+    flagship's no-remat device-epoch Trainer and state (for the
+    profile)."""
+    out, kept = {}, None
+    for label, name, values, data_name, B, amp, per_step in CLOSING_REMAT:
+        keep = {}
+        res = epoch_case(tag, f"{label} remat", lambda: closing_model(
+            device, name, remat=True, amp=amp), values, data_name, B,
+            tuple(per_step), keep=keep, steps=CLOSING_EPOCH_STEPS,
+            timed_runs=("graph",))
+        launches_as_predicted(
+            tag, f"{label} remat", res["launches_at_capture"],
+            only(**{k: n * (WARMUP_ROUNDS + 1)
+                    for k, n in per_step.items()}))
+        trainer, state = epoch_trainer(lambda: closing_model(
+            device, name, amp=amp), values, B, True,
+            steps=CLOSING_EPOCH_STEPS)
+        data = epoch_dataset(data_name, B, SEED + 40)
+        trainer.train_epoch(state, data, 0, verbose=False)
+        plain = state.model.state_dict()
+        bad = differing(plain, keep["weights"])
+        if bad:
+            raise AssertionError(f"{tag}: {label}: the captured epoch with "
+                                 f"remat differs from the one without in "
+                                 f"{len(bad)} tensors ({bad[:4]})")
+        # the step without remat, timed as epoch_case timed the one with
+        timed = min(EPOCH_TIMED_STEPS["graph"], CLOSING_EPOCH_STEPS)
+        trainer.config.max_steps_per_epoch = timed
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        runner = trainer._runner
+        trainer.train_epoch(state, data, 1, verbose=False)
+        stop.record()
+        stop.synchronize()
+        ms = start.elapsed_time(stop) / timed
+        if trainer._runner is not runner:
+            raise AssertionError(f"{tag}: {label}: the timed epoch captured "
+                                 "again")
+        log(f"[{tag}] {label} B={B}: the captured epoch with remat "
+            f"({CLOSING_EPOCH_STEPS} steps) ends on the weights without it, "
+            f"bit for bit ({len(plain)} tensors); captured step "
+            f"{res['graph']['step_ms']:.3f} ms with remat, {ms:.3f} ms "
+            f"without ({res['graph']['step_ms'] / ms:.3f}x)")
+        res["equals_no_remat"] = True
+        res["no_remat_graph_step_ms"] = ms
+        out[f"{label} B{B}".replace(" ", "_")] = res
+        if name == "flagship" and not amp:
+            kept = (trainer, state, data)
+    peaks = {mode: remat_peak(device, mode == "remat")
+             for mode in ("no_remat", "remat")}
+    log(f"[{tag}] flagship per_sweep eager train step at "
+        f"B={REMAT_MEMORY_BATCH}: peak allocated "
+        + ", ".join(f"{mode} {p:.1f} MiB (+{rise:.1f} MiB over the step's "
+                    "start)" for mode, (p, rise) in peaks.items()))
+    out["peak_memory_mib"] = {mode: {"peak": p, "rise": rise}
+                              for mode, (p, rise) in peaks.items()}
+    return out, kept
+
+
+def closing_profile(tag, trainer, state, data):
+    """PROFILED_STEPS captured flagship steps (a device epoch already
+    captured) under ``profile_trace`` with an ``annotate`` span: the
+    trace file holds the span and K1's kernel (``pcr_lines``)."""
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "closing_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    trainer.config.max_steps_per_epoch = PROFILED_STEPS
+    try:
+        with profile_trace(logdir) as where:
+            with annotate(PROFILE_SPAN):
+                trainer.train_epoch(state, data, 1, verbose=False)
+        files = os.listdir(where)
+        with open(os.path.join(where, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(where, files[0]))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    names = [e.get("name", "") for e in events]
+    kernels_seen = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = [n for n in kernels_seen if "pcr_lines" in n]
+    if PROFILE_SPAN not in names or not k1:
+        raise AssertionError(
+            f"{tag}: the trace of {PROFILED_STEPS} captured steps lacks the "
+            f"span ({PROFILE_SPAN in names}) or K1 ({len(k1)} pcr_lines "
+            f"of {len(kernels_seen)} kernels)")
+    log(f"[{tag}] profile_trace of {PROFILED_STEPS} captured flagship "
+        f"per_sweep steps: {files}, {size} bytes, {len(events)} events, "
+        f"the span {PROFILE_SPAN!r}, {len(kernels_seen)} kernels of which "
+        f"{len(k1)} pcr_lines (K1 and K3)")
+    return {"file_bytes": size, "events": len(events),
+            "kernels": len(kernels_seen), "pcr_lines": len(k1)}
+
+
+def example_later(tag, name, args, patterns):
+    """Queue ``python examples/<name> args`` on the card (its default
+    device): exit 0 and a line matching each of ``patterns``."""
+    def job():
+        root = os.path.dirname(os.path.abspath(__file__))
+        run = subprocess.run([sys.executable, "-u",
+                              os.path.join("examples", name), *args],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=300)
+        missing = [p for p in patterns
+                   if not re.search(p, run.stdout, re.M)]
+        if run.returncode or missing:
+            raise AssertionError(f"examples/{name} on cuda: exit "
+                                 f"{run.returncode}, missing {missing}: "
+                                 f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        return [f"[{tag}] examples/{name} {' '.join(args)} (default device "
+                f"cuda): " + " | ".join(run.stdout.strip().splitlines())]
+    job.__name__ = f"examples/{name}"
+    CLI_JOBS.append(job)
+
+
+def phase_closing(device):
+    """What closes the port (ROADMAP.md, the last slice): the AMP grade's
+    device epoch and bf16 moments (``closing_amp``, ``closing_resume``),
+    ``remat`` (``closing_remat``), ``profile_trace`` (``closing_profile``)
+    and the four port examples, queued for phase 12."""
+    tag = "closing"
+    out = {"amp": closing_amp(tag, device),
+           "bf16_moments_resume": closing_resume(tag, device)}
+    out["remat"], (trainer, state, data) = closing_remat(tag, device)
+    out["profile_trace"] = closing_profile(tag, trainer, state, data)
+    for name, args, patterns in EXAMPLES:
+        example_later(tag, name, args, patterns)
+    return out
+
+
 def trainer_cli(*args, popen=False):
     """The train CLI with ``args`` on the default device (cuda), unbuffered:
     its summary line, or (``popen``) the running process."""
@@ -5449,6 +5795,8 @@ def main():
                         phase_analysis_dp, device)
     sharded = timed("sharded model parallel", phase_sharded, device)
     study = timed("study variants", phase_study, device)
+    closing = timed("AMP device epoch, remat, profile_trace",
+                    phase_closing, device)
     for phase_errs in (sharded["kernels"], study["kernels"]):
         errs["K1"] = max(errs["K1"], phase_errs["K1"])
         errs["K3"] = tuple(max(a, b) for a, b in zip(errs["K3"],
@@ -5573,6 +5921,17 @@ def main():
         per[key]["one_rank_branch_parallel_launches"] = {
             mode: r["launches"][key]
             for mode, r in study["branch_parallel"].items()}
+    # what closes the port: the AMP device epoch's operator builds and
+    # remat's recomputed sweeps, at warm-up and capture (WARMUP_ROUNDS
+    # eager steps and the capture)
+    per["K1"]["amp_device_epoch_launches_at_capture"] = {
+        case: r["launches_at_capture"]["K1"]
+        for case, r in closing["amp"].items()}
+    for key in ("K1", "K3"):
+        per[key]["remat_device_epoch_launches_at_capture"] = {
+            case: r["launches_at_capture"][key]
+            for case, r in closing["remat"].items()
+            if case != "peak_memory_mib"}
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
@@ -5613,6 +5972,7 @@ def main():
               "sharded": {k: v for k, v in sharded.items()
                           if k != "kernels"},
               "study": {k: v for k, v in study.items() if k != "kernels"},
+              "closing": closing,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -59,6 +59,14 @@ the Thomas recurrence, PCR and PCR with the right-hand side updated in
 fused level pairs (``tridiag_solve_pcr_fused``), plain PyTorch on every
 device, with the JAX custom VJP (``_PlainSolve``); 'pallas', the JAX TPU
 kernel, is K1 and K3 here, as 'auto' is.
+
+The JAX package's test oracles are public here too, plain PyTorch on
+every device (a CUDA tensor goes through PyTorch ops, never a kernel):
+``tridiag_solve_scan`` (the Thomas recurrence differentiated by autograd,
+no custom Function: the oracle of the custom VJPs),
+``tridiag_solve_unrolled`` (the reference's loop, one Python iteration a
+row) and ``thomas_solve_reference`` (the reference's eps'd Thomas, an
+exact solve on ``b + eps``).
 """
 
 from __future__ import annotations
@@ -75,7 +83,8 @@ __all__ = ["tridiag_solve", "tridiag_solve_plain", "tridiag_solve_pcr",
            "pcr_factor", "pcr_apply", "tridiag_adjoint",
            "tridiag_adjoint_plain", "tridiag_inverse_operator",
            "tridiag_solve_precomputed", "tridiag_solve_with_operator",
-           "set_default_impl", "gemm_route", "MAX_N"]
+           "set_default_impl", "gemm_route", "tridiag_solve_scan",
+           "tridiag_solve_unrolled", "thomas_solve_reference", "MAX_N"]
 
 # A line is one warp, one row a lane or two past 32, and its PCR factors
 # (at most 2·6 + 1 a row) live in that warp's registers (csrc/thomas.cu).
@@ -117,6 +126,29 @@ def tridiag_solve_plain(a, b, c, d, dim=-1):
         return _thomas_last_axis(a, b, c, d)
     a, b, c, d = (t.movedim(dim, -1) for t in (a, b, c, d))
     return _thomas_last_axis(a, b, c, d).movedim(-1, dim)
+
+
+def tridiag_solve_scan(a, b, c, d):
+    """The Thomas recurrence along the last axis, differentiated by
+    autograd through its elementwise ops (no custom Function): the oracle
+    that the custom VJPs (K3, ``_PlainSolve``) are held against."""
+    return _thomas_last_axis(a, b, c, d)
+
+
+def tridiag_solve_unrolled(a, b, c, d):
+    """The reference's loop structure, one Python iteration a row
+    (mnist_test.py:176-196).  PyTorch has no scan to trace, so this is the
+    recurrence of ``tridiag_solve_scan``; kept under the JAX package's
+    name for the oracles' callers."""
+    return _thomas_last_axis(a, b, c, d)
+
+
+def thomas_solve_reference(a, b, c, d, eps=1e-6):
+    """The reference-facing entry point: Thomas with ``eps`` added into
+    every denominator (mnist_test.py:169,177), i.e. an exact solve on
+    ``b + eps``; plain PyTorch with the custom VJP ('scan') on every
+    device."""
+    return tridiag_solve(a, b + eps, c, d, impl="scan")
 
 
 def _transpose_system(a, b, c, dim=-1):

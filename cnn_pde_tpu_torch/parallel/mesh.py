@@ -8,9 +8,11 @@ device list, and the mesh carries the group and one subgroup for each
 slice of each axis: ``mesh.axis("model")`` is this rank's (group, index
 along the axis, axis size).  Every rank creates every subgroup, in the
 same order (``dist.new_group`` asks it), when the mesh is made.  Outside a
-group the grid is the process's own devices (every visible card, or the
-CPU), as a single-process server's replicas use them, and may have any
-shape; the sharded layers refuse such a mesh past one device.
+group the grid is the process's own devices (every visible card), as a
+single-process server's replicas use them, and may have any shape; the
+sharded layers refuse such a mesh past one device.  A mesh holds the CPU
+only when the caller asks for it (``device="cpu"``, or ``devices=``):
+without CUDA ``make_mesh()`` raises rather than carry on on the CPU.
 """
 
 from __future__ import annotations
@@ -117,44 +119,45 @@ def _axis_groups(shape, rank):
     return out
 
 
-def _rank_devices(world):
-    """One device a rank of the default group: the CPU under gloo; under
-    NCCL this process's current card for its own rank, and the card of a
-    rank's place on its host for the others."""
-    if dist.get_backend() == "nccl":
-        n = torch.cuda.device_count()
-        devices = [torch.device("cuda", r % n) for r in range(world)]
-        devices[dist.get_rank()] = torch.device("cuda",
-                                                torch.cuda.current_device())
-        return devices
-    return [torch.device("cpu")] * world
-
-
-def _local_devices():
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+def _default_devices(device, world):
+    """The grid's devices when the caller names none: the CPU
+    (``device="cpu"``; once, or once a rank of a group of ``world``), or
+    the cards: every local card outside a group; in a group this
+    process's current card for its own rank and the card of a rank's place
+    on its host for the others."""
+    if torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * (world or 1)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh: no CUDA device is available; pass device='cpu' "
+            "(or devices=[torch.device('cpu')] * n) for a mesh of the CPU")
+    n = torch.cuda.device_count()
+    if world is None:
+        return [torch.device("cuda", i) for i in range(n)]
+    devices = [torch.device("cuda", r % n) for r in range(world)]
+    devices[dist.get_rank()] = torch.device("cuda",
+                                            torch.cuda.current_device())
+    return devices
 
 
 def make_mesh(data: Optional[int] = None, spatial: int = 1, model: int = 1,
-              devices=None) -> Mesh:
+              devices=None, device="cuda") -> Mesh:
     """A mesh with ('data', 'spatial', 'model') axes.  ``data`` None uses
     all devices / (spatial·model).  ``devices``: the grid's devices (in a
-    process group, one a rank); by default the group's ranks' devices, or
-    this process's own outside a group.  In a group the mesh spans every
-    rank: data·spatial·model is the world size."""
-    group = None
+    process group, one a rank); by default the group's ranks' cards, or
+    this process's own cards outside a group, or with ``device="cpu"``
+    the CPU (once, or once a rank).  Without CUDA and without either
+    argument it raises.  In a group the mesh spans every rank:
+    data·spatial·model is the world size."""
+    group = world = None
     if dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
         world = dist.get_world_size()
-        devices = list(devices) if devices is not None else \
-            _rank_devices(world)
-        if len(devices) != world:
-            raise ValueError(f"a mesh in a process group of {world} ranks "
-                             f"holds one device a rank, got {len(devices)}")
-    else:
-        devices = list(devices) if devices is not None else _local_devices()
+    devices = list(devices) if devices is not None else \
+        _default_devices(device, world)
+    if group is not None and len(devices) != world:
+        raise ValueError(f"a mesh in a process group of {world} ranks "
+                         f"holds one device a rank, got {len(devices)}")
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if data is None:

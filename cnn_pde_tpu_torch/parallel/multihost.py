@@ -1,11 +1,13 @@
 """Process-group bring-up — port of ``cnn_pde_tpu/parallel/multihost.py``.
 
 The port runs data parallelism one process a device in a
-``torch.distributed`` process group: NCCL when a card is present, gloo on
-the CPU.  Call :func:`initialize` once a process (torchrun sets
-``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``; elsewhere
-pass the coordinator's ``host:port`` or ``tcp://host:port``, the number of
-processes and this one's id), then ``make_mesh()`` spans every rank.
+``torch.distributed`` process group: NCCL over the cards, or gloo on the
+CPU when the caller asks for it (``backend="gloo"``, then
+``make_mesh(device="cpu")``).  Call :func:`initialize` once a process
+(torchrun sets ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``; elsewhere pass the coordinator's ``host:port`` or
+``tcp://host:port``, the number of processes and this one's id), then
+``make_mesh()`` spans every rank.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     torchrun's environment.  Returns the bring-up outcome:
 
     * ``"already_initialized"``: a process group exists already; no-op.
-    * ``"initialized"``: the group was brought up (NCCL when a card is
-      present, gloo otherwise; ``backend`` overrides).  Under NCCL the
-      process takes the card of its ``LOCAL_RANK`` (or its rank modulo the
-      cards).
+    * ``"initialized"``: the group was brought up (NCCL, or ``backend``:
+      ``"gloo"`` for CPU processes).  Under NCCL the process takes the
+      card of its ``LOCAL_RANK`` (or its rank modulo the cards); without
+      CUDA it raises rather than carry on on the CPU.
     * ``"single_process"``: nothing configures a group, neither the
       arguments nor ``WORLD_SIZE``/``RANK``/``MASTER_ADDR``: a one-process
       run.
@@ -45,8 +47,11 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                   or any(v in os.environ for v in _ENV))
     if not configured:
         return "single_process"
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("initialize: no CUDA device is available for an "
+                           "NCCL group; pass backend='gloo' for a group of "
+                           "CPU processes")
     world = int(num_processes if num_processes is not None
                 else os.environ.get("WORLD_SIZE", 1))
     rank = int(process_id if process_id is not None

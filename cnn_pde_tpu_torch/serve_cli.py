@@ -205,7 +205,7 @@ def main(argv=None):
     if args.dp:
         from .parallel import make_mesh
 
-        mesh = make_mesh(devices=[device] if device.type == "cpu" else None)
+        mesh = make_mesh(device=device.type)
         data = mesh.shape["data"]
         bad = [b for b in (buckets or (images.shape[0],)) if b % data]
         if bad:

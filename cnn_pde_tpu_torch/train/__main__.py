@@ -352,7 +352,7 @@ def _dp_mesh(device, tp=1, spatial=1):
     if tp < 1 or spatial < 1 or world % (tp * spatial):
         sys.exit(f"--tp {tp} x --spatial {spatial} must be >=1 and divide "
                  f"the number of processes ({world})")
-    return make_mesh(spatial=spatial, model=tp)
+    return make_mesh(spatial=spatial, model=tp, device=device.type)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Debugging utilities — port of ``cnn_pde_tpu/utils/debug.py``
-(``nan_guard``, ``step_timer``).
+(``nan_guard``, ``profile_trace``, ``annotate``, ``step_timer``).
 
 ``nan_guard(step)`` wraps a train step so that a non-finite loss or
 gradient raises ``FloatingPointError`` naming the step.  The JAX
@@ -10,17 +10,25 @@ backward op on the host, one sync an op), so the port checks what a step
 returns: after each step of the host loop (``check_step``, one sync a
 step), and after each chunk of the device epoch (``check_chunk``: its
 losses, fetched anyway, and the weights once).
+
+``profile_trace`` records ``torch.profiler`` over its block (the host and,
+unless the caller asks for the CPU, the card) and writes a Chrome/Perfetto
+trace into its directory; ``annotate(name)`` is a named span of that
+trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-__all__ = ["nan_guard", "check_step", "check_chunk", "step_timer"]
+__all__ = ["nan_guard", "check_step", "check_chunk", "profile_trace",
+           "annotate", "step_timer"]
 
 
 def _first_nonfinite(named):
@@ -76,6 +84,38 @@ def nan_guard(step, first_step=0):
 
     guarded.model = step.model
     return guarded
+
+
+@contextlib.contextmanager
+def profile_trace(logdir=None, device="cuda"):
+    """Profile the block: the host's ops, and the card's kernels unless
+    ``device="cpu"``; yields ``logdir`` (by default ``torch-trace`` in the
+    temporary directory) and writes the trace there on exit, also when the
+    block raises (``trace_<pid>.json``, Chrome/Perfetto format).  Without
+    CUDA it raises unless the caller asks for the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "torch-trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("profile_trace: no CUDA device is available; "
+                               "pass device='cpu' to profile the host alone")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield logdir
+    finally:
+        prof.export_chrome_trace(os.path.join(logdir,
+                                              f"trace_{os.getpid()}.json"))
+
+
+def annotate(name):
+    """A named span of the profiler's timeline (``with annotate("eval"):``)."""
+    return torch.profiler.record_function(name)
 
 
 class step_timer:

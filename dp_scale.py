@@ -699,7 +699,8 @@ def worker(rank, ranks, port, device, steps, out_path, tp=1, spatial=1,
     initialize(f"tcp://127.0.0.1:{port}", num_processes=ranks,
                process_id=rank, backend=backend)
     try:
-        mesh = make_mesh(spatial=spatial, model=tp * branch)
+        mesh = make_mesh(spatial=spatial, model=tp * branch,
+                         device=device.type)
         if device.type == "cuda":
             import chip_smoke as cs
 

@@ -116,11 +116,12 @@ def _worker(rank, port, out):
     from cnn_pde_tpu_torch.parallel import initialize, make_mesh
     from cnn_pde_tpu_torch.parallel.hlo_audit import audit
 
-    initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank)
+    initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank,
+               backend="gloo")
     weights = torch.load(os.path.join(out, "weights.pt"))
     res = {}
     for key, (data, model_size) in MESHES.items():
-        mesh = make_mesh(data=data, model=model_size)
+        mesh = make_mesh(data=data, model=model_size, device="cpu")
         res[(key, "shape")] = (mesh.shape, mesh.coords)
         model, res[(key, "switched")] = _model(weights, mesh)
         res[(key, "features")] = _features_and_grads(model)
@@ -322,7 +323,7 @@ def test_one_process_mesh_is_the_hoisted_lockstep(world):
     from cnn_pde_tpu_torch.train import TrainConfig, Trainer
 
     _, _, _, weights = world
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     model, switched = _model(weights, mesh)
     assert switched == 1
     f, grads = _features_and_grads(model)

@@ -139,10 +139,10 @@ def _worker(rank, port, out):
 
     torch.manual_seed(0)
     outcome = initialize(f"127.0.0.1:{port}", num_processes=WORLD,
-                         process_id=rank)
+                         process_id=rank, backend="gloo")
     again = initialize(f"127.0.0.1:{port}", num_processes=WORLD,
-                       process_id=rank)
-    mesh = make_mesh()
+                       process_id=rank, backend="gloo")
+    mesh = make_mesh(device="cpu")
     weights = torch.load(os.path.join(out, "weights.pt"))
     res = {"outcomes": (outcome, again), "shape": mesh.shape,
            "devices": [str(d) for d in mesh.devices.flat],
@@ -381,7 +381,7 @@ def test_make_mesh_shapes_match_jax():
             jmesh(devices=jax.devices()[:8], **kw).devices.shape
         assert make_mesh(devices=cpus, **kw).shape == dict(
             jmesh(devices=jax.devices()[:8], **kw).shape)
-    assert make_mesh().devices.shape == (1, 1, 1)
+    assert make_mesh(device="cpu").devices.shape == (1, 1, 1)
     # the spatial and model axes (ported: a mesh outside a process group
     # may take any shape; the sharded layers refuse it past one device)
     for kw in ({"spatial": 2}, {"model": 2},
@@ -404,21 +404,22 @@ def test_initialize_outcomes(monkeypatch):
     with mock.patch.object(dist, "init_process_group") as init:
         assert multihost.initialize() == "single_process"
         init.assert_not_called()
-        assert multihost.initialize("10.0.0.1:1234", 4, 2) == "initialized"
+        assert multihost.initialize("10.0.0.1:1234", 4, 2,
+                                    backend="gloo") == "initialized"
         init.assert_called_once_with("gloo", init_method="tcp://10.0.0.1:1234",
                                      world_size=4, rank=2)
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     with mock.patch.object(dist, "init_process_group") as init:
-        assert multihost.initialize() == "initialized"
+        assert multihost.initialize(backend="gloo") == "initialized"
         init.assert_called_once_with("gloo", init_method="env://",
                                      world_size=2, rank=1)
     # a configured group that fails to come up raises
     with mock.patch.object(dist, "init_process_group",
                            side_effect=RuntimeError("connect refused")):
         with pytest.raises(RuntimeError, match="connect refused"):
-            multihost.initialize()
+            multihost.initialize(backend="gloo")
     assert not multihost.is_multihost()
     assert multihost.local_batch_slice(16) == (0, 16)
 

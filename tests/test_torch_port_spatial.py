@@ -184,10 +184,11 @@ def _worker(rank, port, out):
     torch.set_num_threads(1)
     from cnn_pde_tpu_torch.parallel import initialize, make_mesh
 
-    initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank)
+    initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank,
+               backend="gloo")
     weights = torch.load(os.path.join(out, "weights.pt"))
-    meshes = {k: make_mesh(data=d, spatial=s) for k, (d, s) in
-              MESHES.items()}
+    meshes = {k: make_mesh(data=d, spatial=s, device="cpu") for k, (d, s)
+              in MESHES.items()}
     res = {"shapes": {k: m.shape for k, m in meshes.items()},
            "coords": {k: m.coords for k, m in meshes.items()}}
     _spatial_cases(meshes["1x4"], res)

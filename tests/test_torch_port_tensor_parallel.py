@@ -150,9 +150,11 @@ def _worker(rank, port, out):
     from cnn_pde_tpu_torch.train.checkpoint import (load_checkpoint,
                                                     restore_state)
 
-    initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank)
+    initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank,
+               backend="gloo")
     weights = torch.load(os.path.join(out, "weights.pt"))
-    meshes = {k: make_mesh(data=d, model=m) for k, (d, m) in MESHES.items()}
+    meshes = {k: make_mesh(data=d, model=m, device="cpu")
+              for k, (d, m) in MESHES.items()}
     res = {"coords": {k: m.coords for k, m in meshes.items()}}
     for name, key in STEP_CASES:
         res[(name, key)] = _tp_steps(name, weights, meshes[key])

@@ -392,19 +392,21 @@ def test_unported_trainer_options_raise():
 
     from cnn_pde_tpu_torch.parallel import initialize, make_mesh
 
-    assert Trainer(model, TrainConfig(), values, mesh=make_mesh()).mesh
+    assert Trainer(model, TrainConfig(), values,
+                   mesh=make_mesh(device="cpu")).mesh
     for kw in ({"tp": True}, {"image_spec": ("data", None, "spatial", None)}):
         with pytest.raises(ValueError, match="process group"):
             Trainer(model, TrainConfig(), values, **kw)
         with pytest.raises(ValueError, match="process group"):
-            Trainer(model, TrainConfig(), values, mesh=make_mesh(), **kw)
+            Trainer(model, TrainConfig(), values,
+                    mesh=make_mesh(device="cpu"), **kw)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
                backend="gloo")
     try:
-        mesh = make_mesh()
+        mesh = make_mesh(device="cpu")
         trainer = Trainer(model, TrainConfig(batch_size=16), values,
                           mesh=mesh, tp=True,
                           image_spec=("data", None, "spatial", None))
