@@ -4232,6 +4232,7 @@ SHARD_SPEC = ("data", None, "spatial", None)
 TP_STEPS = 6             # steps of the compared TP device epoch
 TP_BATCH = 64
 SPATIAL_BATCHES = {"emotion": 64, "tiny_imagenet": 32}
+SPATIAL_HORIZON = {"T": 0.02, "dt": 0.001}  # 20 FTCS steps, twice the default
 
 
 def sharded_kernels(tag, device):
@@ -4413,7 +4414,36 @@ def spatial_classifiers(tag, mesh, device):
                      "bitwise_grads": bitwise, "grads": len(params)}
         log(f"[{tag}] {name} spatial classifier: {bitwise} of "
             f"{len(params)} gradients bit for bit")
+    out["emotion_horizon"] = spatial_horizon(tag, mesh, device, rng)
     return out
+
+
+def spatial_horizon(tag, mesh, device, rng):
+    """The emotion spatial classifier at SPATIAL_HORIZON (T, dt) against
+    the unsharded model with the same FTCS layer: its steps, and eval
+    logits within LOGIT_TOL of their largest entry."""
+    from cnn_pde_tpu_torch.parallel import SpatialFTCSClassifier
+    from cnn_pde_tpu_torch.pde.spectral import FourierFTCSLayer
+
+    ref = emotion_model(device)
+    ref.pde = FourierFTCSLayer(Nx=48, Ny=48, device=device,
+                               **SPATIAL_HORIZON)
+    model = SpatialFTCSClassifier(mesh, device=device, **SPATIAL_HORIZON)
+    model.load_state_dict(ref.state_dict())
+    steps = round(SPATIAL_HORIZON["T"] / SPATIAL_HORIZON["dt"])
+    if model.pde.Nt != steps or ref.pde.Nt != steps:
+        raise AssertionError(f"{tag}: SpatialFTCSClassifier at "
+                             f"{SPATIAL_HORIZON}: {model.pde.Nt} steps")
+    B = SPATIAL_BATCHES["emotion"]
+    x = seeded_batch(rng, B, (1, 48, 48), device)
+    with torch.no_grad():
+        got, want = model.eval()(x), ref.eval()(x)
+    err = check_rel(f"emotion spatial logits at {SPATIAL_HORIZON} B={B} vs "
+                    "unsharded", rel_err(got, want), LOGIT_TOL)
+    log(f"[{tag}] emotion spatial classifier at {SPATIAL_HORIZON}: "
+        f"{model.pde.Nt} FTCS steps, logits {err:.3e} of their largest "
+        "entry from the unsharded model's")
+    return {"nt": model.pde.Nt, "logit_rel_err": err}
 
 
 def phase_sharded(device):
@@ -4825,6 +4855,7 @@ RESUME_BATCH = 64         # the resumed bf16-moments run's batch
 RESUME_STEPS = 8          # and its steps an epoch
 PROFILED_STEPS = 3        # captured flagship steps under profile_trace
 PROFILE_SPAN = "chip_smoke_captured_steps"
+PROFILE_SPAN_2 = "chip_smoke_one_more_step"  # the second trace's span
 # each port example on the card (phase 12) and the lines it must print
 EXAMPLES = (
     ("torch_01_train_preset.py", ("mnist", "1"),
@@ -5030,37 +5061,60 @@ def closing_remat(tag, device):
 
 
 def closing_profile(tag, trainer, state, data):
-    """PROFILED_STEPS captured flagship steps (a device epoch already
-    captured) under ``profile_trace`` with an ``annotate`` span: the
-    trace file holds the span and K1's kernel (``pcr_lines``)."""
+    """Two ``profile_trace`` blocks in one directory, each with its own
+    ``annotate`` span: PROFILED_STEPS captured flagship steps (a device
+    epoch already captured), then one more captured step.  Both trace
+    files stay, each holds its own span and not the other's, and K1's
+    kernel (``pcr_lines``)."""
     logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "closing_trace")
     shutil.rmtree(logdir, ignore_errors=True)
-    trainer.config.max_steps_per_epoch = PROFILED_STEPS
+    os.makedirs(logdir)
+    traces = {}
     try:
-        with profile_trace(logdir) as where:
-            with annotate(PROFILE_SPAN):
-                trainer.train_epoch(state, data, 1, verbose=False)
-        files = os.listdir(where)
-        with open(os.path.join(where, files[0])) as f:
-            events = json.load(f)["traceEvents"]
-        size = os.path.getsize(os.path.join(where, files[0]))
+        for span, steps in ((PROFILE_SPAN, PROFILED_STEPS),
+                            (PROFILE_SPAN_2, 1)):
+            trainer.config.max_steps_per_epoch = steps
+            before = set(os.listdir(logdir))
+            with profile_trace(logdir) as where:
+                with annotate(span):
+                    trainer.train_epoch(state, data, 1, verbose=False)
+            new = sorted(set(os.listdir(where)) - before)
+            if len(new) != 1:
+                raise AssertionError(f"{tag}: the trace of {span!r} wrote "
+                                     f"{new}, beside {sorted(before)}")
+            traces[span] = (steps, new[0])
+        files = sorted(os.listdir(logdir))
+        for span, (steps, name) in traces.items():
+            with open(os.path.join(logdir, name)) as f:
+                events = json.load(f)["traceEvents"]
+            traces[span] = (steps, name, events,
+                            os.path.getsize(os.path.join(logdir, name)))
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
-    names = [e.get("name", "") for e in events]
-    kernels_seen = [e["name"] for e in events if e.get("cat") == "kernel"]
-    k1 = [n for n in kernels_seen if "pcr_lines" in n]
-    if PROFILE_SPAN not in names or not k1:
-        raise AssertionError(
-            f"{tag}: the trace of {PROFILED_STEPS} captured steps lacks the "
-            f"span ({PROFILE_SPAN in names}) or K1 ({len(k1)} pcr_lines "
-            f"of {len(kernels_seen)} kernels)")
-    log(f"[{tag}] profile_trace of {PROFILED_STEPS} captured flagship "
-        f"per_sweep steps: {files}, {size} bytes, {len(events)} events, "
-        f"the span {PROFILE_SPAN!r}, {len(kernels_seen)} kernels of which "
-        f"{len(k1)} pcr_lines (K1 and K3)")
-    return {"file_bytes": size, "events": len(events),
-            "kernels": len(kernels_seen), "pcr_lines": len(k1)}
+    if len(files) != 2:
+        raise AssertionError(f"{tag}: two profile_trace blocks left "
+                             f"{files}")
+    out = {"files": files}
+    for span, (steps, name, events, size) in traces.items():
+        other = PROFILE_SPAN_2 if span == PROFILE_SPAN else PROFILE_SPAN
+        names = [e.get("name", "") for e in events]
+        kernels_seen = [e["name"] for e in events
+                        if e.get("cat") == "kernel"]
+        k1 = [n for n in kernels_seen if "pcr_lines" in n]
+        if span not in names or other in names or not k1:
+            raise AssertionError(
+                f"{tag}: the trace {name} of {steps} captured steps: its "
+                f"span {span in names}, the other's {other in names}, K1 "
+                f"({len(k1)} pcr_lines of {len(kernels_seen)} kernels)")
+        log(f"[{tag}] profile_trace of {steps} captured flagship per_sweep "
+            f"step(s): {name}, {size} bytes, {len(events)} events, the span "
+            f"{span!r} and not {other!r}, {len(kernels_seen)} kernels of "
+            f"which {len(k1)} pcr_lines (K1 and K3)")
+        out[span] = {"file": name, "steps": steps, "file_bytes": size,
+                     "events": len(events), "kernels": len(kernels_seen),
+                     "pcr_lines": len(k1)}
+    return out
 
 
 def example_later(tag, name, args, patterns):

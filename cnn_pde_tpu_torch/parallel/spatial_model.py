@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from ..models.mlp_models import EmotionClassifier
 from ..models.tiny_imagenet import TinyImageNetClassifier
+from ..pde.spectral import FourierFTCSLayer
 from .collectives import gather_dim
 from .spatial import (AXIS, block, ftcs_evolve_spatial,
                       laplacian_step_spatial)
@@ -40,12 +41,18 @@ def _h_block(mesh, x, full):
 class SpatialFTCSClassifier(EmotionClassifier):
     """EmotionClassifier with its FTCS evolution H-sharded over 'spatial':
     one halo row each way a step (``ftcs_evolve_spatial``), the grids'
-    rows of this rank's block, then the map gathered for the head."""
+    rows of this rank's block, then the map gathered for the head.  ``T``
+    and ``dt`` are its ``FourierFTCSLayer``'s horizon and step (``pde.Nt``
+    = int(T / dt) steps), as in the JAX class; the unsharded model keeps
+    the layer's defaults."""
 
     def __init__(self, mesh, img_size=48, num_classes=7, dropout_rate=0.3,
-                 device=None):
+                 T=0.01, dt=0.001, device=None):
         super().__init__(img_size=img_size, num_classes=num_classes,
                          dropout_rate=dropout_rate, device=device)
+        # the same name, so the state_dict is EmotionClassifier's
+        self.pde = FourierFTCSLayer(Nx=img_size, Ny=img_size, T=T, dt=dt,
+                                    device=device)
         self.mesh = mesh
 
     def forward(self, x):

@@ -13,13 +13,15 @@ losses, fetched anyway, and the weights once).
 
 ``profile_trace`` records ``torch.profiler`` over its block (the host and,
 unless the caller asks for the CPU, the card) and writes a Chrome/Perfetto
-trace into its directory; ``annotate(name)`` is a named span of that
-trace.
+trace into its directory, a file of its own for each block of the process
+(as ``jax.profiler.start_trace`` gives each trace its own run directory);
+``annotate(name)`` is a named span of that trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import tempfile
 import time
@@ -86,13 +88,19 @@ def nan_guard(step, first_step=0):
     return guarded
 
 
+# numbers the traces of this process: each block writes a file of its own
+_TRACES = itertools.count()
+
+
 @contextlib.contextmanager
 def profile_trace(logdir=None, device="cuda"):
     """Profile the block: the host's ops, and the card's kernels unless
     ``device="cpu"``; yields ``logdir`` (by default ``torch-trace`` in the
     temporary directory) and writes the trace there on exit, also when the
-    block raises (``trace_<pid>.json``, Chrome/Perfetto format).  Without
-    CUDA it raises unless the caller asks for the CPU."""
+    block raises (``trace_<pid>_<n>.json``, Chrome/Perfetto format, ``n``
+    counting the process's blocks from 0, so that no trace replaces
+    another).  Without CUDA it raises unless the caller asks for the
+    CPU."""
     from torch.profiler import ProfilerActivity, profile
 
     if logdir is None:
@@ -104,13 +112,13 @@ def profile_trace(logdir=None, device="cuda"):
                                "pass device='cpu' to profile the host alone")
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    name = f"trace_{os.getpid()}_{next(_TRACES)}.json"
     prof = profile(activities=activities)
     try:
         with prof:
             yield logdir
     finally:
-        prof.export_chrome_trace(os.path.join(logdir,
-                                              f"trace_{os.getpid()}.json"))
+        prof.export_chrome_trace(os.path.join(logdir, name))
 
 
 def annotate(name):

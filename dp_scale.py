@@ -41,8 +41,10 @@ parameters after AdamW's first update recorded: lr·sign(g) moves 2·lr
 where another order of sums flips the sign of a small gradient), ms a
 captured step by CUDA events beside one card alone, and the collectives
 of one eager step by ``parallel/hlo_audit.py`` with the NCCL kernels'
-device time in a profiled captured epoch (the ADI steps: a forward and
-backward, eager and captured in a CUDA graph, and their K1/K3 launches).
+device time in a profiled captured epoch, by kernel with the median µs a
+launch (the ADI steps: a forward and backward, eager and captured in a
+CUDA graph, its replays profiled, and their K1/K3 launches on every
+rank).
 With ``--branch N`` the mesh is data=ranks/N × model=N and the case is
 the flagship's hoisted lockstep with its three PDE branches split over
 'model' (``enable_branch_parallel``, 64 images a step, through
@@ -144,8 +146,13 @@ def _step_ms(trainer, state, data, steps, device):
     return start.elapsed_time(stop) / steps
 
 
-def _nccl_profile(fn):
-    """(NCCL kernels, their device µs, device events) of ``fn()``."""
+def _nccl_profile(fn, calls=1):
+    """(NCCL kernels, their device µs, device events, {NCCL kernel: [its
+    launches, its device µs, its median µs a launch]}) of ``fn()``, the
+    kernels and µs a call of ``calls``.  A collective kernel's time
+    includes its wait for the other ranks, and the first one of a
+    profile waits for the rank whose profiler started last: the median
+    a launch leaves that wait out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,8 +161,22 @@ def _nccl_profile(fn):
         fn()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     nccl = [e for e in events if "nccl" in e.name.lower()]
-    return len(nccl), sum(e.time_range.elapsed_us() for e in nccl), \
-        len(events)
+    times = {}
+    for e in nccl:
+        times.setdefault(e.name.split("(")[0], []).append(
+            e.time_range.elapsed_us())
+    by_kernel = {k: [len(t) / calls, sum(t) / calls, float(np.median(t))]
+                 for k, t in times.items()}
+    return len(nccl) / calls, sum(e.time_range.elapsed_us()
+                                  for e in nccl) / calls, len(events), \
+        by_kernel
+
+
+def _by_kernel(by_kernel):
+    """``_nccl_profile``'s kernels, for a log: launches a call x the median
+    µs a launch (the µs a call in all)."""
+    return ", ".join(f"{k} {n:g} x {med:.1f} us ({us:.1f} us)"
+                     for k, (n, us, med) in sorted(by_kernel.items()))
 
 
 def _allreduce_ms(reducer, device):
@@ -194,14 +215,16 @@ def _case(label, ranks, steps, mesh, device):
     allreduce = _allreduce_ms(state.train_step.reducer, device)
     trainer.config.max_steps_per_epoch = PROFILE_STEPS
     nccl = _nccl_profile(lambda: trainer.train_epoch(state, data, 3,
-                                                     verbose=False))
+                                                     verbose=False),
+                         PROFILE_STEPS)
     out = {"global_batch": B, "ranks": ranks, "dp_step_ms": dp_ms,
            "dp_images_per_s": 1e3 * B / dp_ms,
            "allreduce_ms": allreduce,
            "allreduce_bytes": 4 * state.train_step.reducer.flat.numel(),
-           "nccl_kernels_per_step": nccl[0] / PROFILE_STEPS,
-           "nccl_device_us_per_step": nccl[1] / PROFILE_STEPS,
-           "profiled_device_events": nccl[2]}
+           "nccl_kernels_per_step": nccl[0],
+           "nccl_device_us_per_step": nccl[1],
+           "profiled_device_events": nccl[2],
+           "nccl_by_kernel_per_step": nccl[3]}
     dist.barrier()
     missed = None
     if mesh.rank == 0:
@@ -237,7 +260,8 @@ def _case(label, ranks, steps, mesh, device):
                f"{allreduce:.4f} ms; NCCL kernels a captured step "
                f"{out['nccl_kernels_per_step']:g} "
                f"({out['nccl_device_us_per_step']:.1f} us, of "
-               f"{nccl[2]} device events profiled); after "
+               f"{nccl[2]} device events profiled: {_by_kernel(nccl[3])}); "
+               f"after "
                f"{COMPARED_STEPS} step against one card: worst parameter "
                f"{where} {worst:.3e}, loss {loss_err:.3e}")
         if not (worst <= PARAM_TOL and loss_err <= LOSS_TOL
@@ -470,7 +494,8 @@ def _sharded_case(label, steps, mesh, device):
     _progress(mesh, label, "the profiled epoch")
     trainer.config.max_steps_per_epoch = PROFILE_STEPS
     nccl = _nccl_profile(lambda: trainer.train_epoch(state, data, 3,
-                                                     verbose=False))
+                                                     verbose=False),
+                         PROFILE_STEPS)
     _progress(mesh, label, "the audited eager step")
     lo, hi = trainer._block(B)
     x = data.train_images[:B][lo:hi]
@@ -480,9 +505,10 @@ def _sharded_case(label, steps, mesh, device):
     out = {"global_batch": B, "mesh": mesh.shape, "step_ms": ms,
            "images_per_s": 1e3 * B / ms,
            "collectives_per_eager_step": collectives,
-           "nccl_kernels_per_step": nccl[0] / PROFILE_STEPS,
-           "nccl_device_us_per_step": nccl[1] / PROFILE_STEPS,
-           "profiled_device_events": nccl[2]}
+           "nccl_kernels_per_step": nccl[0],
+           "nccl_device_us_per_step": nccl[1],
+           "profiled_device_events": nccl[2],
+           "nccl_by_kernel_per_step": nccl[3]}
     dist.barrier()
     missed = None
     if mesh.rank == 0:
@@ -542,7 +568,8 @@ def _sharded_case(label, steps, mesh, device):
                f"one card alone {out['single_step_ms']:.3f} ms; "
                f"collectives of an eager step {collectives}; NCCL kernels "
                f"a captured step {out['nccl_kernels_per_step']:g} "
-               f"({out['nccl_device_us_per_step']:.1f} us); after "
+               f"({out['nccl_device_us_per_step']:.1f} us: "
+               f"{_by_kernel(nccl[3])}); after "
                f"{COMPARED_STEPS} step against one card: loss {loss_err:.3e}, "
                f"worst gradient {g_where} {g_worst:.3e} and parameter "
                f"{where} {worst:.3e} of their largest entry{replay_note}")
@@ -584,9 +611,9 @@ def _events_ms(fn, device, calls=ADI_CALLS):
     return start.elapsed_time(stop) / calls
 
 
-def _captured_ms(fn, device):
-    """ms a replay of ``fn`` captured in a CUDA graph (after two eager
-    runs on the capturing stream), or None on the CPU."""
+def _graph(fn, device):
+    """``fn`` captured in a CUDA graph (after two eager runs on the
+    capturing stream), or None on the CPU."""
     import torch
 
     if device.type != "cuda":
@@ -600,7 +627,14 @@ def _captured_ms(fn, device):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
         fn()
-    return _events_ms(graph.replay, device)
+    return graph
+
+
+def _captured_ms(fn, device):
+    """ms a replay of ``fn`` captured in a CUDA graph, or None on the
+    CPU."""
+    graph = _graph(fn, device)
+    return None if graph is None else _events_ms(graph.replay, device)
 
 
 def _adi_case(mesh, device):
@@ -656,11 +690,25 @@ def _adi_case(mesh, device):
         g_err = max(float((g - r[lo:hi]).abs().max() / r.abs().max())
                     for g, r in zip(got[1:], ref[1:]))
         counts, shapes, _ = audit(step)
+        graph = _graph(step, device)
+        run = step if graph is None else graph.replay
+
+        def profiled(run=run):
+            for _ in range(ADI_CALLS):
+                run()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        nccl = _nccl_profile(profiled, ADI_CALLS)
         res = {"max_abs_err": x_err, "grad_rel_err": g_err,
                "launches": launched,
                "eager_ms": _events_ms(step, device),
-               "captured_ms": _captured_ms(step, device),
-               "collectives_per_call": counts, "gathered": shapes}
+               "captured_ms": (None if graph is None
+                               else _events_ms(graph.replay, device)),
+               "collectives_per_call": counts, "gathered": shapes,
+               "nccl_kernels_per_call": nccl[0],
+               "nccl_device_us_per_call": nccl[1],
+               "profiled_device_events": nccl[2],
+               "nccl_by_kernel_per_call": nccl[3]}
         out[fn.__name__] = res
         cs.log(f"[dp-scale] {fn.__name__} on {ADI_SHAPE}, mesh "
                f"{mesh.shape}: max abs err {x_err:.3e}, gradients "
@@ -669,7 +717,11 @@ def _adi_case(mesh, device):
                f"{res['eager_ms']:.3f} ms eager, captured "
                f"{res['captured_ms']} ms (one card "
                f"{out['single_ms']:.3f} / {out['single_captured_ms']} ms); "
-               f"collectives a call {counts}, gathered {shapes}")
+               f"collectives a call {counts}, gathered {shapes}; NCCL "
+               f"kernels a captured call {res['nccl_kernels_per_call']:g} "
+               f"({res['nccl_device_us_per_call']:.1f} us, of "
+               f"{nccl[2]} device events profiled over {ADI_CALLS} calls: "
+               f"{_by_kernel(nccl[3])})")
         if not (x_err <= 2e-6 + 2e-5 * float(ref[0].abs().max())
                 and g_err <= 1e-4):
             raise AssertionError(f"{fn.__name__}: {x_err}, {g_err}")

@@ -12,6 +12,7 @@ same system); the gradients 1e-4 of each tensor's largest entry.
 
 import json
 import os
+import re
 import socket
 from unittest import mock
 
@@ -134,11 +135,31 @@ def test_profile_trace_writes_an_annotated_trace(tmp_path):
             y = torch.ones(64, 64) @ torch.ones(64, 64)
     assert float(y[0, 0]) == 64.0
     files = os.listdir(logdir)
-    assert files == [f"trace_{os.getpid()}.json"]
+    assert len(files) == 1
+    assert re.fullmatch(rf"trace_{os.getpid()}_\d+\.json", files[0]), files
     with open(os.path.join(logdir, files[0])) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "closing_span" in names and "aten::mm" in names
+
+
+def test_profile_trace_keeps_every_trace_of_a_process(tmp_path):
+    """Two blocks in one process and directory leave two files, each with
+    its own span and not the other's."""
+    logdir = str(tmp_path / "trace")
+    for span in ("first", "second"):
+        with profile_trace(logdir, device="cpu"):
+            with annotate(span):
+                torch.ones(8, 8) @ torch.ones(8, 8)
+    files = sorted(os.listdir(logdir),
+                   key=lambda f: int(f.rsplit("_", 1)[1].split(".")[0]))
+    assert len(files) == 2, files
+    for name, span, other in ((files[0], "first", "second"),
+                              (files[1], "second", "first")):
+        assert re.fullmatch(rf"trace_{os.getpid()}_\d+\.json", name), name
+        with open(os.path.join(logdir, name)) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert span in names and other not in names, (name, span)
 
 
 def test_profile_trace_without_cuda_raises(no_cuda, tmp_path):

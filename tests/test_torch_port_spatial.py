@@ -17,6 +17,10 @@ amplifies values about 1e6x); the Tiny-ImageNet logits 1e-5.  A spatial
 train step's PDE-parameter gradients are held against the unsharded
 port step's on the same global batch (augmentation and dropout on) at
 rtol 1e-4 (emotion: 1e-3, its amplified values) with its loss at 1e-5.
+The emotion classifier built with another horizon (``HORIZON``: T = 0.02,
+dt = 0.001, 20 FTCS steps) is held at the emotion bars against JAX's
+spatial classifier of that horizon and the unsharded port model with a
+20-step ``FourierFTCSLayer``.
 """
 
 import json
@@ -36,6 +40,7 @@ MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 PDE_PARAMS = {"emotion": [f"pde.{a}_w{i}" for a in ("alpha", "beta")
                           for i in (1, 2, 3)],
               "tiny_imagenet": ["diff.alpha_base", "diff.channel_scaling"]}
+HORIZON = {"T": 0.02, "dt": 0.001}  # twice the default FTCS steps
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -87,17 +92,24 @@ def _block(mesh, x, dim):
     return torch.as_tensor(x).narrow(dim, lo, hi - lo).contiguous()
 
 
-def _model(name, mesh, weights, dropout=0.0):
+def _model(name, mesh, weights, dropout=0.0, horizon=None):
     """The spatial classifier (mesh) or the unsharded port model (None)
-    with ``weights``."""
+    with ``weights``; the emotion model's FTCS layer of ``horizon`` (T and
+    dt) when given."""
     from cnn_pde_tpu_torch.models import (EmotionClassifier,
                                           TinyImageNetClassifier)
     from cnn_pde_tpu_torch.parallel import (SpatialFTCSClassifier,
                                             SpatialTinyImageNetClassifier)
+    from cnn_pde_tpu_torch.pde.spectral import FourierFTCSLayer
 
     if name == "emotion":
-        model = (EmotionClassifier(dropout_rate=dropout) if mesh is None
-                 else SpatialFTCSClassifier(mesh, dropout_rate=dropout))
+        if mesh is not None:
+            model = SpatialFTCSClassifier(mesh, dropout_rate=dropout,
+                                          **(horizon or {}))
+        else:
+            model = EmotionClassifier(dropout_rate=dropout)
+            if horizon:
+                model.pde = FourierFTCSLayer(Nx=48, Ny=48, **horizon)
     else:
         model = (TinyImageNetClassifier(num_classes=20, dropout_rate=dropout)
                  if mesh is None else SpatialTinyImageNetClassifier(
@@ -182,7 +194,8 @@ def _spatial_cases(mesh, res):
 def _worker(rank, port, out):
     """One gloo rank: every case, its results saved to ``out/rank<r>.pt``."""
     torch.set_num_threads(1)
-    from cnn_pde_tpu_torch.parallel import initialize, make_mesh
+    from cnn_pde_tpu_torch.parallel import (SpatialFTCSClassifier,
+                                            initialize, make_mesh)
 
     initialize(f"127.0.0.1:{port}", num_processes=WORLD, process_id=rank,
                backend="gloo")
@@ -201,6 +214,14 @@ def _worker(rank, port, out):
                 res[(name, key, "logits")] = _model(
                     name, mesh, weights[name])(_block(mesh, rows, 2))
             res[(name, key, "step")] = _step(name, weights[name], mesh)
+        x, _ = _inputs()["emotion"]
+        model = _model("emotion", mesh, weights["emotion"],
+                       horizon=HORIZON)
+        res[("emotion", key, "horizon_nt")] = model.pde.Nt
+        with torch.no_grad():
+            res[("emotion", key, "horizon_logits")] = model(
+                _block(mesh, np.split(x, D)[d], 2))
+    res["default_nt"] = SpatialFTCSClassifier(meshes["1x4"]).pde.Nt
     res = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
            for k, v in res.items()}
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
@@ -240,6 +261,7 @@ def _jax_references(models):
     from cnn_pde_tpu.nn import Ctx
     from cnn_pde_tpu.ops import ftcs_evolve, sweep_x, sweep_y, tridiag_solve
     from cnn_pde_tpu.ops.stencil import laplacian_step
+    from cnn_pde_tpu.parallel import SpatialFTCSClassifier, make_mesh
 
     inp = _inputs()
     ref = {"ftcs": ftcs_evolve(*map(jnp.asarray, inp["ftcs"]), nt=7),
@@ -262,8 +284,16 @@ def _jax_references(models):
         ref[(name, "logits")] = jax.jit(
             lambda p, x: model.apply(p, state, x, Ctx(train=False))[0])(
                 params, jnp.asarray(x))
+    # JAX's spatial emotion classifier of HORIZON, H over four devices
+    _, params, state, _ = models["emotion"]
+    spatial = SpatialFTCSClassifier(make_mesh(data=2, spatial=4), **HORIZON)
+    ref["horizon_nt"] = spatial.pde.Nt
+    ref["horizon_logits"] = jax.jit(
+        lambda p, x: spatial.apply(p, state, x, Ctx(train=False))[0])(
+            params, jnp.asarray(inp["emotion"][0]))
     return {k: (tuple(map(np.asarray, v)) if isinstance(v, tuple)
-                else np.asarray(v)) for k, v in ref.items()}
+                else v if isinstance(v, int) else np.asarray(v))
+            for k, v in ref.items()}
 
 
 @pytest.fixture(scope="module")
@@ -403,6 +433,35 @@ def test_spatial_classifier_logits(world, name, mesh):
         unsharded = _model(name, None, weights[name])(torch.as_tensor(x))
     np.testing.assert_allclose(got, unsharded.numpy(), **tol)
     np.testing.assert_allclose(got, ref[(name, "logits")], **tol)
+
+
+def test_spatial_classifier_horizon_logits(world):
+    """``SpatialFTCSClassifier(mesh, T=0.02, dt=0.001)`` on both meshes
+    against JAX's spatial classifier of that horizon and the unsharded
+    port model with a 20-step FTCS layer, on the same weights."""
+    ranks, ref, weights = world
+    x, _ = _inputs()["emotion"]
+    with torch.no_grad():
+        unsharded = _model("emotion", None, weights["emotion"],
+                           horizon=HORIZON)(torch.as_tensor(x)).numpy()
+    for mesh, (d_size, _) in MESHES.items():
+        got = torch.cat([ranks[r][("emotion", mesh, "horizon_logits")]
+                         for r in range(0, WORLD, WORLD // d_size)]).numpy()
+        np.testing.assert_allclose(got, unsharded, rtol=5e-4, atol=1e-3,
+                                   err_msg=mesh)
+        np.testing.assert_allclose(got, ref["horizon_logits"], rtol=5e-4,
+                                   atol=1e-3, err_msg=mesh)
+
+
+def test_spatial_classifier_horizon_steps(world):
+    """T / dt sets the evolution's steps, as in JAX's class; the default
+    stays 10."""
+    ranks, ref, _ = world
+    assert ref["horizon_nt"] == 20
+    for res in ranks:
+        assert res["default_nt"] == 10
+        for mesh in MESHES:
+            assert res[("emotion", mesh, "horizon_nt")] == 20
 
 
 @pytest.mark.parametrize("name", ["emotion", "tiny_imagenet"])
