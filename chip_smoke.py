@@ -224,6 +224,22 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    flagship steps under ``utils.profile_trace`` and ``annotate``; the
    four port examples (``examples/torch_0[1-4]_*.py``) queued for phase
    12, each on the card;
+10h. lines longer than 64 rows (K1 and K3's partition + PCR scheme): K1
+   and K3 against their plain versions on bands (3, 5, N) and (3, N, 7),
+   N in {65, 96, 127, 128, 129, 224, 256, 512, 1000, 1024}, at B in {1,
+   7, 300}, and on the 96 x 96 flagship's sweeps (three branch scales, B
+   in {1, 64}); the flagship with ``MultiScaleExtractor(96, 3)`` (STL-10's
+   96 x 96 x 3): the eager predict at B in {1, 64} against the plain
+   versions (51 K1 a forward, 1e-4) and ``make_predict_fn`` against it
+   (buckets 1 and 64, bit for bit, images/s of both); one
+   ``make_train_step`` step at B = 64 (51 K1 + 51 K3), the train-mode
+   logits and loss within 1e-4 of the plain versions', every gradient
+   within 1e-4 of theirs or no farther from the float64 step than theirs
+   (``floor_held_grads``); the device epoch (12 steps) bit for bit
+   against the eager Trainer, its captured step timed; the hoisted grades
+   served as phase 8 holds the flagship's (6 K1 for the operators, built
+   at N = 96) and the AMP grade trained (6 K1 a step, a falling loss) and
+   held as phase 9 holds Tiny-ImageNet's, each ADI layer replayed;
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -232,7 +248,9 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    and K6 on the fashion_mnist layer at B in {1, 128, 1024}, the same two
    ways; K1 and K3 at the
    main path's shapes (the flagship's sweeps at B = 64 and 512, the mnist
-   layer's at B = 128 and 1024), in a CUDA graph, L2-warm and cold, with
+   layer's at B = 128 and 1024; past 64 rows the 96 flagship's at B = 64
+   and 512, (3, 256, 256) at 64 and (1, 1024, 1024) at 8), in a CUDA
+   graph, L2-warm and cold, with
    the wrapper's call time, the plain version, the bound and
    torch.linalg.solve on the dense system as the library yardstick;
 12. every queued CLI run, four at a time, beside the Trainer through the
@@ -241,8 +259,9 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    uninterrupted run's weights bit for bit; emotion for up to 60 epochs
    with its early stopping, then served from its checkpoint directory;
 13. the ``kernels`` JSON line (K1's row also carries the operator build's
-   figures and its hoisted, Tiny-ImageNet and hybrid launch counts, K3's
-   the hybrid's), then the contract line.
+   figures and its hoisted, Tiny-ImageNet, hybrid and 96 x 96 flagship
+   launch counts, K3's the hybrid's and the 96 flagship's), then the
+   contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -1556,15 +1575,19 @@ def compare_grads(label, got, ref, tol, zero_names, rel_check=True,
 
 
 def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
-              builds, zero_names, rng, steps=12):
-    """The f32 and bf16 hoisted grades trained by ``make_train_step``:
+              builds, zero_names, rng, steps=12, grades=("f32", "bf16"),
+              bf16_held=True):
+    """The f32 and bf16 hoisted grades (``grades``) trained by
+    ``make_train_step``:
     counts reset before one step at ``batch`` and read after it: ``builds``
     K1 launches (the operators are built in every training forward) and
     no K3 (the backward is GEMMs); the loss and every gradient of a
     train-mode step (dropout 0, the reference's ReLU masks) within
     GRAD_TOL of the per-sweep step (f32), or within AMP_GRAD_TOL of the
     same grade on its plain versions (bf16, with its distance from
-    per-sweep float32 logged); ``steps`` steps with a falling loss; then
+    per-sweep float32 logged; only logged unless ``bf16_held``, where the
+    caller holds the grade layer by layer); ``steps`` steps with a falling
+    loss; then
     images/s (CUDA events) at each B of ``rate_batches`` and the busy
     share there.  Returns {grade: (counts, rates,
     losses)}."""
@@ -1575,7 +1598,7 @@ def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
     ref = train_grads(make_model(0.0), xs, ys, values["label_smoothing"],
                       masks)
     result = {}
-    for grade in ("f32", "bf16"):
+    for grade in grades:
         model = amp_switch(make_model(None), grade)
         step = make_train_step(model, values, steps_per_epoch,
                                torch.Generator(device).manual_seed(SEED))
@@ -1604,8 +1627,10 @@ def amp_train(tag, make_model, values, data, batch, rate_batches, inputs,
                 plain = train_grads(amp_switch(make_model(0.0), grade), xs,
                                     ys, values["label_smoothing"], masks)
             compare_grads(f"bf16 B={batch} loss and every gradient vs its "
-                          "plain versions", run, plain, AMP_GRAD_TOL,
-                          zero_names)
+                          "plain versions" + ("" if bf16_held else
+                                              " (logged, not held)"),
+                          run, plain, AMP_GRAD_TOL, zero_names,
+                          rel_check=bf16_held)
             compare_grads(f"bf16 B={batch} vs the per-sweep float32 step",
                           run, ref, None, zero_names, rel_check=False)
         step, losses = train_falling(
@@ -2099,7 +2124,7 @@ def replay_against_plain(tag, label, module, x, g, out_tol):
 
 
 def amp_against_plain(tag, label, make_amp, make_exact, images, batch,
-                      smoothing, replayed, out_tol, zero_names):
+                      smoothing, replayed, out_tol, zero_names, classes=200):
     """The AMP model ``make_amp(rate)`` against its plain versions: the
     train-mode loss at ``batch`` within AMP_OUT_TOL; each module of
     ``replayed``, run again on the input and output cotangent that the
@@ -2120,7 +2145,7 @@ def amp_against_plain(tag, label, make_amp, make_exact, images, batch,
     exact_predict = make_eager_predict_fn(make_exact(None))
     for B, x in images.items():
         got = predict(x)
-        if got.shape != (B, 200) or not torch.isfinite(got).all():
+        if got.shape != (B, classes) or not torch.isfinite(got).all():
             raise AssertionError(f"{label} B={B}: bad logits")
         with kernels.plain_versions():
             plain = predict(x)
@@ -3283,10 +3308,12 @@ def rates_in_turns(fns, x, reps):
 
 
 def captured_case(tag, label, make, shape, per, rng, device, classes=10,
-                  rate_batches=A13_RATE_BATCHES):
+                  rate_batches=A13_RATE_BATCHES, buckets=A13_BUCKETS,
+                  requests=A13_REQUESTS):
     """``make_predict_fn`` (one CUDA graph a bucket) against the eager
-    predict of the same model, buckets A13_BUCKETS, one request of each
-    size in A13_REQUESTS: the launches at warm-up and capture (WARMUP_ROUNDS
+    predict of the same model, ``buckets`` (A13_BUCKETS), one request of
+    each size in ``requests`` (A13_REQUESTS): the launches at warm-up and
+    capture (WARMUP_ROUNDS
     + 1 forwards a bucket, ``per`` a forward) and none from Python when the
     same requests replay; logits within CAPTURED_TOL of their largest
     entry (bit for bit logged); the model's predicts of probabilities and
@@ -3295,18 +3322,18 @@ def captured_case(tag, label, make, shape, per, rng, device, classes=10,
     images/s of both in turns at ``rate_batches``; busy share and launch
     calls a request of both at the largest."""
     model = make()
-    eager = make_eager_predict_fn(model, buckets=A13_BUCKETS)
-    predict = make_predict_fn(model, buckets=A13_BUCKETS)
-    xs = {n: seeded_batch(rng, n, shape, device) for n in A13_REQUESTS}
+    eager = make_eager_predict_fn(model, buckets=buckets)
+    predict = make_predict_fn(model, buckets=buckets)
+    xs = {n: seeded_batch(rng, n, shape, device) for n in requests}
     reset_counts()
     t0 = time.perf_counter()
     got = {n: predict(x) for n, x in xs.items()}
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     captured = counts()
-    forwards = (WARMUP_ROUNDS + 1) * len(A13_BUCKETS)
+    forwards = (WARMUP_ROUNDS + 1) * len(buckets)
     if captured != only(**{k: v * forwards for k, v in per.items()}) or \
-            sorted(predict.graphs) != list(A13_BUCKETS):
+            sorted(predict.graphs) != list(buckets):
         raise AssertionError(f"{label}: launches {captured} and graphs "
                              f"{sorted(predict.graphs)}, expected {per} a "
                              f"forward over {forwards} forwards")
@@ -3315,7 +3342,7 @@ def captured_case(tag, label, make, shape, per, rng, device, classes=10,
     again = {n: predict(x) for n, x in xs.items()}
     others = {}
     for output in ("probs", "labels"):
-        fn = make_predict_fn(model, output=output, buckets=A13_BUCKETS)
+        fn = make_predict_fn(model, output=output, buckets=buckets)
         others[output] = {n: fn(x) for n, x in xs.items()}
     torch.cuda.synchronize()
     if counts() != only() or len(predict.graphs) != len(graphs) or any(
@@ -3324,13 +3351,13 @@ def captured_case(tag, label, make, shape, per, rng, device, classes=10,
                              f"Python, graphs {sorted(predict.graphs)}")
     ref = {n: eager(x) for n, x in xs.items()}
     bitwise = []
-    for n in A13_REQUESTS:
+    for n in requests:
         if got[n].shape != (n, classes) or not torch.isfinite(got[n]).all():
             raise AssertionError(f"{label} n={n}: bad logits")
         bitwise.append(torch.equal(got[n], ref[n])
                        and torch.equal(again[n], ref[n]))
         check_rel(f"{label} request of {n} (bucket "
-                  f"{next(b for b in A13_BUCKETS if b >= n)}) captured vs "
+                  f"{next(b for b in buckets if b >= n)}) captured vs "
                   f"eager{', bit for bit' if bitwise[-1] else ''}",
                   max(rel_err(got[n], ref[n]), rel_err(again[n], ref[n])),
                   CAPTURED_TOL)
@@ -5282,6 +5309,313 @@ def resumed_equal(tag, out, root):
     out["resume_bitwise"] = equal
 
 
+# ---- phase 10h: lines longer than 64 rows ---------------------------------
+
+# K1 and K3's cases past 64 rows (csrc/thomas.cu's partition + PCR scheme):
+# bands (3, 5, N) and (3, N, 7) at these line lengths (ragged and whole
+# partitions, 31 rows a lane taken as 32 at 1000, the layout's lines a block
+# from 8 down to 1) and batches
+LONG_NS = (65, 96, 127, 128, 129, 224, 256, 512, 1000, 1024)
+LONG_BATCHES = (1, 7, 300)
+# the flagship with its extractor at STL-10's published 96 x 96 x 3 (the
+# 4 x 4 adaptive pools make the head size-free): served captured at these
+# buckets (requests of 1, 7, 64), trained at WIDE_BATCH; the captured epoch
+# and the AMP grades' falling loss take WIDE_STEPS steps
+WIDE = 96
+WIDE_BUCKETS = (1, 64)
+WIDE_REQUESTS = (1, 7, 64)
+WIDE_BATCH = 64
+WIDE_STEPS = 12
+WIDE_AMP_REPS = {1: 10, 64: 5}  # requests a round of the AMP routes' rates
+
+
+def wide_flagship(device, dropout_rate=0.3, fields_seed=SEED + 17):
+    """The flagship with ``MultiScaleExtractor(WIDE, 3)`` as its extractor,
+    init from seeded generators, with trained-looking fields (``fields``)
+    seeded by ``fields_seed``."""
+    model = build_model("cifar10_noconv", device="cpu",
+                        generator=torch.Generator().manual_seed(SEED),
+                        dropout_rate=dropout_rate)
+    model.feature_extractor = MultiScaleExtractor(WIDE, 3)
+    model.feature_extractor.reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    model = model.to(device).eval()
+    USED_DEVICES.add(next(model.parameters()).device)
+    rng = np.random.default_rng(fields_seed)
+    with torch.no_grad():
+        for i in (1, 2, 3):
+            pde = getattr(model.feature_extractor, f"pde{i}")
+            for key, value in fields(rng, device, 3, WIDE, WIDE).items():
+                getattr(pde, key).copy_(value)
+    return model
+
+
+def long_kernels(tag, device):
+    """K1 and K3 against their plain versions at LONG_NS on both axes and
+    LONG_BATCHES, and on the 96 x 96 flagship's x- and y-sweeps (its three
+    branch scales) at B = 1 and 64.  Returns the worst K1 error and K3's
+    (λ abs, band gradients relative)."""
+    rng = np.random.default_rng(SEED + 60)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n in (96, 256, 1024):
+        for arrays, key in ((1, "K1"), (2, "K3")):
+            lines, stage, buffers, smem = tridiag_module.launch_layout(
+                n, arrays)
+            log(f"[{tag}] {key} at N={n}: {lines} lines a block, stage "
+                f"{stage}, {buffers} buffers, {smem} bytes of shared memory; "
+                f"B=64 x-sweep of 3 x {n} lines in chunks of "
+                f"{tridiag_plan(64, 3 * n, n, 1, sms, arrays)[0]} images")
+    k1_err, k3_abs, k3_rel = 0.0, 0.0, 0.0
+
+    def case(label, bands, shape, dim, B):
+        nonlocal k1_err, k3_abs, k3_rel
+        u = torch.rand((B, *shape), device=device)
+        out = tridiag_solve(*bands, u, dim)
+        torch.cuda.synchronize()
+        x = tridiag_solve_plain(*bands, u, dim).contiguous()
+        k1_err = max(k1_err, check(f"K1 {label}", max_err(out, x),
+                                   KERNEL_TOL))
+        g = torch.randn((B, *shape), device=device)
+        got = tridiag_adjoint(*bands, g, x, dim)
+        torch.cuda.synchronize()
+        ref = tridiag_adjoint_plain(*bands, g, x, dim)
+        k3_abs = max(k3_abs, check(f"K3 {label} λ", max_err(got[0], ref[0]),
+                                   KERNEL_TOL))
+        k3_rel = max(k3_rel, check_rel(
+            f"K3 {label} band gradients (worst of a, b, c)",
+            max(rel_err(o, r) for o, r in zip(got[1:], ref[1:])), GRAD_TOL))
+        k3_abs = max(k3_abs, *(max_err(o, r)
+                               for o, r in zip(got[1:], ref[1:])))
+
+    for n in LONG_NS:
+        for dim, shape in ((-1, (3, 5, n)), (-2, (3, n, 7))):
+            r = torch.rand(shape, device=device) * 2.0
+            bands = (-r, (_neumann_b(r, dim) + EPS).contiguous(), -r)
+            for B in LONG_BATCHES:
+                case(f"bands {shape} dim={dim} B={B}", bands, shape, dim, B)
+    for scale in SCALES:
+        f = fields(rng, device, 3, WIDE, WIDE)
+        ts = _substep_times_np(scale["dt"], scale["num_steps"])
+        alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"],
+                          float(ts[-1, 2]), EPS, CMAX)
+        beta = _coeff_at(f["beta_base"], f["beta_time_coeff"],
+                         float(ts[-1, 1]), EPS, CMAX)
+        for B in (1, 64):
+            for dim, field, dt in ((-1, alpha, scale["dt"] / 2),
+                                   (-2, beta, scale["dt"])):
+                case(f"96 flagship dt={scale['dt']} dx={scale['dx']} B={B} "
+                     f"{'x' if dim == -1 else 'y'}-sweep",
+                     sweep_bands(field, dt, scale["dx"], dim),
+                     (3, WIDE, WIDE), dim, B)
+    return {"K1": k1_err, "K3": (k3_abs, k3_rel)}
+
+
+def wide_serving(tag, device):
+    """The 96 flagship's eager predict at WIDE_BUCKETS against the plain
+    versions (51 K1 a forward, logits within LOGIT_TOL, labels equal), then
+    ``make_predict_fn`` against eager (``captured_case``: 51 K1 a forward at
+    warm-up and capture, none a replay, bit for bit, images/s of both)."""
+    rng = np.random.default_rng(SEED + 61)
+    shape = (3, WIDE, WIDE)
+    model = wide_flagship(device)
+    eager = make_eager_predict_fn(model)
+    xs = {B: seeded_batch(rng, B, shape, device) for B in WIDE_BUCKETS}
+    reset_counts()
+    logits = {B: eager(x) for B, x in xs.items()}
+    torch.cuda.synchronize()
+    got = counts()
+    log(f"[{tag}] 96 flagship eager: launches {got} over "
+        f"{len(WIDE_BUCKETS)} forwards")
+    if got != only(K1=51 * len(WIDE_BUCKETS)):
+        raise AssertionError(f"{tag}: expected 51 K1 a forward, got {got}")
+    with kernels.plain_versions():
+        plain = {B: eager(x) for B, x in xs.items()}
+    for B in WIDE_BUCKETS:
+        if logits[B].shape != (B, 10) or not torch.isfinite(logits[B]).all():
+            raise AssertionError(f"{tag} B={B}: bad logits")
+        check(f"96 flagship B={B} logits vs plain versions",
+              max_err(logits[B], plain[B]), LOGIT_TOL)
+        if not torch.equal(logits[B].argmax(-1), plain[B].argmax(-1)):
+            raise AssertionError(f"{tag} B={B}: labels differ")
+    captured = captured_case(
+        tag, "96 flagship per-sweep", lambda: wide_flagship(device), shape,
+        {"K1": 51}, rng, device, rate_batches=WIDE_BUCKETS,
+        buckets=WIDE_BUCKETS, requests=WIDE_REQUESTS)
+    return {"eager_launches": got, "captured": captured}
+
+
+def floor_held_grads(label, kernel, plain, exact):
+    """Every gradient of the kernel step (``kernel``) within GRAD_TOL of
+    its largest entry against the same step on the plain versions
+    (``plain``), or, where a gradient cancels so far that two float32
+    steps differ by more, no farther from the float64 step on the plain
+    versions (``exact``) than the float32 plain step is (or within
+    GRAD_TOL of it): at 96 x 96 the plain float32 step itself sits
+    1.3e-4 of the largest entry from float64 on ``feature_bn.weight`` (on
+    an H100), so no float32 kernel but a copy of the plain version's
+    recurrence is sure to come within 1e-4 of it there.  A gradient of ZERO_IN_EXACT_ARITHMETIC is held within GRAD_TOL
+    of 0 on both float32 paths.  Every gradient past GRAD_TOL of the plain
+    step is logged with its three distances."""
+    worst, where, floored = 0.0, "", []
+    for name, g in kernel.items():
+        if name in ZERO_IN_EXACT_ARITHMETIC:
+            size = max(g.abs().max().item(), plain[name].abs().max().item())
+            if not size <= GRAD_TOL:
+                raise AssertionError(f"{label} {name}: {size}")
+            continue
+        err = rel_err(g, plain[name])
+        if err <= GRAD_TOL:
+            if err >= worst:
+                worst, where = err, name
+            continue
+        to_exact = rel_err(g, exact[name])
+        floor = rel_err(plain[name], exact[name])
+        floored.append(name)
+        log(f"  {label} {name}: {err:.3e} of its largest entry from the "
+            f"plain versions' float32 step; from the float64 step: kernels "
+            f"{to_exact:.3e}, float32 plain {floor:.3e}")
+        if not to_exact <= max(GRAD_TOL, floor):
+            raise AssertionError(f"{label} {name}: {to_exact} from float64, "
+                                 f"the plain float32 step {floor}")
+    check_rel(f"{label} every other gradient vs plain versions (worst: "
+              f"{where})", worst, GRAD_TOL)
+    return floored
+
+
+def wide_dataset(B, steps, seed):
+    """Seeded 96 x 96 x 3 images and labels for the captured epoch:
+    ``steps`` batches of B to train on and 1.5·B + 3 to evaluate, with
+    CIFAR-10's normalisation."""
+    rng = np.random.default_rng(seed)
+    n, n_test = steps * B, B + B // 2 + 3
+
+    def images(k):
+        return rng.random((k, 3, WIDE, WIDE), dtype=np.float32)
+    mean, std = NORMALIZATION["cifar10"]
+    return ArrayDataset(images(n), rng.integers(0, 10, n), images(n_test),
+                        rng.integers(0, 10, n_test), mean=mean, std=std,
+                        num_classes=10)
+
+
+def wide_training(tag, device):
+    """The 96 flagship's train step (``make_train_step``): 51 K1 + 51 K3 in
+    one step at WIDE_BATCH; the train-mode logits, loss and every gradient
+    within GRAD_TOL of the same step on the plain versions (the kernel
+    run's ReLU masks and pool argmaxes replayed); then the Trainer's device
+    epoch (the step captured) against the eager Trainer over WIDE_STEPS
+    steps, timed."""
+    rng = np.random.default_rng(SEED + 62)
+    images, labels, _, _ = make_synthetic("cifar10")
+    # the synthetic CIFAR-10 set at WIDE x WIDE (nearest neighbour): its
+    # classes keep their structure, so the AMP grades' loss falls
+    data = (torch.nn.functional.interpolate(
+        torch.from_numpy(images), size=(WIDE, WIDE)).to(device),
+        torch.from_numpy(labels).to(device))
+    model = wide_flagship(device)
+    step = make_train_step(model, TRAIN,
+                           max(data[0].shape[0] // WIDE_BATCH, 1),
+                           torch.Generator(device).manual_seed(SEED))
+    x, y = data[0][:WIDE_BATCH], data[1][:WIDE_BATCH]
+    step(x, y)
+    sync(device)
+    reset_counts()
+    loss, _ = step(x, y)
+    sync(device)
+    got = counts()
+    log(f"[{tag}] 96 flagship: launches in one train step at "
+        f"B={WIDE_BATCH}: {got}")
+    if got != only(K1=51, K3=51) or not torch.isfinite(loss):
+        raise AssertionError(f"{tag}: expected 51 K1 + 51 K3 and a finite "
+                             f"loss, got {got}, {loss}")
+
+    def inputs(B):
+        return (torch.from_numpy(rng.random((B, 3, WIDE, WIDE)).astype(
+            np.float32)).to(device),
+            torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    xs, ys = inputs(WIDE_BATCH)
+    masks, runs = {}, []
+    for path in ("kernels", "float32 plain", "float64 plain"):
+        with (contextlib.nullcontext() if path == "kernels"
+              else kernels.plain_versions()):
+            model = wide_flagship(device, 0.0)
+            x = xs
+            if path == "float64 plain":
+                model, x = model.double(), xs.double()
+            logits = []
+            hook = model.register_forward_hook(
+                lambda mod, inp, out: logits.append(out.detach()))
+            runs.append((train_grads(model, x, ys,
+                                     TRAIN["label_smoothing"], masks),
+                         logits[0]))
+            hook.remove()
+    sync(device)
+    check_rel(f"96 flagship B={WIDE_BATCH} train-mode logits vs plain "
+              "versions", rel_err(runs[0][1], runs[1][1]), GRAD_TOL)
+    check_rel(f"96 flagship B={WIDE_BATCH} loss vs plain versions",
+              rel_err(runs[0][0][0], runs[1][0][0]), GRAD_TOL)
+    floor_held_grads(f"96 flagship B={WIDE_BATCH}", *(r[0][1] for r in runs))
+    epoch = _epoch_case(tag, "96 flagship per-sweep",
+                        lambda: wide_flagship(device), TRAIN,
+                        wide_dataset(WIDE_BATCH, WIDE_STEPS, SEED + 63),
+                        WIDE_BATCH, ("K1", "K3"), 1, device,
+                        steps=WIDE_STEPS, timed_runs=("graph",))
+    return {"launches_per_train_step": got, "device_epoch": epoch,
+            "data": data, "inputs": inputs, "rng": rng}
+
+
+def phase_long_lines(device):
+    """Lines longer than 64 rows: K1 and K3 against their plain versions
+    (``long_kernels``); the 96 flagship served (``wide_serving``) and
+    trained (``wide_training``) per-sweep, then the hoisted grades served
+    with the operators cached (6 K1, built at N = 96; f32 and bf16, as
+    phase 8 holds the flagship's) and the AMP grade (``enable_amp``,
+    bf16) trained: 6 K1 a step and no K3, a falling loss (``amp_train``),
+    the train-mode loss within AMP_OUT_TOL of its plain versions and each
+    ADI layer replayed on the plain step's input and cotangent within
+    AMP_LAYER_MAX_TOL (output) and AMP_GRAD_TOL (gradients), as phase 9
+    holds Tiny-ImageNet's AMP grade (``amp_against_plain``): over 96 x 96
+    pixels the two bf16 pipelines' model gradients part further (2.7e-2
+    of the largest entry on an H100) than the flagship's at 32 x 32,
+    which phase 8 holds at AMP_GRAD_TOL.  The f32 hoisted step is not
+    trained here: against the per-sweep float32 step it meets the float32
+    floor that ``floor_held_grads`` describes."""
+    tag = "long lines"
+    errs = timed("long-line kernels", long_kernels, tag, device)
+    serve = timed("96 flagship serving", wide_serving, tag, device)
+    train = timed("96 flagship training", wide_training, tag, device)
+    amp_serve_ = timed("96 flagship AMP serving", amp_serve, tag, device,
+                       lambda: wide_flagship(device), (3, WIDE, WIDE),
+                       WIDE_BUCKETS, 6, WIDE_AMP_REPS, SEED + 64)
+    inputs = train.pop("inputs")
+
+    def make(rate):
+        return wide_flagship(
+            device, **({} if rate is None else {"dropout_rate": rate}))
+    amp_train_ = timed(
+        "96 flagship AMP training", amp_train, tag, make, TRAIN,
+        train.pop("data"), WIDE_BATCH, (), inputs, 6,
+        ZERO_IN_EXACT_ARITHMETIC, train.pop("rng"), WIDE_STEPS, ("bf16",),
+        False)
+    held = timed(
+        "96 flagship AMP layers replayed", amp_against_plain, tag,
+        "96 flagship AMP", lambda rate: amp_switch(make(rate), "bf16"), make,
+        {B: torch.from_numpy(np.random.default_rng(SEED + 65).random(
+            (B, 3, WIDE, WIDE)).astype(np.float32)).to(device)
+         for B in WIDE_BUCKETS}, inputs(WIDE_BATCH),
+        TRAIN["label_smoothing"],
+        [f"feature_extractor.pde{i}" for i in (1, 2, 3)], AMP_LAYER_MAX_TOL,
+        ZERO_IN_EXACT_ARITHMETIC, 10)
+    return {"kernels": errs, "serve": serve, "train": train,
+            "amp_held": held,
+            "amp_serve": {grade: value[0]
+                          for grade, value in amp_serve_.items()},
+            "amp_serve_rates": {grade: value[1]
+                                for grade, value in amp_serve_.items()},
+            "amp_train": {grade: {"launches": value[0], "loss": value[2]}
+                          for grade, value in amp_train_.items()}}
+
+
 def phase_times(device, peak_bytes, peak_flops):
     result = times_fused(device, peak_bytes, peak_flops)
     result.update(times_thomas(device, peak_bytes, peak_flops))
@@ -5534,8 +5868,10 @@ def dense_system(bands, rhs, dim):
 def thomas_shapes(device):
     """(label, bands, dim, batch) of the main path's K1 and K3 launches:
     the flagship's x- and y-sweeps (5-step branch, (3, 32, 32)) at B = 64
-    and 512, and the mnist layer's smoothed sweeps (28, 28) at B = 128
-    and 1024."""
+    and 512, the mnist layer's smoothed sweeps (28, 28) at B = 128
+    and 1024; past 64 rows, the 96 x 96 flagship's at B = 64 and 512, and
+    (3, 256, 256) at B = 64 and (1, 1024, 1024) at B = 8, on the 5-step
+    branch's settings."""
     rng = np.random.default_rng(SEED + 12)
     f = fields(rng, device)
     scale = SCALES[0]
@@ -5557,6 +5893,19 @@ def thomas_shapes(device):
             shapes.append((f"mnist smoothed {label}-sweep B={B} (28,28)",
                            sweep_bands(smooth3(field, dim), dtf, 1.0, dim),
                            dim, B))
+    # past 64 rows: the 96 x 96 flagship's sweeps, a 256-wide image and a
+    # 1024-wide one
+    for (C, n), batches in (((3, WIDE), (64, 512)), ((3, 256), (64,)),
+                            ((1, 1024), (8,))):
+        f = fields(rng, device, C, n, n)
+        alpha = _coeff_at(f["alpha_base"], f["alpha_time_coeff"], 0.0, EPS,
+                          CMAX)
+        for B in batches:
+            for dim, label in ((-1, "x"), (-2, "y")):
+                shapes.append((f"{'flagship ' if n == WIDE else ''}{n}x{n} "
+                               f"{label}-sweep B={B} ({C},{n},{n})",
+                               sweep_bands(alpha, scale["dt"] / 2,
+                                           scale["dx"], dim), dim, B))
     return shapes
 
 
@@ -5594,6 +5943,12 @@ def times_thomas(device, peak_bytes, peak_flops):
         # the three band products summed over the batch (6).
         k3_bound = bound(4 * (3 * elems + 6 * band), 11 * elems + 3 * band,
                          peak_bytes, peak_flops)
+        # fewer repeats past 64 rows, where one call of the plain version
+        # (a Python loop over the rows) or of the dense solve takes
+        # milliseconds (1024 LU factorisations of 1024 x 1024: 130 ms)
+        short = shape[dim] <= tridiag_module.SHORT_N
+        plain_reps = (10, 2) if short else (3, 1)
+        lib_reps = (10, 20) if short else (3, 2)
         for i, (key, call, plain, lib, (b_ms, b_by)) in enumerate((
                 ("K1", lambda: tridiag_solve(*bands, u, dim),
                  lambda: tridiag_solve_plain(*bands, u, dim),
@@ -5609,9 +5964,9 @@ def times_thomas(device, peak_bytes, peak_flops):
                     raw_thomas(fns, bands, dim, *inputs)[i]
                     for inputs in cold], walks=5),
                 call_ms=time_ms(call),
-                plain_ms=time_ms(plain, groups=10, per_group=2),
+                plain_ms=time_ms(plain, *plain_reps),
                 bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lib, groups=10, per_group=20))
+                library_ms=time_ms(lib, *lib_reps))
             rows[key].append(entry)
             log(f"[times] {key} {at}: kernel {entry['ms']:.4f} ms L2-warm, "
                 f"{entry['cold_ms']:.4f} ms cold (a CUDA graph of "
@@ -5851,7 +6206,9 @@ def main():
     study = timed("study variants", phase_study, device)
     closing = timed("AMP device epoch, remat, profile_trace",
                     phase_closing, device)
-    for phase_errs in (sharded["kernels"], study["kernels"]):
+    wide = timed("lines longer than 64 rows", phase_long_lines, device)
+    for phase_errs in (sharded["kernels"], study["kernels"],
+                       wide["kernels"]):
         errs["K1"] = max(errs["K1"], phase_errs["K1"])
         errs["K3"] = tuple(max(a, b) for a, b in zip(errs["K3"],
                                                      phase_errs["K3"]))
@@ -5986,6 +6343,20 @@ def main():
             case: r["launches_at_capture"][key]
             for case, r in closing["remat"].items()
             if case != "peak_memory_mib"}
+    # lines longer than 64 rows: the 96 x 96 flagship's eager forward and
+    # captured predict (2 buckets), train step, and AMP operator builds
+    per["K1"]["wide_flagship_launches_per_forward"] = wide["serve"][
+        "eager_launches"]["K1"] // len(WIDE_BUCKETS)
+    per["K1"]["wide_flagship_captured_serve_launches"] = wide["serve"][
+        "captured"]["launches_at_capture"]["K1"]
+    for key in ("K1", "K3"):
+        per[key]["wide_flagship_launches_per_train_step"] = wide["train"][
+            "launches_per_train_step"][key]
+        per[key]["wide_flagship_device_epoch_launches_at_capture"] = wide[
+            "train"]["device_epoch"]["launches_at_capture"][key]
+    per["K1"]["wide_flagship_hoisted_launches"] = {
+        "cache": wide["amp_serve"]["bf16"]["K1"],
+        "train_step": wide["amp_train"]["bf16"]["launches"]["K1"]}
     rows = []
     for key, fn, source, replaces in KERNELS:
         err = errs[key]
@@ -6027,6 +6398,7 @@ def main():
                           if k != "kernels"},
               "study": {k: v for k, v in study.items() if k != "kernels"},
               "closing": closing,
+              "long_lines": {k: v for k, v in wide.items() if k != "kernels"},
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -18,7 +18,9 @@
 // along N with element stride Q; a, b, c are (P, N, Q), the same layout
 // without the batch.  The ADI x-sweep of a (B, C, H, W) state is P = C*H,
 // N = W, Q = 1; the y-sweep is P = C, N = H, Q = W, solved down the columns
-// in place.  1 <= N <= 64.
+// in place.  1 <= N <= kMaxN (1440): pcr_lines below for N <= 64, and
+// long_lines_kernel (partition + PCR, further down) past it, chosen by N at
+// launch.
 //
 // What bounds it.  Bytes: K1 must read d and write x once (8 bytes an
 // element; the bands are batch-free, a few tens of KB); K3 must read g and x
@@ -72,8 +74,9 @@
 // Numerics.  The same system as the Thomas recurrence of
 // ops/tridiag.py::tridiag_solve_plain, solved by another elimination
 // order; the arithmetic is that of ops/tridiag.py::pcr_factor and
-// pcr_apply, up to fma contraction and the product by 1/b_L (formed once a
-// block) in place of their division by b_L.
+// pcr_apply (past 64 rows: partition_factor and partition_apply), up to
+// fma contraction and the product by 1/b_L (formed once a block) in place
+// of their division by b_L.
 
 #include <cuda_runtime.h>
 
@@ -412,6 +415,367 @@ __global__ void __launch_bounds__(kThreads, K == 1 ? 4 : 2)
   }
 }
 
+// ---- lines longer than kShortN rows: partition + PCR ---------------------
+//
+// One warp a line still, but lane k owns the m = rows_a_lane(N)
+// consecutive rows s = k*m .. e = s + m - 1 of the line padded with
+// identity rows to 32*m (ops/tridiag.py::partition_factor and
+// partition_apply are the plain mirror).  The factor phase, once a block:
+// the bands are staged in shared memory, each lane runs the modified
+// Thomas elimination over its rows (f, g, c', a' a row, kept in shared
+// memory), the upward pass on the factors alone gives row s's interface
+// coefficients, and the 64-row interface system (rows s and e of every
+// lane) is factored by Pcr<2> in registers.  Per image, no division: a
+// downward pass d' = f*d - g*d'_prev in place, with the dot product that
+// gives row s's right-hand side; the interface solve (Pcr<2>::apply, the
+// values moved between the lane-pair layout and Pcr<2>'s by shuffles);
+// then x = d' - a'*x_s - c'*x_next upward.  kLongStage images go side by
+// side; a ring of kLongBufs stages.  Every line's rows sit in shared
+// memory at i + i/32 (one pad word every 32 rows), so a warp stepping
+// through its lanes' rows at stride m hits at most two words a bank for
+// every m but 31 (rows_a_lane takes 32 there).  Results go back through
+// shared memory and out in coalesced rows.  Lines a block: the most of 8,
+// 4, 2, 1 whose shared memory fits (long_lines).
+
+constexpr int kShortN = 64;       // the longest line of pcr_lines
+constexpr int kLongStage = 4;     // images a stage
+constexpr int kLongBufs = 2;      // stage buffers a ring
+constexpr int kLongMaxLines = 8;
+constexpr int kCoefs = 4;         // f, g, c', a' a row
+constexpr int kSums = 3;          // K3's band sums a row
+constexpr int kF = 0, kG = 1, kC = 2, kA = 3;
+constexpr size_t kSmemLimit = 232448;  // bytes a block may use (sm_90)
+constexpr int kMaxN = 1440;       // the longest line that fits one warp a block
+
+__host__ __device__ __forceinline__ int rows_a_lane(int N) {
+  const int m = (N + 31) / 32;
+  return m == 31 ? 32 : m;
+}
+
+// Floats of shared memory of a block of ``lines`` lines of N rows: the
+// factors (and K3's band sums) of every row, then the ring of stage
+// buffers (K3: one for g, one for x), each slot (lines + 1) * 33 * m.
+inline size_t long_floats(int N, int lines, bool adj) {
+  const size_t m = rows_a_lane(N);
+  return (size_t)(kCoefs + (adj ? kSums : 0)) * lines * 32 * m +
+         (size_t)(adj ? 2 : 1) * kLongBufs * kLongStage * 33 * m *
+             (lines + 1);
+}
+
+inline int long_lines(int N, bool adj) {
+  int lines = kLongMaxLines;
+  while (lines > 1 && sizeof(float) * long_floats(N, lines, adj) > kSmemLimit)
+    lines /= 2;
+  return lines;
+}
+
+__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+
+// Lane k holds interface rows 2k (v0) and 2k + 1 (v1); Pcr<2> wants row r
+// at lane r & 31, slot r >> 5.
+__device__ __forceinline__ void to_pcr(float v0, float v1, float (&out)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int src = lane >> 1;
+  const float a0 = __shfl_sync(kFull, v0, src);
+  const float a1 = __shfl_sync(kFull, v1, src);
+  const float b0 = __shfl_sync(kFull, v0, src + 16);
+  const float b1 = __shfl_sync(kFull, v1, src + 16);
+  out[0] = (lane & 1) ? a1 : a0;
+  out[1] = (lane & 1) ? b1 : b0;
+}
+
+__device__ __forceinline__ void from_pcr(const float (&x)[2], float& v0,
+                                         float& v1) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (2 * lane) & 31;
+  const float p0 = __shfl_sync(kFull, x[0], r0);
+  const float p1 = __shfl_sync(kFull, x[1], r0);
+  const float q0 = __shfl_sync(kFull, x[0], r0 + 1);
+  const float q1 = __shfl_sync(kFull, x[1], r0 + 1);
+  v0 = lane < 16 ? p0 : p1;
+  v1 = lane < 16 ? q0 : q1;
+}
+
+template <bool kY>
+__device__ __forceinline__ Tile long_tile(int P, int N, int Q, int lines) {
+  Tile t;
+  if (!kY) {
+    const int p0 = blockIdx.x * lines;
+    t.nlines = min(lines, P - p0);
+    t.band0 = (long long)p0 * N;
+    t.ls = N;
+    t.rs = 1;
+  } else {
+    const int qtiles = (Q + lines - 1) / lines;
+    const int p = blockIdx.x / qtiles;
+    const int q0 = (blockIdx.x - p * qtiles) * lines;
+    t.nlines = min(lines, Q - q0);
+    t.band0 = (long long)p * N * Q + q0;
+    t.ls = 1;
+    t.rs = Q;
+  }
+  return t;
+}
+
+// K1 (kAdj false) and K3's solve and partial band sums (kAdj true) on
+// lines of kShortN < N <= kMaxN rows, ``lines`` (a power of two) a block.
+template <bool kY, bool kAdj>
+__global__ void __launch_bounds__(32 * kLongMaxLines)
+    long_lines_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b,
+                      const float* __restrict__ c,
+                      const float* __restrict__ src,
+                      const float* __restrict__ xin, float* __restrict__ out,
+                      float* __restrict__ partials, long long batch, int P,
+                      int N, int Q, int chunk, int lines) {
+  extern __shared__ float smem[];
+  const int m = rows_a_lane(N);
+  const int M = 32 * m;
+  const int rows = 33 * m;  // a line's rows in a slot, padded
+  const int ld = lines + 1;  // the y tile's row stride
+  const int lsh = __ffs(lines) - 1;
+  const int slot = rows * ld;
+  const int buf = kLongStage * slot;
+  const int nthreads = 32 * lines;
+  float* coef = smem;  // [line][kCoefs][M]: row (lane k, j) at j*32 + k
+  float* sums = coef + kCoefs * lines * M;  // K3: [line][kSums][M]
+  float* ring = sums + (kAdj ? kSums * lines * M : 0);
+  const int xoff = kLongBufs * buf;  // K3: the x ring after the g ring
+
+  const Tile t = long_tile<kY>(P, N, Q, lines);
+  const long long band = (long long)P * N * Q;
+  const long long n_begin = (long long)blockIdx.y * chunk;
+  const int count = (int)min((long long)chunk, batch - n_begin);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = warp < t.nlines;  // uniform across the warp
+
+  auto at = [&](int l, int i) {
+    return kY ? padded(i) * ld + l : l * rows + padded(i);
+  };
+  auto load = [&](float* dst0, const float* src0, long long n0, int cnt) {
+    for (int g = 0; g < cnt; ++g) {
+      const float* s = src0 + (n0 + g) * band + t.band0;
+      float* dst = dst0 + g * slot;
+      if (!kY) {
+        for (int l = 0; l < t.nlines; ++l)
+          for (int i = threadIdx.x; i < N; i += nthreads)
+            cp_async4(dst + l * rows + padded(i), s + (long long)l * N + i);
+      } else {
+        for (int k = threadIdx.x; k < N * lines; k += nthreads) {
+          const int i = k >> lsh, l = k & (lines - 1);
+          if (l < t.nlines)
+            cp_async4(dst + padded(i) * ld + l, s + (long long)i * Q + l);
+        }
+      }
+    }
+  };
+  const int stages = (count + kLongStage - 1) / kLongStage;
+  auto fetch = [&](int st, float* dst) {
+    if (st < stages) {
+      const long long n0 = n_begin + (long long)st * kLongStage;
+      const int cnt = min(kLongStage, count - st * kLongStage);
+      load(dst, src, n0, cnt);
+      if (kAdj) load(dst + xoff, xin, n0, cnt);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kLongBufs - 1; ++st) fetch(st, ring + st * buf);
+
+  // The bands, staged in the factor arrays (lo in a', b in f, up in c'),
+  // with identity rows past N; K3 reads the bands of T^T.  Coalesced along
+  // the line (x) or along rows of ``lines`` floats (y).
+  for (int e = threadIdx.x; e < lines * M; e += nthreads) {
+    int l, i;
+    if (kY) {
+      i = e >> lsh;
+      l = e & (lines - 1);
+    } else {
+      l = e / M;
+      i = e - l * M;
+    }
+    if (l >= t.nlines) continue;
+    float lo = 0.0f, di = 1.0f, up = 0.0f;
+    if (i < N) {
+      const long long g0 = t.band0 + (long long)l * t.ls + (long long)i * t.rs;
+      di = __ldg(b + g0);
+      if (!kAdj) {
+        if (i > 0) lo = __ldg(a + g0);
+        if (i + 1 < N) up = __ldg(c + g0);
+      } else {
+        if (i > 0) lo = __ldg(c + g0 - t.rs);
+        if (i + 1 < N) up = __ldg(a + g0 + t.rs);
+      }
+    }
+    const int k = i / m, j = i - k * m;
+    float* cl = coef + l * kCoefs * M + j * 32 + k;
+    cl[kA * M] = lo;
+    cl[kF * M] = di;
+    cl[kC * M] = up;
+    if (kAdj) {
+      float* sl = sums + l * kSums * M + j * 32 + k;
+      sl[0] = sl[M] = sl[2 * M] = 0.0f;
+    }
+  }
+  __syncthreads();
+
+  Pcr<2> f;
+  float rho = 0.0f, rhoc = 0.0f;
+  float* cl = coef + warp * kCoefs * M + lane;  // this lane's rows: + j*32
+  if (active) {
+    // downward over the lane's rows: row i > s becomes
+    // a'_i x_s + x_i + c'_i x_{i+1} = d'_i (row s keeps x_{s-1} in a')
+    float pa = 0.0f, pc = 0.0f;
+    for (int j = 0; j < m; ++j) {
+      float* r_ = cl + j * 32;
+      const float lo = r_[kA * M], di = r_[kF * M], up = r_[kC * M];
+      float r, g, ap;
+      if (j < 2) {
+        r = 1.0f / di;
+        g = 0.0f;
+        ap = lo * r;
+      } else {
+        r = 1.0f / (di - lo * pc);
+        g = lo * r;
+        ap = -g * pa;
+      }
+      pc = up * r;
+      pa = ap;
+      r_[kF * M] = r;
+      r_[kG * M] = g;
+      r_[kC * M] = pc;
+      r_[kA * M] = ap;
+    }
+    // upward on the factors: row s+1 as x_{s+1} = d'' - A x_s - C x_e
+    float A = cl[kA * M + (m - 2) * 32], C = cl[kC * M + (m - 2) * 32];
+    for (int j = m - 3; j >= 1; --j) {
+      const float cpj = cl[kC * M + j * 32];
+      A = cl[kA * M + j * 32] - cpj * A;
+      C = -cpj * C;
+    }
+    const float cp0 = cl[kC * M];
+    rho = 1.0f / (1.0f - cp0 * A);
+    rhoc = rho * cp0;
+    float lo2[2], di2[2] = {1.0f, 1.0f}, up2[2];
+    to_pcr(rho * cl[kA * M], pa, lo2);
+    to_pcr(-rhoc * C, pc, up2);
+    f.factor(lo2, di2, up2, 6);
+  }
+
+  int rd = 0, wr = kLongBufs - 1;
+  for (int s = 0; s < stages; ++s) {
+    float* cur = ring + rd * buf;
+    const long long n0 = n_begin + (long long)s * kLongStage;
+    const int here = min(kLongStage, count - s * kLongStage);
+    fetch(s + kLongBufs - 1, ring + wr * buf);
+    cp_async_wait<kLongBufs - 1>();
+    __syncthreads();
+    rd = rd + 1 == kLongBufs ? 0 : rd + 1;
+    wr = wr + 1 == kLongBufs ? 0 : wr + 1;
+
+    if (active) {
+      // downward: d' in place, row s's dot product, rows s and e kept
+      float prev[kLongStage], acc[kLongStage], d0[kLongStage];
+#pragma unroll
+      for (int g = 0; g < kLongStage; ++g) prev[g] = acc[g] = d0[g] = 0.0f;
+      float pi = 1.0f;
+      for (int j = 0; j < m; ++j) {
+        const int i = lane * m + j;
+        const int o = at(warp, i);
+        const float fj = cl[kF * M + j * 32], gj = cl[kG * M + j * 32];
+        const bool mid = j >= 1 && j <= m - 2;
+#pragma unroll
+        for (int g = 0; g < kLongStage; ++g) {
+          const float v = (g < here && i < N) ? cur[g * slot + o] : 0.0f;
+          const float dp = fj * v - gj * prev[g];
+          prev[g] = dp;
+          if (j == 0) d0[g] = dp;
+          if (mid) {
+            acc[g] += pi * dp;
+            cur[g * slot + o] = dp;
+          }
+        }
+        if (mid) pi *= -cl[kC * M + j * 32];
+      }
+      float D[kLongStage][2];
+#pragma unroll
+      for (int g = 0; g < kLongStage; ++g)
+        to_pcr(rho * d0[g] - rhoc * acc[g], prev[g], D[g]);
+      f.apply(D, 6);
+      float xs[kLongStage], nxt[kLongStage];
+#pragma unroll
+      for (int g = 0; g < kLongStage; ++g) from_pcr(D[g], xs[g], nxt[g]);
+
+      // x (or lam) of row j into the slot, and K3's band sums of it
+      auto emit = [&](int j, const float (&v)[kLongStage]) {
+        const int i = lane * m + j;
+        const int o = at(warp, i);
+#pragma unroll
+        for (int g = 0; g < kLongStage; ++g) cur[g * slot + o] = v[g];
+        if (kAdj && i < N) {
+          float* sl = sums + warp * kSums * M + j * 32 + lane;
+          float sa = sl[0], sb = sl[M], sc = sl[2 * M];
+          const int om = i > 0 ? at(warp, i - 1) : o;
+          const int op = i + 1 < N ? at(warp, i + 1) : o;
+#pragma unroll
+          for (int g = 0; g < kLongStage; ++g) {
+            if (g < here) {
+              const float* xl = cur + xoff + g * slot;
+              sb += v[g] * xl[o];
+              if (i > 0) sa += v[g] * xl[om];
+              if (i + 1 < N) sc += v[g] * xl[op];
+            }
+          }
+          sl[0] = sa;
+          sl[M] = sb;
+          sl[2 * M] = sc;
+        }
+      };
+      emit(m - 1, nxt);
+      for (int j = m - 2; j >= 1; --j) {
+        const int o = at(warp, lane * m + j);
+        const float apj = cl[kA * M + j * 32], cpj = cl[kC * M + j * 32];
+#pragma unroll
+        for (int g = 0; g < kLongStage; ++g)
+          nxt[g] = cur[g * slot + o] - apj * xs[g] - cpj * nxt[g];
+        emit(j, nxt);
+      }
+      emit(0, xs);
+    }
+    __syncthreads();
+    for (int g = 0; g < here; ++g) {
+      float* dst = out + (n0 + g) * band + t.band0;
+      const float* sg = cur + g * slot;
+      if (!kY) {
+        for (int l = 0; l < t.nlines; ++l)
+          for (int i = threadIdx.x; i < N; i += nthreads)
+            dst[(long long)l * N + i] = sg[l * rows + padded(i)];
+      } else {
+        for (int k = threadIdx.x; k < N * lines; k += nthreads) {
+          const int i = k >> lsh, l = k & (lines - 1);
+          if (l < t.nlines) dst[(long long)i * Q + l] = sg[padded(i) * ld + l];
+        }
+      }
+    }
+    __syncthreads();  // before a later stage's copies reuse this buffer
+  }
+
+  if (kAdj && active) {
+    float* part = partials + (long long)blockIdx.y * 3 * band;
+    const float* sl = sums + warp * kSums * M + lane;
+    for (int j = 0; j < m; ++j) {
+      const int i = lane * m + j;
+      if (i < N) {
+        const long long e =
+            t.band0 + (long long)warp * t.ls + (long long)i * t.rs;
+        part[e] = sl[j * 32];
+        part[band + e] = sl[M + j * 32];
+        part[2 * band + e] = sl[2 * M + j * 32];
+      }
+    }
+  }
+}
+
 // K3's second pass: grad = -(the sum of the chunks' partials), in a fixed
 // order: slice k of a block's kSumSlices sums chunks k, k + kSumSlices, ...
 // in order, then the slices are added in order (ops/tridiag.py::
@@ -464,33 +828,75 @@ cudaError_t launch_lines(const float* a, const float* b, const float* c,
 }
 
 template <bool kAdj>
+cudaError_t launch_long(const float* a, const float* b, const float* c,
+                        const float* src, const float* xin, float* out,
+                        float* partials, long long batch, int P, int N,
+                        int Q, int chunk, cudaStream_t stream) {
+  static size_t smem_allowed[2][channel_sweep::kMaxDevices];
+  const int lines = long_lines(N, kAdj);
+  const size_t smem = sizeof(float) * long_floats(N, lines, kAdj);
+  const unsigned chunks = (unsigned)((batch + chunk - 1) / chunk);
+  const bool y = Q > 1;
+  auto kernel =
+      y ? long_lines_kernel<true, kAdj> : long_lines_kernel<false, kAdj>;
+  const cudaError_t err = channel_sweep::allow_shared_memory(
+      (const void*)kernel, smem, smem_allowed[y]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(y ? (unsigned)P * ((Q + lines - 1) / lines)
+                    : (unsigned)((P + lines - 1) / lines),
+                  chunks);
+  kernel<<<grid, 32 * lines, smem, stream>>>(a, b, c, src, xin, out,
+                                             partials, batch, P, N, Q, chunk,
+                                             lines);
+  return cudaGetLastError();
+}
+
+template <bool kAdj>
 cudaError_t launch(const float* a, const float* b, const float* c,
                    const float* src, const float* xin, float* out,
                    float* partials, long long batch, int P, int N, int Q,
                    int chunk, cudaStream_t stream) {
+  if (N < 1 || N > kMaxN) return cudaErrorInvalidValue;
   if (N <= 32)
     return launch_lines<kAdj, 1>(a, b, c, src, xin, out, partials, batch, P,
                                  N, Q, chunk, stream);
-  return launch_lines<kAdj, 2>(a, b, c, src, xin, out, partials, batch, P, N,
-                               Q, chunk, stream);
+  if (N <= kShortN)
+    return launch_lines<kAdj, 2>(a, b, c, src, xin, out, partials, batch, P,
+                                 N, Q, chunk, stream);
+  return launch_long<kAdj>(a, b, c, src, xin, out, partials, batch, P, N, Q,
+                           chunk, stream);
 }
 
 }  // namespace
 
-// The tiling the wrapper sizes its launches with (ops/tridiag.py::_plan
-// reads LINES, STAGE and BUFFERS and checks them against these once, when
-// it binds the kernels): band lines a block, images a stage, stage buffers.
-extern "C" int thomas_layout(int* lines, int* stage, int* buffers) {
-  *lines = kLines;
-  *stage = kStage;
-  *buffers = kBufs;
+// The tiling of a launch on lines of N rows, K1's (adjoint 0) or K3's
+// (adjoint 1): band lines a block, images a stage, stage buffers, and
+// shared-memory bytes a block.  ops/tridiag.py::layout computes the same
+// and checks it against this for every N once, when it binds the kernels.
+// Returns cudaErrorInvalidValue for N outside [1, kMaxN].
+extern "C" int thomas_layout(int N, int adjoint, int* lines, int* stage,
+                             int* buffers, long long* smem) {
+  if (N < 1 || N > kMaxN) return (int)cudaErrorInvalidValue;
+  if (N <= kShortN) {
+    *lines = kLines;
+    *stage = kStage;
+    *buffers = kBufs;
+    *smem = (long long)sizeof(float) * (adjoint ? 2 : 1) * kBufs * kStage *
+            kLd * N;
+  } else {
+    *lines = long_lines(N, adjoint != 0);
+    *stage = kLongStage;
+    *buffers = kLongBufs;
+    *smem = (long long)sizeof(float) * long_floats(N, *lines, adjoint != 0);
+  }
   return 0;
 }
 
 // K1.  ``chunk``: images a block (ops/tridiag.py::_plan).  Returns the
 // error of the shared-memory opt-in or cudaGetLastError() after the
 // launch; the caller raises if it is not 0.
-// N must lie in [1, 64]; the wrapper checks it.
+// N must lie in [1, kMaxN]; the wrapper checks it (cudaErrorInvalidValue
+// here otherwise).
 extern "C" int thomas_solve(const float* a, const float* b, const float* c,
                             const float* d, float* x, long long batch, int P,
                             int N, int Q, int chunk, void* stream) {

@@ -23,9 +23,12 @@ the batch-free bands once, ``pcr_apply`` runs the per-image levels;
 ``tridiag_solve_pcr`` is their composition, the plain version of
 K1's and K3's arithmetic and of the fused kernels' line solves.
 ``_adjoint_band_partials`` and ``_sum_band_partials`` mirror K3's band sums
-(per chunk of images, then over chunks in fixed order).  The plain versions
-of K1 and K3 are the Thomas recurrence, the reference the kernels are held
-against.
+(per chunk of images, then over chunks in fixed order).  Lines longer than
+``SHORT_N`` (64) rows, up to ``MAX_N`` (1,440), take a second scheme in the
+same kernels, chosen by N at launch: partition + PCR, whose batch-free and
+per-image phases ``partition_factor`` and ``partition_apply`` mirror.  The
+plain versions of K1 and K3 are the Thomas recurrence, the reference the
+kernels are held against, at every N.
 
 K1 is registered as the op ``cnn_pde_tpu_torch::thomas_solve``
 (``thomas_solve_op``, with a fake implementation; ``torch.library.define``
@@ -84,15 +87,26 @@ __all__ = ["tridiag_solve", "tridiag_solve_plain", "tridiag_solve_pcr",
            "tridiag_adjoint_plain", "tridiag_inverse_operator",
            "tridiag_solve_precomputed", "tridiag_solve_with_operator",
            "set_default_impl", "gemm_route", "tridiag_solve_scan",
-           "tridiag_solve_unrolled", "thomas_solve_reference", "MAX_N"]
+           "tridiag_solve_unrolled", "thomas_solve_reference", "MAX_N",
+           "partition_factor", "partition_apply", "rows_a_lane",
+           "launch_layout"]
 
-# A line is one warp, one row a lane or two past 32, and its PCR factors
-# (at most 2·6 + 1 a row) live in that warp's registers (csrc/thomas.cu).
-MAX_N = 64
-# csrc/thomas.cu's tiling, checked against thomas_layout() at the first bind
+# csrc/thomas.cu's tiling, checked against thomas_layout() for every N at
+# the first bind.  A line is one warp.  Up to SHORT_N rows: one row a lane
+# or two past 32, PCR's factors in the warp's registers, LINES lines a
+# block, STAGE images a stage, a ring of BUFFERS stages.  Past it: m =
+# ``rows_a_lane(N)`` rows a lane (partition + PCR), the factors (and K3's
+# band sums) in shared memory, LONG_STAGE images a stage, LONG_BUFFERS
+# stages, and the most of 8, 4, 2, 1 lines a block that fits SMEM_LIMIT.
+# MAX_N: the longest line whose K3 block of one line fits (kMaxN).
+SHORT_N = 64           # kShortN
 LINES = 8              # band lines a block, one warp each (kLines)
 STAGE = 8              # images a pipeline stage (kStage)
 BUFFERS = 3            # stage buffers a ring (kBufs)
+LONG_STAGE = 4         # kLongStage
+LONG_BUFFERS = 2       # kLongBufs
+COEFS, SUMS = 4, 3     # floats a row: f, g, c', a'; K3's three band sums
+MAX_N = 1440
 BLOCKS_PER_SM = 2      # the grid the chunk size aims for
 SMEM_LIMIT = 232_448   # bytes of shared memory a block may use on Hopper
 _SHAPE_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -207,16 +221,42 @@ def _line_shape(name, a, b, c, d, dim):
     return d.numel() // math.prod(shape), p, n, q
 
 
+def _long_bytes(n, lines, arrays):
+    """Shared memory of a block of the long-line kernel (csrc/thomas.cu::
+    long_floats): every row's factors (K3 also its band sums), then
+    ``arrays`` rings of LONG_BUFFERS stages of LONG_STAGE images, each
+    image (lines + 1)·33·m floats (32·m rows and a pad word every 32)."""
+    m = rows_a_lane(n)
+    return 4 * ((COEFS + (SUMS if arrays == 2 else 0)) * lines * 32 * m
+                + arrays * LONG_BUFFERS * LONG_STAGE * 33 * m * (lines + 1))
+
+
+def launch_layout(n, arrays=1):
+    """(lines a block, images a stage, stage buffers, shared-memory bytes a
+    block) of K1 (``arrays`` 1: d) or K3 (2: g and x) on lines of ``n``
+    rows, as csrc/thomas.cu::thomas_layout reports them.  Raises outside
+    [1, MAX_N]."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"thomas: line length {n} outside [1, {MAX_N}]")
+    if n <= SHORT_N:
+        return (LINES, STAGE, BUFFERS,
+                4 * BUFFERS * arrays * STAGE * (LINES + 1) * n)
+    lines = 8
+    while lines > 1 and _long_bytes(n, lines, arrays) > SMEM_LIMIT:
+        lines //= 2
+    return lines, LONG_STAGE, LONG_BUFFERS, _long_bytes(n, lines, arrays)
+
+
 def _plan(batch, p, n, q, sms, arrays=1):
     """(images a block, chunks, shared-memory bytes) of a launch: chunks of
     consecutive images sized so that the grid of band tiles × chunks has
     about ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs where the batch
-    allows it.  ``arrays``: 1 for K1 (d), 2 for K3 (g and x), each in a
-    ring of ``BUFFERS`` stages of ``STAGE`` images of (LINES + 1)·N floats.
-    Raises if the budget passes what a block may use."""
-    tiles = -(-p // LINES) if q == 1 else p * -(-q // LINES)
+    allows it, with ``launch_layout``'s lines a block.  ``arrays``: 1 for K1
+    (d), 2 for K3 (g and x).  Raises if the budget passes what a block
+    may use."""
+    lines, _, _, smem = launch_layout(n, arrays)
+    tiles = -(-p // lines) if q == 1 else p * -(-q // lines)
     chunk = max(1, batch // -(-BLOCKS_PER_SM * sms // tiles))
-    smem = 4 * BUFFERS * arrays * STAGE * (LINES + 1) * n
     if smem > SMEM_LIMIT:
         raise ValueError(f"thomas: {smem} bytes of shared memory a block "
                          f"(limit {SMEM_LIMIT})")
@@ -232,19 +272,27 @@ def _sms(device):
 
 def _bind(symbol, argtypes):
     """The C entry point ``symbol`` of csrc/thomas.cu.  At the first bind,
-    raise unless the kernel's tiling is the one ``_plan`` sizes launches
-    and shared memory with."""
+    raise unless the kernel's tiling at every N in [1, MAX_N], for K1 and
+    K3, is the one ``_plan`` sizes launches and shared memory with, and
+    unless the kernel refuses MAX_N + 1."""
     global _layout_checked
     if not _layout_checked:
-        vals = [ctypes.c_int() for _ in range(3)]
-        kernels.function("thomas", "thomas_layout",
-                         [ctypes.POINTER(ctypes.c_int)] * 3)(
-            *map(ctypes.byref, vals))
-        layout = tuple(v.value for v in vals)
-        if layout != (LINES, STAGE, BUFFERS):
-            raise RuntimeError(f"thomas.cu tiles (lines, stage, buffers) = "
-                               f"{layout}, the wrapper plans for "
-                               f"{(LINES, STAGE, BUFFERS)}")
+        report = kernels.function(
+            "thomas", "thomas_layout",
+            [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+            + [ctypes.POINTER(ctypes.c_longlong)])
+        vals = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()]
+        ptrs = list(map(ctypes.byref, vals))
+        for n in range(1, MAX_N + 2):
+            for arrays in (1, 2):
+                code = report(n, arrays - 1, *ptrs)
+                got = tuple(v.value for v in vals) if code == 0 else None
+                want = launch_layout(n, arrays) if n <= MAX_N else None
+                if got != want:
+                    raise RuntimeError(
+                        f"thomas.cu tiles (lines, stage, buffers, bytes) at "
+                        f"N = {n}, {arrays} arrays: {got}; the wrapper "
+                        f"plans for {want}")
         _layout_checked = True
     return kernels.function("thomas", symbol, argtypes)
 
@@ -453,6 +501,111 @@ def pcr_apply(factors, d, dim=-1):
              + gamma.movedim(dim, -1) * _shift(d, s, 0.0, False))
         s *= 2
     return (d / b.movedim(dim, -1)).movedim(-1, dim)
+
+
+def rows_a_lane(n):
+    """Rows each lane of a warp owns on a line of ``n`` rows in the
+    kernels' partitioned scheme: ⌈n/32⌉, but 32 in place of 31 (csrc/
+    thomas.cu pads every 32nd row in shared memory, and a stride of 31
+    rows would put a warp's 32 lanes on one bank)."""
+    m = -(-n // 32)
+    return 32 if m == 31 else m
+
+
+def partition_factor(a, b, c, dim=-1):
+    """The batch-free phase of K1's and K3's scheme for lines longer than
+    ``SHORT_N`` rows, along ``dim``.  The line is padded with identity rows
+    to 32·m rows (m = ``rows_a_lane``) and cut into 32 partitions of m
+    consecutive rows, one a lane.  Within a partition (rows s..e) the
+    modified Thomas elimination (PaScaL_TDMA) leaves every row i > s as
+    a'ᵢ·x_s + xᵢ + c'ᵢ·x_{i+1} = d'ᵢ with d'ᵢ = fᵢ·dᵢ − gᵢ·d'_{i−1}; the
+    upward pass, done on the factors alone, turns rows s and e into the
+    64-row interface system in (x_s, x_e) of all partitions, which
+    ``pcr_factor`` factors.  Returns a dict of the per-row factors f, g,
+    c', a' (shape (*S', 32, m), S' the band shape without the line
+    axis), ρ and ρ·c'_s for row s's right-hand side ((*S', 32)), the
+    interface's PCR factors, and n.  The mirror of the kernels' factor
+    phase, which runs once a block."""
+    a, b, c = (t.movedim(dim, -1) for t in (a, b, c))
+    n = b.shape[-1]
+    m = rows_a_lane(n)
+    pad = 32 * m - n
+
+    def rows(t, first_zero, last_zero, fill):
+        if first_zero:
+            t = torch.cat([torch.zeros_like(t[..., :1]), t[..., 1:]], -1)
+        if last_zero:
+            t = torch.cat([t[..., :-1], torch.zeros_like(t[..., :1])], -1)
+        t = torch.cat([t, torch.full_like(t[..., :1], fill).expand(
+            *t.shape[:-1], pad)], -1)
+        return t.reshape(*t.shape[:-1], 32, m)
+    lo, di, up = rows(a, True, False, 0.0), rows(b, False, False, 1.0), \
+        rows(c, False, True, 0.0)
+    f, g, cp, ap = [], [], [], []
+    for j in range(m):
+        if j < 2:
+            r = 1.0 / di[..., j]
+            gj = torch.zeros_like(r)
+            apj = lo[..., j] * r
+        else:
+            r = 1.0 / (di[..., j] - lo[..., j] * cp[j - 1])
+            gj = lo[..., j] * r
+            apj = -gj * ap[j - 1]
+        f.append(r)
+        g.append(gj)
+        cp.append(up[..., j] * r)
+        ap.append(apj)
+    # row s+1 in final form, x_{s+1} = d''_{s+1} − A·x_s − C·x_e
+    A, C = ap[m - 2], cp[m - 2]
+    for j in range(m - 3, 0, -1):
+        A, C = ap[j] - cp[j] * A, -cp[j] * C
+    rho = 1.0 / (1.0 - cp[0] * A)
+    rhoc = rho * cp[0]
+    lo2 = torch.stack([rho * ap[0], ap[m - 1]], -1).flatten(-2)
+    up2 = torch.stack([-rhoc * C, cp[m - 1]], -1).flatten(-2)
+    return {"f": torch.stack(f, -1), "g": torch.stack(g, -1),
+            "cp": torch.stack(cp, -1), "ap": torch.stack(ap, -1),
+            "rho": rho, "rhoc": rhoc,
+            "interface": pcr_factor(lo2, torch.ones_like(lo2), up2),
+            "n": n}
+
+
+def partition_apply(factors, d, dim=-1):
+    """The per-image phase for ``partition_factor``'s factors: the
+    downward pass d'ᵢ = fᵢ·dᵢ − gᵢ·d'_{i−1} with the dot product
+    Σ πᵢ·d'ᵢ that gives row s's right-hand side (π_{s+1} = 1,
+    π_{i+1} = −c'ᵢ·πᵢ, over rows s+1..e−1), the interface solve by
+    ``pcr_apply``, then xᵢ = d'ᵢ − a'ᵢ·x_s − c'ᵢ·x_{i+1} upward from
+    row e−1.  No division; the arithmetic of the kernels' per-image path
+    up to fma contraction and PCR's final division (a product by 1/b_L
+    there)."""
+    n = factors["n"]
+    f, g, cp, ap = (factors[k] for k in ("f", "g", "cp", "ap"))
+    m = f.shape[-1]
+    d = d.movedim(dim, -1)
+    d = torch.cat([d, d.new_zeros(*d.shape[:-1], 32 * m - n)], -1)
+    d = d.reshape(*d.shape[:-1], 32, m)
+    prev = torch.zeros_like(d[..., 0])
+    acc = torch.zeros_like(prev)
+    pi = torch.ones_like(f[..., 0])
+    dp = []
+    for j in range(m):
+        prev = f[..., j] * d[..., j] - g[..., j] * prev
+        dp.append(prev)
+        if 1 <= j <= m - 2:
+            acc = acc + pi * prev
+            pi = -cp[..., j] * pi
+    rhs = torch.stack([factors["rho"] * dp[0] - factors["rhoc"] * acc,
+                       dp[m - 1]], -1).flatten(-2)
+    xi = pcr_apply(factors["interface"], rhs).unflatten(-1, (32, 2))
+    xs, nxt = xi[..., 0], xi[..., 1]
+    x = [None] * m
+    x[0], x[m - 1] = xs, nxt
+    for j in range(m - 2, 0, -1):
+        nxt = dp[j] - ap[..., j] * xs - cp[..., j] * nxt
+        x[j] = nxt
+    x = torch.stack(x, -1).flatten(-2)[..., :n]
+    return x.movedim(-1, dim)
 
 
 def tridiag_solve_pcr(a, b, c, d):

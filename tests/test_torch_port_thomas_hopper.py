@@ -3,8 +3,10 @@ PCR's batch-free factorisation and per-image apply, for the system and its
 transpose, and K3's band sums per chunk of images with their fixed-order sum
 over chunks, against the port's Thomas recurrence, the JAX package's PCR,
 the TPU kernel in interpret mode and ``jax.vjp`` of the JAX solve; and the
-launch plan that sizes the kernels' chunks, and the check that the kernel's
-tiling is the plan's.
+launch plan that sizes the kernels' chunks, at line lengths up to MAX_N
+(the long-line scheme's layout past 64 rows:
+tests/test_torch_port_long_lines.py holds its arithmetic), and the check
+that the kernel's tiling is the plan's at every N.
 
 Line lengths N ∈ {1, 2, 3, 5, 28, 32, 33, 64} (one row a lane, two past 32),
 along the last axis of bands (3, 5, N) and down the columns of (3, N, 7):
@@ -26,9 +28,10 @@ from cnn_pde_tpu.ops import tridiag as jtridiag
 from cnn_pde_tpu.ops.pallas_thomas import pallas_tridiag_solve
 from cnn_pde_tpu_torch.ops import tridiag
 from cnn_pde_tpu_torch.ops.tridiag import (
-    BLOCKS_PER_SM, BUFFERS, LINES, MAX_N, SMEM_LIMIT, STAGE,
-    _adjoint_band_grads, _adjoint_band_partials, _plan, _sum_band_partials,
-    _transpose_system, pcr_apply, pcr_factor, tridiag_solve_plain)
+    BLOCKS_PER_SM, BUFFERS, LINES, LONG_BUFFERS, LONG_STAGE, MAX_N, SHORT_N,
+    SMEM_LIMIT, STAGE, _adjoint_band_grads, _adjoint_band_partials, _plan,
+    _sum_band_partials, _transpose_system, launch_layout, pcr_apply,
+    pcr_factor, tridiag_solve_plain)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -145,19 +148,77 @@ def test_chunked_band_partials_sum_to_the_band_gradients(n, dim):
 @pytest.mark.parametrize("batch,p,n,q", [
     (64, 96, 32, 1), (512, 96, 32, 1), (64, 3, 32, 32), (512, 3, 32, 32),
     (128, 28, 28, 1), (1024, 28, 28, 1), (128, 1, 28, 28), (1024, 1, 28, 28),
-    (1, 15, 5, 1), (7, 3, 64, 7), (100_000, 96, 64, 1)])
+    (1, 15, 5, 1), (7, 3, 64, 7), (100_000, 96, 64, 1),
+    # past 64 rows: the 96 x 96 flagship's sweeps, 256 and 1024 wide
+    # images, and the longest line
+    (64, 288, 96, 1), (512, 288, 96, 1), (64, 3, 96, 96), (512, 3, 96, 96),
+    (64, 768, 256, 1), (64, 3, 256, 256), (8, 1024, 1024, 1),
+    (8, 1, 1024, 1024), (7, 3, MAX_N, 7)])
 def test_launch_plan_covers_the_batch_and_fills_the_card(batch, p, n, q):
-    """Chunks cover every image once, the grid has at least BLOCKS_PER_SM
-    blocks an SM of an H100 (132) wherever the batch allows it, and both
-    kernels' shared memory stays inside the budget at any N up to MAX_N."""
+    """Chunks cover every image once, the grid of the layout's tiles has at
+    least BLOCKS_PER_SM blocks an SM of an H100 (132) wherever the batch
+    allows it, and both kernels' shared memory stays inside the budget at
+    any N up to MAX_N."""
     sms = 132
-    tiles = -(-p // LINES) if q == 1 else p * -(-q // LINES)
     for arrays in (1, 2):
+        lines = launch_layout(n, arrays)[0]
+        tiles = -(-p // lines) if q == 1 else p * -(-q // lines)
         chunk, chunks, smem = _plan(batch, p, n, q, sms, arrays)
         assert chunk * (chunks - 1) < batch <= chunk * chunks
         assert tiles * chunks >= min(BLOCKS_PER_SM * sms, tiles * batch)
         assert chunks <= 65535 and smem <= SMEM_LIMIT
+        assert smem == launch_layout(n, arrays)[3]
     assert _plan(batch, p, MAX_N, q, sms, 2)[2] <= SMEM_LIMIT
+
+
+def test_layout_is_the_short_tiling_to_64_rows_and_fits_past_it():
+    """Up to 64 rows both kernels keep the tiling (LINES, STAGE, BUFFERS)
+    and its ring of (LINES + 1)·N floats an image; past 64 the long-line
+    scheme's lines a block halve from 8 as N grows (never back up), each
+    the most that fits SMEM_LIMIT, K3 (two rings, the band sums) never
+    more lines than K1."""
+    for n in range(1, MAX_N + 1):
+        k1, k3 = launch_layout(n, 1), launch_layout(n, 2)
+        if n <= SHORT_N:
+            assert k1 == (LINES, STAGE, BUFFERS,
+                          4 * BUFFERS * STAGE * (LINES + 1) * n)
+            assert k3 == (LINES, STAGE, BUFFERS, 2 * k1[3])
+            continue
+        for arrays, (lines, stage, buffers, smem) in ((1, k1), (2, k3)):
+            assert (stage, buffers) == (LONG_STAGE, LONG_BUFFERS)
+            assert smem == tridiag._long_bytes(n, lines, arrays)
+            assert smem <= SMEM_LIMIT
+            assert lines == 8 or tridiag._long_bytes(
+                n, 2 * lines, arrays) > SMEM_LIMIT
+            if n > SHORT_N + 1:
+                assert lines <= launch_layout(n - 1, arrays)[0]
+        assert k3[0] <= k1[0]
+
+
+def _fake_thomas_layout(monkeypatch, report):
+    """Stand in for csrc/thomas.cu's thomas_layout(n, adjoint, ...) with
+    ``report(n, arrays)``: a (lines, stage, buffers, bytes) tuple, or None
+    for a refused N."""
+    def function(name, symbol, argtypes):
+        assert name == "thomas"
+        if symbol != "thomas_layout":
+            return symbol
+
+        def layout_fn(n, adjoint, *ptrs):
+            got = report(n, adjoint + 1)
+            if got is None:
+                return 1
+            for p, v in zip(ptrs, got):
+                p._obj.value = v
+            return 0
+        return layout_fn
+
+    monkeypatch.setattr(tridiag.kernels, "function", function)
+    monkeypatch.setattr(tridiag, "_layout_checked", False)
+
+
+def _report(n, arrays):
+    return launch_layout(n, arrays) if n <= MAX_N else None
 
 
 @pytest.mark.parametrize("layout,ok", [((LINES, STAGE, BUFFERS), True),
@@ -165,20 +226,11 @@ def test_launch_plan_covers_the_batch_and_fills_the_card(batch, p, n, q):
                                        ((2 * LINES, STAGE, BUFFERS), False)])
 def test_bind_checks_the_kernel_tiling(monkeypatch, layout, ok):
     """The wrapper binds K1 and K3 only if csrc/thomas.cu reports the tiling
-    (lines, stage, buffers) that ``_plan`` sizes launches with."""
-    def function(name, symbol, argtypes):
-        assert name == "thomas"
-        if symbol != "thomas_layout":
-            return symbol
-
-        def layout_fn(*ptrs):
-            for p, v in zip(ptrs, layout):
-                p._obj.value = v
-            return 0
-        return layout_fn
-
-    monkeypatch.setattr(tridiag.kernels, "function", function)
-    monkeypatch.setattr(tridiag, "_layout_checked", False)
+    (lines, stage, buffers) that ``_plan`` sizes launches with, here up to
+    64 rows."""
+    _fake_thomas_layout(monkeypatch, lambda n, arrays: (
+        (*layout, launch_layout(n, arrays)[3]) if n <= SHORT_N
+        else _report(n, arrays)))
     if ok:
         assert tridiag._bind("thomas_solve", None) == "thomas_solve"
         assert tridiag._layout_checked
@@ -186,3 +238,26 @@ def test_bind_checks_the_kernel_tiling(monkeypatch, layout, ok):
         with pytest.raises(RuntimeError, match="tiles"):
             tridiag._bind("thomas_solve", None)
         assert not tridiag._layout_checked
+
+
+@pytest.mark.parametrize("fault", ["lines at 1024", "bytes at 96",
+                                   "admits MAX_N + 1", "refuses MAX_N"])
+def test_bind_checks_the_tiling_at_every_line_length(monkeypatch, fault):
+    """Past 64 rows too: a report that differs from ``launch_layout`` at
+    one N and one kernel (lines a block, shared-memory bytes), or a kernel
+    that takes MAX_N + 1 rows or refuses MAX_N, stops the bind."""
+    def report(n, arrays):
+        got = _report(n, arrays)
+        if fault == "lines at 1024" and n == 1024 and arrays == 2:
+            return (2 * got[0], *got[1:])
+        if fault == "bytes at 96" and n == 96 and arrays == 1:
+            return (*got[:3], got[3] + 4)
+        if fault == "admits MAX_N + 1" and n == MAX_N + 1:
+            return (1, LONG_STAGE, LONG_BUFFERS, SMEM_LIMIT)
+        if fault == "refuses MAX_N" and n == MAX_N:
+            return None
+        return got
+    _fake_thomas_layout(monkeypatch, report)
+    with pytest.raises(RuntimeError, match="tiles"):
+        tridiag._bind("thomas_adjoint", None)
+    assert not tridiag._layout_checked
