@@ -10,7 +10,8 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
 1. device: the card's name and power limit from nvidia-smi; TF32 off
    (phase 9 turns cuDNN's flag back on for Tiny-ImageNet);
 2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu),
-   K5 (csrc/fused_channel_vjp.cu), K6 and K7 (csrc/fused_grayscale.cu) and
+   K5 (csrc/fused_channel_vjp.cu), K2, K4 and K5's wide scheme
+   (csrc/fused_channel_wide.cu), K6 and K7 (csrc/fused_grayscale.cu) and
    K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
    started together, and ptxas's report (registers, shared memory, spills)
    of each kernel of every source;
@@ -125,12 +126,12 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    per-sweep and fused at 128 (and fused with grad_accum 2: two captured
    bodies), svhn at 256, emotion at 64, tiny_imagenet at 32 and the hybrid
    (bf16) at 64, each on seeded data beside the same Trainer run eagerly:
-   the weights after a 50-step epoch (warm-up and capture included)
+   the weights after a 25-step epoch (warm-up and capture included)
    within 1e-6 of each tensor's largest entry of the eager run's, bit for
    bit logged (tiny_imagenet with cuDNN's deterministic algorithms, two
    eager steps without them logged); the on-device eval's predictions
    equal to the host eval's; images/s by CUDA events over a second epoch
-   (50 captured steps, or 10 eager ones), busy share and launch calls a
+   (25 captured steps, or 10 eager ones), busy share and launch calls a
    step over a profiled third of 5 (graph and eager side by side); the
    train CLI with --device-epoch --data-dir on a CIFAR-10 pickle
    fixture (queued for phase 12);
@@ -240,6 +241,22 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    served as phase 8 holds the flagship's (6 K1 for the operators, built
    at N = 96) and the AMP grade trained (6 K1 a step, a falling loss) and
    held as phase 9 holds Tiny-ImageNet's, each ADI layer replayed;
+10i. the fused channel layers past the first scheme's shared memory (the
+   wide scheme, csrc/fused_channel_wide.cu): K2, K4 and K5 against their
+   plain versions at (3, 96, 96), (8, 64, 64), (3, 64, 64), (4, 64, 64),
+   (12, 32, 32), (3, 28, 100) and (8, 30, 60) at B in {1, 7, 64} and
+   (3, 224, 224) at B = 2, Strang and Lie, fields that straddle both
+   clamps, each launch's scheme counted (K2/K4 at (3, 64, 64) and
+   (4, 64, 64) stay on the first scheme), K5 twice and bit for bit; the
+   96 x 96 flagship with ``fused_inference=True`` served eagerly (3 wide
+   K2 a forward) against the per-sweep plain versions and captured
+   (``make_predict_fn``) bit for bit against eager, with images/s; with
+   ``fused=True`` one train step (3 wide K4 + 3 wide K5), its train-mode
+   logits, loss and gradients against the per-sweep plain step
+   (``floor_held_grads``), and the device epoch (12 steps) bit for bit
+   against the eager Trainer, timed; the wide scheme's times at
+   (3, 96, 96), B = 64 and 512, as phase 11 times the first scheme's,
+   whose (3, 32, 32) times are then logged beside PERF.md's;
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -260,8 +277,9 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    with its early stopping, then served from its checkpoint directory;
 13. the ``kernels`` JSON line (K1's row also carries the operator build's
    figures and its hoisted, Tiny-ImageNet, hybrid and 96 x 96 flagship
-   launch counts, K3's the hybrid's and the 96 flagship's), then the
-   contract line.
+   launch counts, K3's the hybrid's and the 96 flagship's; K2w, K4w and
+   K5w are the wide scheme's rows, launched on the 96 flagship fused),
+   then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -296,15 +314,18 @@ from cnn_pde_tpu_torch.ops import kernels
 from cnn_pde_tpu_torch.ops import tridiag as tridiag_module
 from cnn_pde_tpu_torch.ops.adi import _neumann_b, apply_sweep, sweep_operator
 from cnn_pde_tpu_torch.ops.fused_channel import _ARGTYPES as FWD_ARGTYPES
+from cnn_pde_tpu_torch.ops.fused_channel import \
+    _WIDE_ARGTYPES as WIDE_FWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_channel import (
-    _dt_factors, fused_channel_diffusion_fwd, fused_channel_diffusion_plain,
-    plan_tiles)
+    THREADS, WidePlan, _dt_factors, choose_scheme, factor_threads,
+    fused_channel_diffusion_fwd, fused_channel_diffusion_plain, plan_tiles)
 from cnn_pde_tpu_torch.ops.fused_channel import bind as bind_fused
 from cnn_pde_tpu_torch.ops.fused_channel_vjp import \
     _BWD_ARGTYPES as BWD_ARGTYPES
+from cnn_pde_tpu_torch.ops.fused_channel_vjp import \
+    _WIDE_BWD_ARGTYPES as WIDE_BWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
-    bwd_plan, fused_channel_bwd,
-    fused_channel_bwd_plain, fused_channel_fwd_res,
+    fused_channel_bwd, fused_channel_bwd_plain, fused_channel_fwd_res,
     fused_channel_fwd_res_plain)
 from cnn_pde_tpu_torch.ops.fused_grayscale import \
     _ARGTYPES as GRAY_ARGTYPES
@@ -497,20 +518,27 @@ WRAPPERS = {"K1": tridiag_solve, "K2": fused_channel_diffusion_fwd,
             "K3": tridiag_adjoint, "K4": fused_channel_fwd_res,
             "K5": fused_channel_bwd, "K6": fused_grayscale_diffusion_fwd,
             "K7": fused_grayscale_fwd_res, "K8": fused_grayscale_bwd}
+# the launches of K2, K4 and K5 by the wide scheme (csrc/fused_channel_wide.cu),
+# counted besides their wrappers' launches of either scheme
+WIDE_WRAPPERS = {"K2w": fused_channel_diffusion_fwd,
+                 "K4w": fused_channel_fwd_res, "K5w": fused_channel_bwd}
 
 
 def reset_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in WIDE_WRAPPERS.values():
+        fn.wide_launches = 0
 
 
 def counts():
-    return {k: fn.launches for k, fn in WRAPPERS.items()}
+    return {**{k: fn.launches for k, fn in WRAPPERS.items()},
+            **{k: fn.wide_launches for k, fn in WIDE_WRAPPERS.items()}}
 
 
 def only(**launches):
     """The counts of a run that launched ``launches`` and nothing else."""
-    return {k: launches.get(k, 0) for k in WRAPPERS}
+    return {k: launches.get(k, 0) for k in (*WRAPPERS, *WIDE_WRAPPERS)}
 
 
 def phase_device():
@@ -552,6 +580,7 @@ def fused_cases(rng, device, straddle, shapes=FUSED_SHAPES):
 
 
 REPORTED_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp",
+                    "fused_channel_wide",
                     "fused_grayscale", "fused_grayscale_vjp")
 
 
@@ -2931,7 +2960,7 @@ def phase_hybrid(device, peak_bytes, peak_flops):
 
 # ---- the device epoch: the Trainer's step in a CUDA graph (A12) ------------
 
-EPOCH_STEPS = 50          # steps of the compared epoch
+EPOCH_STEPS = 25          # steps of the compared epoch
 # steps of the timed epoch (the eager one is 10-80 ms a step) and of the
 # profiled one (a profile of many thousands of kernels takes seconds to
 # read)
@@ -5329,14 +5358,17 @@ WIDE_STEPS = 12
 WIDE_AMP_REPS = {1: 10, 64: 5}  # requests a round of the AMP routes' rates
 
 
-def wide_flagship(device, dropout_rate=0.3, fields_seed=SEED + 17):
-    """The flagship with ``MultiScaleExtractor(WIDE, 3)`` as its extractor,
-    init from seeded generators, with trained-looking fields (``fields``)
-    seeded by ``fields_seed``."""
+def wide_flagship(device, dropout_rate=0.3, fields_seed=SEED + 17,
+                  fused=False, fused_pde=False):
+    """The flagship with ``MultiScaleExtractor(WIDE, 3)`` as its extractor
+    (``fused``: its layers' ``fused_inference``; ``fused_pde``: their
+    ``fused``), init from seeded generators, with trained-looking fields
+    (``fields``) seeded by ``fields_seed``."""
     model = build_model("cifar10_noconv", device="cpu",
                         generator=torch.Generator().manual_seed(SEED),
                         dropout_rate=dropout_rate)
-    model.feature_extractor = MultiScaleExtractor(WIDE, 3)
+    model.feature_extractor = MultiScaleExtractor(
+        WIDE, 3, fused_inference=fused, fused_pde=fused_pde)
     model.feature_extractor.reset_parameters(
         torch.Generator().manual_seed(SEED))
     model = model.to(device).eval()
@@ -5616,6 +5648,260 @@ def phase_long_lines(device):
                           for grade, value in amp_train_.items()}}
 
 
+STARVED_SHAPE = (8, 30, 60)  # fits the first scheme; 32 workers, 60 columns
+FIRST_SCHEME_K2 = ((3, 64, 64), (4, 64, 64))
+# the fused layers past the first scheme: shapes whose K5 (all) and K2/K4
+# (all but those of FIRST_SCHEME_K2) the wrappers send to the wide scheme,
+# at these batches, and one large image at a small batch
+WIDE_FUSED_SHAPES = ((3, 96, 96), (8, 64, 64), (3, 64, 64), (4, 64, 64),
+                     (12, 32, 32), (3, 28, 100), STARVED_SHAPE)
+WIDE_FUSED_BATCHES = (1, 7, 64)
+WIDE_FUSED_LARGE = ((3, 224, 224), (2,))
+WIDE_TIMED_BATCHES = (64, 512)
+# PERF.md section 6's first-scheme times at (3, 32, 32), ms at B = 64 / 512
+# (the run that last changed those kernels), for the same-run check of this
+# run's phase 11
+FIRST_SCHEME_MS = {"K2": (0.0672, 0.0934), "K4": (0.0681, 0.1038),
+                   "K5": (0.2717, 0.3825)}
+
+
+def wide_fused_kernels(tag, device):
+    """K2, K4 and K5 against their plain versions at WIDE_FUSED_SHAPES
+    (WIDE_FUSED_BATCHES) and WIDE_FUSED_LARGE, both splittings, on the
+    8-step branch's settings with fields that straddle both clamps: the
+    scheme each launch took (the wide one but for K2/K4 at
+    FIRST_SCHEME_K2), counted; K5 twice on the same inputs, equal bit for
+    bit.  Returns the worst errors, keyed by the scheme's row (K2/K4 of the
+    first scheme under "K2"/"K4")."""
+    rng = np.random.default_rng(SEED + 70)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    scale = SCALES[1]
+    ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
+                      dtype=torch.float32, device=device)
+    errs = {"K2": 0.0, "K4": 0.0, "K2w": 0.0, "K4w": 0.0, "K5w": (0.0, 0.0)}
+    cases = [(shape, WIDE_FUSED_BATCHES) for shape in WIDE_FUSED_SHAPES]
+    for shape, batches in cases + [WIDE_FUSED_LARGE]:
+        wide_k2 = shape not in FIRST_SCHEME_K2
+        plans = [choose_scheme(max(batches), *shape, sms, backward=b)
+                 for b in (False, True)]
+        if (isinstance(plans[0], WidePlan) != wide_k2
+                or not isinstance(plans[1], WidePlan)):
+            raise AssertionError(f"{tag} {shape}: schemes {plans}")
+        log(f"[{tag}] {shape}: K2/K4 {plans[0]}, K5 {plans[1]} at "
+            f"B={max(batches)}")
+        f = fields(rng, device, *shape, straddle=True)
+        args = [f[k] for k in FIELD_KEYS]
+        k2, k4 = ("K2w", "K4w") if wide_k2 else ("K2", "K4")
+        for splitting in ("strang", "lie"):
+            kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
+                      splitting=splitting, eps=EPS, cmax=CMAX)
+            for B in batches:
+                label = f"{shape} {splitting} B={B}"
+                u = torch.rand((B, *shape), device=device)
+                g = torch.randn((B, *shape), device=device)
+                reset_counts()
+                out = fused_channel_diffusion_fwd(u, *args, **kw)
+                y, res = fused_channel_fwd_res(u, *args, **kw)
+                grads = fused_channel_bwd(g, res, y, *args, **kw)
+                again = fused_channel_bwd(g, res, y, *args, **kw)
+                torch.cuda.synchronize()
+                want = only(K2=1, K4=1, K5=2, K2w=int(wide_k2),
+                            K4w=int(wide_k2), K5w=2)
+                if counts() != want:
+                    raise AssertionError(f"{tag} {label}: launches "
+                                         f"{counts()}, expected {want}")
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f"{tag} K5 {label}: two runs differ")
+                errs[k2] = max(errs[k2], check(
+                    f"{k2} {label}", max_err(
+                        out, fused_channel_diffusion_plain(u, *args, **kw)),
+                    KERNEL_TOL))
+                ref_y, ref_res = fused_channel_fwd_res_plain(u, *args, **kw)
+                errs[k4] = max(errs[k4], check(
+                    f"{k4} {label} output and residuals",
+                    max(max_err(y, ref_y), max_err(res, ref_res)),
+                    KERNEL_TOL))
+                ref = fused_channel_bwd_plain(g, res, y, *args, **kw)
+                rel = max(rel_err(o, r) for o, r in zip(grads, ref))
+                check_rel(f"K5w {label} gradients (worst of u and the five "
+                          "parameters), two runs bit for bit", rel, GRAD_TOL)
+                errs["K5w"] = (max(errs["K5w"][0], *(
+                    max_err(o, r) for o, r in zip(grads, ref))),
+                    max(errs["K5w"][1], rel))
+    return errs
+
+
+def starved_first_scheme(tag, device):
+    """The fault the scheme choice now avoids, shown: K2's first scheme
+    launched straight through its entry point at STARVED_SHAPE, a shape it
+    fits but where its factor warps leave fewer worker threads than
+    columns, so that its pixel passes (the mixing) do nothing; its
+    distance from the plain version, logged (the wrappers send the shape
+    to the wide scheme, held in ``wide_fused_kernels``)."""
+    rng = np.random.default_rng(SEED + 73)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    B, (C, H, W) = 7, STARVED_SHAPE
+    scale = SCALES[1]
+    ts = torch.tensor(_substep_times_np(scale["dt"], scale["num_steps"]),
+                      dtype=torch.float32, device=device)
+    kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
+              splitting="strang", eps=EPS, cmax=CMAX)
+    f = fields(rng, device, C, H, W)
+    args = [f[k] for k in FIELD_KEYS]
+    u = torch.rand((B, C, H, W), device=device)
+    out = torch.empty_like(u)
+    plan = plan_tiles(B, C, H, W, sms)
+    fn = bind_fused("fused_channel", "fused_channel_diffusion", FWD_ARGTYPES,
+                    "fused_channel_layout", (C, H, W), plan)
+    code = fn(u.data_ptr(), out.data_ptr(),
+              *(t.data_ptr() for t in (*args, ts)), None, B, C, H, W,
+              plan.grid, plan.nbuf, plan.staged, scale["num_steps"], 1,
+              *_dt_factors(kw["dt"], kw["dx"], kw["dy"], "strang"), EPS,
+              CMAX, kernels.stream_handle(device))
+    kernels.raise_on_error("K2 first scheme", code)
+    torch.cuda.synchronize()
+    err = max_err(out, fused_channel_diffusion_plain(u, *args, **kw))
+    log(f"[{tag}] K2's first scheme at {STARVED_SHAPE} B={B} ({plan}; "
+        f"{THREADS} threads, {factor_threads(C, H, W)} factor threads, "
+        f"{W} columns), launched past the scheme choice: max abs err "
+        f"{err:.3e} from the plain version")
+    return err
+
+
+def wide_fused_serving(tag, device):
+    """The 96 flagship with ``fused_inference=True``: its eager predict at
+    WIDE_BUCKETS (3 K2 a forward, all by the wide scheme) against the
+    per-sweep flagship on the plain versions (logits within LOGIT_TOL,
+    labels equal), then ``make_predict_fn`` against eager
+    (``captured_case``: bit for bit, images/s of both)."""
+    rng = np.random.default_rng(SEED + 71)
+    shape = (3, WIDE, WIDE)
+    eager = make_eager_predict_fn(wide_flagship(device, fused=True))
+    xs = {B: seeded_batch(rng, B, shape, device) for B in WIDE_BUCKETS}
+    reset_counts()
+    logits = {B: eager(x) for B, x in xs.items()}
+    torch.cuda.synchronize()
+    got = counts()
+    n = len(WIDE_BUCKETS)
+    log(f"[{tag}] 96 flagship fused eager: launches {got} over {n} "
+        "forwards")
+    if got != only(K2=3 * n, K2w=3 * n):
+        raise AssertionError(f"{tag}: expected 3 wide K2 a forward, got "
+                             f"{got}")
+    with kernels.plain_versions():
+        per_sweep = make_eager_predict_fn(wide_flagship(device))
+        plain = {B: per_sweep(x) for B, x in xs.items()}
+    for B in WIDE_BUCKETS:
+        if logits[B].shape != (B, 10) or not torch.isfinite(logits[B]).all():
+            raise AssertionError(f"{tag} B={B}: bad logits")
+        check(f"96 flagship fused B={B} logits vs the per-sweep plain "
+              "versions", max_err(logits[B], plain[B]), LOGIT_TOL)
+        if not torch.equal(logits[B].argmax(-1), plain[B].argmax(-1)):
+            raise AssertionError(f"{tag} B={B}: labels differ")
+    captured = captured_case(
+        tag, "96 flagship fused", lambda: wide_flagship(device, fused=True),
+        shape, {"K2": 3, "K2w": 3}, rng, device, rate_batches=WIDE_BUCKETS,
+        buckets=WIDE_BUCKETS, requests=WIDE_REQUESTS)
+    return {"eager_launches": got, "captured": captured}
+
+
+def wide_fused_training(tag, device):
+    """The 96 flagship with ``fused_pde=True``: one ``make_train_step`` step
+    at WIDE_BATCH (3 K4 + 3 K5, all by the wide scheme); the train-mode
+    logits, loss and every gradient against the per-sweep step on the
+    plain versions (the kernel run's ReLU masks and pool argmaxes
+    replayed; ``floor_held_grads``); then the device epoch against the
+    eager Trainer over WIDE_STEPS steps, timed."""
+    rng = np.random.default_rng(SEED + 72)
+
+    def inputs(B):
+        return (torch.from_numpy(rng.random((B, 3, WIDE, WIDE)).astype(
+            np.float32)).to(device),
+            torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    step = make_train_step(wide_flagship(device, fused_pde=True), TRAIN, 1,
+                           torch.Generator(device).manual_seed(SEED))
+    x, y = inputs(WIDE_BATCH)
+    step(x, y)
+    sync(device)
+    reset_counts()
+    loss, _ = step(x, y)
+    sync(device)
+    got = counts()
+    log(f"[{tag}] 96 flagship fused: launches in one train step at "
+        f"B={WIDE_BATCH}: {got}")
+    if got != only(K4=3, K5=3, K4w=3, K5w=3) or not torch.isfinite(loss):
+        raise AssertionError(f"{tag}: expected 3 wide K4 + 3 wide K5 and a "
+                             f"finite loss, got {got}, {loss}")
+    xs, ys = inputs(WIDE_BATCH)
+    masks, runs = {}, []
+    for path in ("kernels", "float32 plain", "float64 plain"):
+        with (contextlib.nullcontext() if path == "kernels"
+              else kernels.plain_versions()):
+            model = wide_flagship(device, 0.0, fused_pde=path == "kernels")
+            x = xs
+            if path == "float64 plain":
+                model, x = model.double(), xs.double()
+            logits = []
+            hook = model.register_forward_hook(
+                lambda mod, inp, out: logits.append(out.detach()))
+            runs.append((train_grads(model, x, ys,
+                                     TRAIN["label_smoothing"], masks),
+                         logits[0]))
+            hook.remove()
+    sync(device)
+    label = f"96 flagship fused B={WIDE_BATCH}"
+    check_rel(f"{label} train-mode logits vs the per-sweep plain versions",
+              rel_err(runs[0][1], runs[1][1]), GRAD_TOL)
+    check_rel(f"{label} loss vs the per-sweep plain versions",
+              rel_err(runs[0][0][0], runs[1][0][0]), GRAD_TOL)
+    floored = floor_held_grads(label, *(r[0][1] for r in runs))
+    epoch = _epoch_case(tag, "96 flagship fused",
+                        lambda: wide_flagship(device, fused_pde=True), TRAIN,
+                        wide_dataset(WIDE_BATCH, WIDE_STEPS, SEED + 63),
+                        WIDE_BATCH, ("K4", "K5", "K4w", "K5w"), 1, device,
+                        steps=WIDE_STEPS, timed_runs=("graph",))
+    return {"launches_per_train_step": got, "floor_held": floored,
+            "device_epoch": epoch}
+
+
+def phase_wide_fused(device, peak_bytes, peak_flops):
+    """The fused channel layers past the first scheme's shared memory:
+    K2, K4 and K5 against their plain versions (``wide_fused_kernels``);
+    the 96 flagship served (``fused_inference``) and trained (``fused``)
+    by the wide scheme (``wide_fused_serving``, ``wide_fused_training``);
+    the wide scheme's raw-launch times at (3, 96, 96), B = 64 and 512,
+    beside their bounds (``times_fused``)."""
+    tag = "wide fused"
+    errs = timed("wide fused kernels", wide_fused_kernels, tag, device)
+    starved = starved_first_scheme(tag, device)
+    serve = timed("96 flagship fused serving", wide_fused_serving, tag,
+                  device)
+    train = timed("96 flagship fused training", wide_fused_training, tag,
+                  device)
+    times = timed("wide fused kernel times", times_fused, device,
+                  peak_bytes, peak_flops, (3, WIDE, WIDE),
+                  WIDE_TIMED_BATCHES, 3)
+    return {"kernels": errs, "serve": serve, "train": train,
+            "starved_first_scheme_k2_err": starved,
+            "times": {f"{k}w": v for k, v in times.items()}}
+
+
+def first_scheme_against_perf(times):
+    """Phase 11's first-scheme times at (3, 32, 32) beside PERF.md section
+    6's (FIRST_SCHEME_MS), logged with their ratio: the same-run check that
+    the first scheme is the kernel it was."""
+    ratios = {}
+    for key, (at64, at512) in FIRST_SCHEME_MS.items():
+        for B, want in ((64, at64), (512, at512)):
+            got = times[key]["ms"] if B == 512 else times[key]["at_B64"]["ms"]
+            ratios[f"{key}_B{B}"] = got / want
+            log(f"[wide fused] first scheme {key} (3, 32, 32) B={B}: "
+                f"{got:.4f} ms this run, {want:.4f} ms in PERF.md section 6, "
+                f"{got / want:.3f}x")
+    return ratios
+
+
 def phase_times(device, peak_bytes, peak_flops):
     result = times_fused(device, peak_bytes, peak_flops)
     result.update(times_thomas(device, peak_bytes, peak_flops))
@@ -5624,10 +5910,12 @@ def phase_times(device, peak_bytes, peak_flops):
 
 def raw_fused(args, kw, u, g, res, y):
     """K2, K4 and K5 as callables that launch straight through their C entry
-    points on outputs (and K5's partials scratch) allocated once, with the
-    arguments and the launch plan the wrappers pass: K2 and K4 on u, K5 on
-    the cotangent g, K4's residuals res and output y.  As ``raw_thomas``:
-    for ``graph_ms``, on the stream current when they are made."""
+    points on outputs (and K5's partials scratch, and the wide scheme's
+    workspace) allocated once, with the arguments and the launch plan the
+    wrappers pass (``choose_scheme``: the first scheme or the wide one): K2
+    and K4 on u, K5 on the cotangent g, K4's residuals res and output y.
+    As ``raw_thomas``: for ``graph_ms``, on the stream current when they
+    are made."""
     B, C, H, W = u.shape
     S = kw["ts"].shape[0]
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
@@ -5635,56 +5923,76 @@ def raw_fused(args, kw, u, g, res, y):
     tail = (S, int(kw["splitting"] == "strang"), *dtf, kw["eps"],
             kw["cmax"], kernels.stream_handle(u.device))
     ptrs = [t.data_ptr() for t in (*args, kw["ts"])]
-    fplan = plan_tiles(B, C, H, W, sms)
-    bplan = bwd_plan(B, C, H, W, sms)
-    fwd = bind_fused("fused_channel", "fused_channel_diffusion",
-                     FWD_ARGTYPES, "fused_channel_layout", (C, H, W), fplan)
-    bwd = bind_fused("fused_channel_vjp", "fused_channel_diffusion_bwd",
-                     BWD_ARGTYPES, "fused_channel_bwd_layout", (C, H, W),
-                     bplan)
-    flayout = (fplan.grid, fplan.nbuf, fplan.staged)
-    blayout = (bplan.grid, bplan.nbuf, bplan.staged)
+    fplan = choose_scheme(B, C, H, W, sms)
+    bplan = choose_scheme(B, C, H, W, sms, backward=True)
+
+    def workspace(plan):
+        return torch.empty(plan.grid * plan.workspace, device=u.device)
+    # the wide scheme's workspaces sit in the layouts as tensors, so that
+    # the launchers hold them: freed, their memory would go to the next
+    # tensor the caller allocates, which a later raw launch would overwrite
+    if isinstance(fplan, WidePlan):
+        fwd = bind_fused("fused_channel_wide", "fused_channel_wide_forward",
+                         WIDE_FWD_ARGTYPES, "fused_channel_wide_layout",
+                         (C, H, W), fplan)
+        flayout = (workspace(fplan), B, C, H, W, fplan.grid)
+    else:
+        fwd = bind_fused("fused_channel", "fused_channel_diffusion",
+                         FWD_ARGTYPES, "fused_channel_layout", (C, H, W),
+                         fplan)
+        flayout = (B, C, H, W, fplan.grid, fplan.nbuf, fplan.staged)
+    if isinstance(bplan, WidePlan):
+        bwd = bind_fused("fused_channel_wide", "fused_channel_wide_backward",
+                         WIDE_BWD_ARGTYPES, "fused_channel_wide_layout",
+                         (C, H, W), bplan)
+        blayout = (workspace(bplan), B, C, H, W, bplan.grid)
+    else:
+        bwd = bind_fused("fused_channel_vjp", "fused_channel_diffusion_bwd",
+                         BWD_ARGTYPES, "fused_channel_bwd_layout", (C, H, W),
+                         bplan)
+        blayout = (B, C, H, W, bplan.grid, bplan.nbuf, bplan.staged)
     out, res_out, gu = (torch.empty_like(u), torch.empty_like(res),
                         torch.empty_like(u))
     grads = [torch.empty_like(a) for a in args]
-    # held here, not only by address: freed, the memory would go to the
-    # next tensor the caller allocates
     partials = torch.empty((bplan.grid, 4 * C * H * W + C * C),
                            device=u.device)
 
-    def launch(name, fn, *ptr_args):
-        code = fn(*ptr_args)
+    def launch(name, fn, *args):
+        code = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                    for a in args))
         kernels.raise_on_error(name, code)
 
     def k2():
-        launch("K2", fwd, u.data_ptr(), out.data_ptr(), *ptrs, None, B, C, H,
-               W, *flayout, *tail)
+        launch("K2", fwd, u.data_ptr(), out.data_ptr(), *ptrs, None,
+               *flayout, *tail)
         return out
 
     def k4():
         launch("K4", fwd, u.data_ptr(), out.data_ptr(), *ptrs,
-               res_out.data_ptr(), B, C, H, W, *flayout, *tail)
+               res_out.data_ptr(), *flayout, *tail)
         return out, res_out
 
     def k5():
         launch("K5", bwd, g.data_ptr(), res.data_ptr(), y.data_ptr(), *ptrs,
                gu.data_ptr(), *(t.data_ptr() for t in grads),
-               partials.data_ptr(), B, C, H, W, *blayout, *tail)
+               partials.data_ptr(), *blayout, *tail)
         return (gu, *grads)
     return k2, k4, k5
 
 
-def times_fused(device, peak_bytes, peak_flops):
-    """K2 at B = 1, 64 and 512 and K4 and K5 at B = 64 and 512, on the
-    8-step Strang branch (3, 32, 32): device time by raw launches back to
-    back in a CUDA graph (``graph_ms``; each launch's outputs held against
-    the wrapper's), CUDA events around wrapper calls (host included), the
-    plain version and the bound.  Returns each kernel's B = 512 figures,
-    with the others under ``at_B1`` and ``at_B64``."""
+def times_fused(device, peak_bytes, peak_flops, shape=(3, 32, 32),
+                batches=(1, 64, 512), plain_groups=5):
+    """K2 at ``batches`` and K4 and K5 at those above 1, on the 8-step
+    Strang branch's settings at ``shape`` (the branch's (3, 32, 32)): device
+    time by raw launches back to back in a CUDA graph (``graph_ms``; each
+    launch's outputs held against the wrapper's), CUDA events around
+    wrapper calls (host included), the plain version (median of
+    ``plain_groups`` calls) and the bound.  Returns each kernel's figures
+    at the largest batch, with the others under ``at_B<n>``."""
     rng = np.random.default_rng(SEED + 3)
-    C, H, W = 3, 32, 32
+    C, H, W = shape
     band = C * H * W
-    f = fields(rng, device)
+    f = fields(rng, device, C, H, W)
     args = [f[k] for k in FIELD_KEYS]
     scale = SCALES[1]  # the 8-step branch, the longest
     S = scale["num_steps"]
@@ -5693,7 +6001,7 @@ def times_fused(device, peak_bytes, peak_flops):
     kw = dict(dt=scale["dt"], dx=scale["dx"], dy=scale["dy"], ts=ts,
               splitting="strang", eps=EPS, cmax=CMAX)
     out = {}
-    for B in (1, 64, 512):
+    for B in batches:
         elems = B * band
         u = torch.rand((B, C, H, W), device=device)
         g = torch.randn((B, C, H, W), device=device)
@@ -5744,14 +6052,14 @@ def times_fused(device, peak_bytes, peak_flops):
                 ("K5", 2, lambda: fused_channel_bwd(g, res, y, *args, **kw),
                  lambda: fused_channel_bwd_plain(g, res, y, *args, **kw),
                  k5_bound)]
-        at = f"8-step Strang branch B={B} (3,32,32)"
+        at = f"8-step Strang branch B={B} {shape}"
         for name, i, call, plain, (b_ms, b_by) in rows:
             entry = dict(
                 at=at,
                 ms=graph_ms(lambda i=i: [raw_fused(args, kw, u, g, res,
                                                    y)[i]], walks=20),
                 call_ms=time_ms(call),
-                plain_ms=time_ms(plain, groups=5, per_group=1),
+                plain_ms=time_ms(plain, groups=plain_groups, per_group=1),
                 bound_ms=b_ms, bound_by=b_by)
             log(f"[times] {name} {at}: kernel {entry['ms']:.4f} ms (a CUDA "
                 f"graph of back-to-back launches), call "
@@ -5759,7 +6067,7 @@ def times_fused(device, peak_bytes, peak_flops):
                 f"host included), plain {entry['plain_ms']:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
                 "computes the layer)")
-            if B == 512:
+            if B == max(batches):
                 out.setdefault(name, {}).update(entry)
             else:
                 out.setdefault(name, {})[f"at_B{B}"] = entry
@@ -6152,6 +6460,15 @@ KERNELS = [
     ("K8", "fused_grayscale_bwd",
      "cnn_pde_tpu_torch/csrc/fused_grayscale_vjp.cu",
      "cnn_pde_tpu/ops/pallas_fused_adi_vjp.py:228"),
+    ("K2w", "fused_channel_diffusion_fwd, wide scheme",
+     "cnn_pde_tpu_torch/csrc/fused_channel_wide.cu",
+     "cnn_pde_tpu/ops/pallas_fused_channel.py:102"),
+    ("K4w", "fused_channel_fwd_res, wide scheme",
+     "cnn_pde_tpu_torch/csrc/fused_channel_wide.cu",
+     "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:195"),
+    ("K5w", "fused_channel_bwd, wide scheme",
+     "cnn_pde_tpu_torch/csrc/fused_channel_wide.cu",
+     "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:233"),
 ]
 
 
@@ -6159,6 +6476,7 @@ KERNELS = [
 # reaches, so that torch.export can trace it)
 OPS = {"K1": "cnn_pde_tpu_torch::thomas_solve",
        "K2": "cnn_pde_tpu_torch::fused_channel_fwd",
+       "K2w": "cnn_pde_tpu_torch::fused_channel_fwd",
        "K6": "cnn_pde_tpu_torch::fused_grayscale_fwd"}
 
 
@@ -6212,8 +6530,16 @@ def main():
         errs["K1"] = max(errs["K1"], phase_errs["K1"])
         errs["K3"] = tuple(max(a, b) for a, b in zip(errs["K3"],
                                                      phase_errs["K3"]))
+    wide_fused = timed("fused past the shared-memory limits",
+                       phase_wide_fused, device, peak_bytes, peak_flops)
+    wide_errs = wide_fused.pop("kernels")
+    for key in ("K2", "K4"):
+        errs[key] = max(errs[key], wide_errs.pop(key))
+    errs.update(wide_errs)
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
+    wide_fused["first_scheme_vs_perf_md"] = first_scheme_against_perf(times)
+    times.update(wide_fused.pop("times"))
     times.update(timed("grayscale kernel times", times_grayscale, device,
                        peak_bytes, peak_flops))
     trainer = timed("CLIs and trainer", phase_clis)
@@ -6230,7 +6556,10 @@ def main():
                 "K5": train_launches["fused"]["K5"],
                 "K6": gray_serve["fused"]["K6"],
                 "K7": gray_train["fused"]["K7"],
-                "K8": gray_train["fused"]["K8"]}
+                "K8": gray_train["fused"]["K8"],
+                "K2w": wide_fused["serve"]["eager_launches"]["K2w"],
+                "K4w": wide_fused["train"]["launches_per_train_step"]["K4w"],
+                "K5w": wide_fused["train"]["launches_per_train_step"]["K5w"]}
     per = {"K1": {"launches_per_forward": 51,
                   "launches_per_train_step": train_launches["per_sweep"]["K1"],
                   "mnist_launches_per_forward": 30,
@@ -6271,7 +6600,16 @@ def main():
            "K5": {"launches_per_train_step": 3},
            "K6": {"mnist_launches_per_forward": 1},
            "K7": {"mnist_launches_per_train_step": 1},
-           "K8": {"mnist_launches_per_train_step": 1}}
+           "K8": {"mnist_launches_per_train_step": 1},
+           "K2w": {"wide_flagship_launches_per_forward": wide_fused[
+               "serve"]["eager_launches"]["K2w"] // len(WIDE_BUCKETS),
+               "wide_flagship_captured_serve_launches": wide_fused["serve"][
+                   "captured"]["launches_at_capture"]["K2w"]},
+           "K4w": {"wide_flagship_launches_per_train_step": 3},
+           "K5w": {"wide_flagship_launches_per_train_step": 3}}
+    for key in ("K4w", "K5w"):
+        per[key]["wide_flagship_device_epoch_launches_at_capture"] = \
+            wide_fused["train"]["device_epoch"]["launches_at_capture"][key]
     # this slice's paths: a captured predict's launches at warm-up and
     # capture (three forwards a bucket, three buckets), and the
     # linearize basis (each layer's forward once at B = D)
@@ -6399,6 +6737,7 @@ def main():
               "study": {k: v for k, v in study.items() if k != "kernels"},
               "closing": closing,
               "long_lines": {k: v for k, v in wide.items() if k != "kernels"},
+              "wide_fused": wide_fused,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

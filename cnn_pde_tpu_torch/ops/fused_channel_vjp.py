@@ -19,7 +19,13 @@ fused_channel_diffusion``.  ``fused_channel_diffusion`` is a
   (``fused_channel.plan_tiles``), accumulate their parameter gradients over
   all steps and write them once as partials, which a second kernel of the
   same call sums over the tiles in a fixed order;
-  ``fused_channel_bwd_tiled`` is the plain mirror of that structure.
+  ``fused_channel_bwd_tiled`` is the plain mirror of that structure.  Past
+  the shapes one block's shared memory holds, K4 and K5 take the wide
+  scheme (``csrc/fused_channel_wide.cu``, ``fused_channel.choose_scheme``):
+  a block walks its tile's images one at a time and adds each adjoint's
+  gated gradients to its partial row as it goes, summed over the blocks in
+  the same fixed order; ``fused_channel_bwd_streamed`` is its plain
+  mirror.
 
 The clamp gate is applied as a mask, never as autograd through ``clamp``,
 whose gradient passes 1 at the bounds.
@@ -32,23 +38,24 @@ import ctypes
 import torch
 
 from . import kernels
-from .fused_channel import (THREADS, _abc_nosmooth, _dt_factors,
-                            _sweep_nosmooth, _sweep_y_nosmooth, bind,
-                            check_layer_args, factor_threads,
+from .fused_channel import (BWD_BUFFERS, WidePlan, _abc_nosmooth,
+                            _dt_factors, _sweep_nosmooth, _sweep_y_nosmooth,
+                            bind, bwd_extra_floats, check_layer_args,
+                            check_workspace, choose_scheme,
                             fused_channel_diffusion_plain, launch_forward,
                             plan_tiles)
 from .tridiag import _sms, _transpose_system, tridiag_solve_pcr
 
 __all__ = ["fused_channel_diffusion", "fused_channel_fwd_res",
            "fused_channel_fwd_res_plain", "fused_channel_bwd",
-           "fused_channel_bwd_plain", "fused_channel_bwd_tiled"]
+           "fused_channel_bwd_plain", "fused_channel_bwd_tiled",
+           "fused_channel_bwd_streamed"]
 
-# csrc/fused_channel_vjp.cu's image buffers a block image (cotangent, state,
-# residual); beside them C·C floats a worker warp for the mixing gradient
-BWD_BUFFERS = 3
 SUM_SLICES = 8          # the partial sum's interleaved slices (kSumSlices)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
                  + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+_WIDE_BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                      + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 
 
 def _sweepT_nosmooth(lines, field, dtfac, eps):
@@ -98,26 +105,33 @@ def fused_channel_fwd_res(u, alpha_base, alpha_tc, beta_base, beta_tc,
     check_layer_args("fused_channel_fwd_res", u, *fields, ts, splitting)
     res = torch.empty((ts.shape[0], *u.shape), dtype=u.dtype,
                       device=u.device)
-    out = launch_forward(u, *fields, res=res, **kw)
+    out, plan = launch_forward(u, *fields, res=res, **kw)
     fused_channel_fwd_res.launches += 1
+    fused_channel_fwd_res.wide_launches += isinstance(plan, WidePlan)
     return out, res
 
 
-fused_channel_fwd_res.launches = 0
+fused_channel_fwd_res.launches = 0       # either scheme
+fused_channel_fwd_res.wide_launches = 0  # the wide scheme's
 
 
 def fused_channel_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
                             beta_tc, mixing, *, dt, dx, dy, ts,
-                            splitting="strang", eps=1e-6, cmax=10.0):
+                            splitting="strang", eps=1e-6, cmax=10.0,
+                            acc=None):
     """Plain PyTorch version of K5, step by step as the JAX backward kernel
     (``_make_bwd_kernel``): (grad_u, grad_alpha_base, grad_alpha_tc,
-    grad_beta_base, grad_beta_tc, grad_mixing)."""
+    grad_beta_base, grad_beta_tc, grad_mixing).  With ``acc`` (five tensors
+    of the parameters' shapes) the parameter gradients are added to those,
+    in place, each adjoint as it comes, and returned."""
     from ..pde.diffusion import _coeff_at, _mix
 
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, splitting)
-    grads = {k: torch.zeros_like(alpha_base) for k in ("ab", "atc", "bb",
-                                                        "btc")}
-    g_mix = torch.zeros_like(mixing)
+    if acc is None:
+        acc = [torch.zeros_like(t) for t in (alpha_base, alpha_tc, beta_base,
+                                             beta_tc, mixing)]
+    grads = dict(zip(("ab", "atc", "bb", "btc"), acc))
+    g_mix = acc[4]
 
     def gate(base, tc, t, gfield, kb, kt):
         raw = base + tc * t
@@ -164,9 +178,10 @@ def fused_channel_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
 
 
 def bwd_plan(B, C, H, W, sms):
-    """K5's launch plan (``fused_channel.plan_tiles``)."""
-    worker_warps = (THREADS - factor_threads(C, H, W)) // 32
-    return plan_tiles(B, C, H, W, sms, BWD_BUFFERS, worker_warps * C * C)
+    """K5's first-scheme launch plan (``fused_channel.plan_tiles``); raises
+    where one image does not fit (``choose_scheme`` picks the scheme)."""
+    return plan_tiles(B, C, H, W, sms, BWD_BUFFERS,
+                      bwd_extra_floats(C, H, W))
 
 
 def _tile_bounds(B, grid):
@@ -217,12 +232,40 @@ def fused_channel_bwd_tiled(g, res, out, alpha_base, alpha_tc, beta_base,
     return (torch.cat(gus), *grads, total[4 * chw:].view_as(mixing))
 
 
+def fused_channel_bwd_streamed(g, res, out, alpha_base, alpha_tc, beta_base,
+                               beta_tc, mixing, *, grid, dt, dx, dy, ts,
+                               splitting="strang", eps=1e-6, cmax=10.0):
+    """Plain mirror of the wide K5's reduction (csrc/fused_channel_wide.cu):
+    the images split over ``grid`` tiles as its blocks take them; each tile
+    walks its images one at a time, adding each adjoint's gated field
+    gradients and each step's mixing gradient to one partial row (4·C·H·W,
+    then C·C) as they come; the rows summed over tiles in K5's fixed order.
+    The same six gradients as ``fused_channel_bwd_plain``."""
+    fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
+    kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
+              cmax=cmax)
+    gus, rows = [], []
+    for first, last in _tile_bounds(g.shape[0], grid):
+        acc = [torch.zeros_like(t) for t in fields]
+        for b in range(first, last):
+            gus.append(fused_channel_bwd_plain(
+                g[b:b + 1], res[:, b:b + 1], out[b:b + 1], *fields, acc=acc,
+                **kw)[0])
+        rows.append(torch.cat([t.reshape(-1) for t in acc]))
+    total = _sum_tile_partials(torch.stack(rows))
+    chw = alpha_base.numel()
+    grads = [total[i * chw:(i + 1) * chw].view_as(alpha_base)
+             for i in range(4)]
+    return (torch.cat(gus), *grads, total[4 * chw:].view_as(mixing))
+
+
 def fused_channel_bwd(g, res, out, alpha_base, alpha_tc, beta_base, beta_tc,
                       mixing, *, dt, dx, dy, ts, splitting="strang",
                       eps=1e-6, cmax=10.0):
     """The six gradients: K5 on a CUDA tensor, the plain version on a CPU
-    tensor.  K5's one C call writes each block's partial parameter
-    gradients into a scratch and sums them over blocks in a fixed order."""
+    tensor.  K5's one C call, by the scheme ``choose_scheme`` picks, writes
+    each block's partial parameter gradients into a scratch and sums them
+    over blocks in a fixed order."""
     fields = (alpha_base, alpha_tc, beta_base, beta_tc, mixing)
     kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, splitting=splitting, eps=eps,
               cmax=cmax)
@@ -240,26 +283,42 @@ def fused_channel_bwd(g, res, out, alpha_base, alpha_tc, beta_base, beta_tc,
     grads = [torch.empty_like(f) for f in fields]
     if B == 0:
         return (gu, *(t.zero_() for t in grads))
-    plan = bwd_plan(B, C, H, W, _sms(g.device))
-    partials = torch.empty((plan.grid, 4 * C * H * W + C * C),
-                           dtype=g.dtype, device=g.device)
+    plan = choose_scheme(B, C, H, W, _sms(g.device), backward=True)
+    wide = isinstance(plan, WidePlan)
+    row = 4 * C * H * W + C * C
+    if wide:
+        check_workspace("fused_channel_wide_backward",
+                        4 * plan.grid * (plan.workspace + row), g.device)
+    partials = torch.empty((plan.grid, row), dtype=g.dtype, device=g.device)
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, splitting)
-    fn = bind("fused_channel_vjp", "fused_channel_diffusion_bwd",
-              _BWD_ARGTYPES, "fused_channel_bwd_layout", (C, H, W), plan)
-    with torch.cuda.device(g.device):
-        code = fn(g.data_ptr(), res.data_ptr(), out.data_ptr(),
-                  *(f.data_ptr() for f in fields), ts.data_ptr(),
-                  gu.data_ptr(), *(t.data_ptr() for t in grads),
-                  partials.data_ptr(), B, C, H, W, plan.grid, plan.nbuf,
-                  plan.staged, S,
-                  int(splitting == "strang"), dtf_x, dtf_y, eps, cmax,
-                  kernels.stream_handle(g.device))
-    kernels.raise_on_error("fused_channel_bwd", code)
+    ptrs = (g.data_ptr(), res.data_ptr(), out.data_ptr(),
+            *(f.data_ptr() for f in fields), ts.data_ptr(), gu.data_ptr(),
+            *(t.data_ptr() for t in grads), partials.data_ptr())
+    tail = (S, int(splitting == "strang"), dtf_x, dtf_y, eps, cmax,
+            kernels.stream_handle(g.device))
+    if wide:
+        ws = torch.empty(plan.grid * plan.workspace, dtype=g.dtype,
+                         device=g.device)
+        fn = bind("fused_channel_wide", "fused_channel_wide_backward",
+                  _WIDE_BWD_ARGTYPES, "fused_channel_wide_layout",
+                  (C, H, W), plan)
+        with torch.cuda.device(g.device):
+            code = fn(*ptrs, ws.data_ptr(), B, C, H, W, plan.grid, *tail)
+    else:
+        fn = bind("fused_channel_vjp", "fused_channel_diffusion_bwd",
+                  _BWD_ARGTYPES, "fused_channel_bwd_layout", (C, H, W), plan)
+        with torch.cuda.device(g.device):
+            code = fn(*ptrs, B, C, H, W, plan.grid, plan.nbuf, plan.staged,
+                      *tail)
+    kernels.raise_on_error("fused_channel_bwd" + ("_wide" if wide else ""),
+                           code)
     fused_channel_bwd.launches += 1
+    fused_channel_bwd.wide_launches += wide
     return (gu, *grads)
 
 
-fused_channel_bwd.launches = 0
+fused_channel_bwd.launches = 0       # either scheme
+fused_channel_bwd.wide_launches = 0  # the wide scheme's
 
 
 class _FusedChannelDiffusion(torch.autograd.Function):

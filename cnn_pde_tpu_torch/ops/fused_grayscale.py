@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from . import kernels
-from .fused_channel import MAX_N, MAX_SMEM, _abc_nosmooth, _dt_factors
+from .fused_channel import _abc_nosmooth, _dt_factors
 from .smoothing import smooth3
 from .tridiag import _sms, tridiag_solve_pcr
 
@@ -40,6 +40,8 @@ __all__ = ["fused_grayscale_diffusion_fwd", "fused_grayscale_diffusion_plain",
            "fused_grayscale_fwd_op",
            "GrayPlan", "plan_grayscale", "gray_factors", "gray_solve"]
 
+MAX_N = 64              # rows a line: a whole image in a block
+MAX_SMEM = 232_448      # bytes a block may use on Hopper
 # csrc/grayscale_lines.cuh: threads a block of a main kernel
 MIN_THREADS, MAX_THREADS = 256, 512
 # images a block (csrc/grayscale_lines.cuh::kMaxTile): past 4·SMs images
