@@ -11,8 +11,9 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    (phase 9 turns cuDNN's flag back on for Tiny-ImageNet);
 2. build: K1 and K3 (csrc/thomas.cu), K2 and K4 (csrc/fused_channel.cu),
    K5 (csrc/fused_channel_vjp.cu), K2, K4 and K5's wide scheme
-   (csrc/fused_channel_wide.cu), K6 and K7 (csrc/fused_grayscale.cu) and
-   K8 (csrc/fused_grayscale_vjp.cu) with nvcc, one process a source, all
+   (csrc/fused_channel_wide.cu), K6 and K7 (csrc/fused_grayscale.cu), K8
+   (csrc/fused_grayscale_vjp.cu) and K6, K7 and K8's wide scheme
+   (csrc/fused_grayscale_wide.cu) with nvcc, one process a source, all
    started together, and ptxas's report (registers, shared memory, spills)
    of each kernel of every source;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -257,6 +258,24 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
    against the eager Trainer, timed; the wide scheme's times at
    (3, 96, 96), B = 64 and 512, as phase 11 times the first scheme's,
    whose (3, 32, 32) times are then logged beside PERF.md's;
+10j. the fused grayscale layer past 64 pixels a side (the wide scheme,
+   csrc/fused_grayscale_wide.cu): K6, K7 and K8 against their plain
+   versions at (96, 96), (28, 100), (100, 28), (65, 64) and (64, 65) at B
+   in {1, 7, 128} and (1024, 1024) at B = 2, on both presets' layers
+   (mnist's 10 steps at dt 1e-3, fashion_mnist's 4 at dt 0.3) with fields
+   that straddle eps, K8 twice and bit for bit, each launch's scheme
+   counted ((28, 28) and (64, 64) at B = 7 stay on the first scheme); a
+   96-pixel grayscale model (GrayscaleDiffusion(96) on mnist's settings, a
+   flatten, Linear(9216, 10)) with ``fused_inference=True`` served eagerly
+   at B in {1, 64, 1024} (1 wide K6 a forward) against the per-sweep model
+   on the plain versions, captured (``make_predict_fn``) bit for bit
+   against eager with images/s, exported and loaded against the eager
+   predict; its linearize basis (one wide K6 at B = 9,216) against the
+   per-sweep layer's (30 K1); with ``fused=True`` one train step at B = 128
+   (1 wide K7 + 1 wide K8), its loss and gradients against the per-sweep
+   plain step (``floor_held_grads``), and the device epoch (8 steps) bit
+   for bit against the eager Trainer, timed; the wide scheme's times at
+   (96, 96) on the mnist layer, B = 128 and 1,024;
 11. times of each kernel and its plain version beside the least time the
    card could take: K2 at B in {1, 64, 512} and K4 and K5 at B in {64, 512}
    on the 8-step Strang branch, launched back to back through their C entry
@@ -278,7 +297,9 @@ A phase's CLI runs are queued and run in phase 12, four at a time:
 13. the ``kernels`` JSON line (K1's row also carries the operator build's
    figures and its hoisted, Tiny-ImageNet, hybrid and 96 x 96 flagship
    launch counts, K3's the hybrid's and the 96 flagship's; K2w, K4w and
-   K5w are the wide scheme's rows, launched on the 96 flagship fused),
+   K5w are the wide scheme's rows, launched on the 96 flagship fused, and
+   K6w, K7w and K8w the grayscale wide scheme's, on the 96-pixel grayscale
+   model),
    then the contract line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -329,12 +350,16 @@ from cnn_pde_tpu_torch.ops.fused_channel_vjp import (
     fused_channel_fwd_res_plain)
 from cnn_pde_tpu_torch.ops.fused_grayscale import \
     _ARGTYPES as GRAY_ARGTYPES
+from cnn_pde_tpu_torch.ops.fused_grayscale import \
+    _WIDE_ARGTYPES as GRAY_WIDE_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_grayscale import bind as bind_gray
 from cnn_pde_tpu_torch.ops.fused_grayscale import (
-    factor_table, fused_grayscale_diffusion_fwd,
-    fused_grayscale_diffusion_plain, plan_grayscale)
+    GrayWidePlan, choose_gray_scheme, factor_table,
+    fused_grayscale_diffusion_fwd, fused_grayscale_diffusion_plain)
 from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import \
     _BWD_ARGTYPES as GRAY_BWD_ARGTYPES
+from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import \
+    _WIDE_BWD_ARGTYPES as GRAY_WIDE_BWD_ARGTYPES
 from cnn_pde_tpu_torch.ops.fused_grayscale_vjp import (
     fused_grayscale_bwd, fused_grayscale_bwd_plain, fused_grayscale_fwd_res,
     fused_grayscale_fwd_res_plain)
@@ -357,7 +382,7 @@ from cnn_pde_tpu_torch.pde.linearize import iter_linear_pde_layers
 from cnn_pde_tpu_torch.serve import (cache_hoisted_operators,
                                      clear_linear_cache,
                                      clear_operator_cache, export_model,
-                                     linearize_pde_layers,
+                                     linearize_pde_layers, load_exported,
                                      make_eager_predict_fn, make_predict_fn)
 from cnn_pde_tpu_torch.train import (TrainConfig, Trainer, cross_entropy,
                                      hybrid_pde_regularization,
@@ -518,10 +543,13 @@ WRAPPERS = {"K1": tridiag_solve, "K2": fused_channel_diffusion_fwd,
             "K3": tridiag_adjoint, "K4": fused_channel_fwd_res,
             "K5": fused_channel_bwd, "K6": fused_grayscale_diffusion_fwd,
             "K7": fused_grayscale_fwd_res, "K8": fused_grayscale_bwd}
-# the launches of K2, K4 and K5 by the wide scheme (csrc/fused_channel_wide.cu),
-# counted besides their wrappers' launches of either scheme
+# the launches of K2, K4 and K5 by the wide scheme (csrc/fused_channel_wide.cu)
+# and of K6, K7 and K8 by theirs (csrc/fused_grayscale_wide.cu), counted
+# besides their wrappers' launches of either scheme
 WIDE_WRAPPERS = {"K2w": fused_channel_diffusion_fwd,
-                 "K4w": fused_channel_fwd_res, "K5w": fused_channel_bwd}
+                 "K4w": fused_channel_fwd_res, "K5w": fused_channel_bwd,
+                 "K6w": fused_grayscale_diffusion_fwd,
+                 "K7w": fused_grayscale_fwd_res, "K8w": fused_grayscale_bwd}
 
 
 def reset_counts():
@@ -580,8 +608,8 @@ def fused_cases(rng, device, straddle, shapes=FUSED_SHAPES):
 
 
 REPORTED_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp",
-                    "fused_channel_wide",
-                    "fused_grayscale", "fused_grayscale_vjp")
+                    "fused_channel_wide", "fused_grayscale",
+                    "fused_grayscale_vjp", "fused_grayscale_wide")
 
 
 def phase_build():
@@ -5902,6 +5930,280 @@ def first_scheme_against_perf(times):
     return ratios
 
 
+GRAY_WIDE = 96
+# the grayscale layer past 64 pixels: shapes that every grayscale wrapper
+# sends to the wide scheme, at these batches; one large image at a small
+# batch; and shapes that must stay on the first scheme
+GRAY_WIDE_SHAPES = ((GRAY_WIDE, GRAY_WIDE), (28, 100), (100, 28), (65, 64),
+                    (64, 65))
+GRAY_WIDE_BATCHES = (1, 7, 128)
+GRAY_WIDE_LARGE = ((1024, 1024), (2,))
+GRAY_FIRST_SHAPES = ((28, 28), (64, 64))
+GRAY_FIRST_BATCHES = (7,)
+GRAY_WIDE_SERVE = (1, 64, 1024)
+GRAY_WIDE_REQUESTS = (1, 7, 64, 1024)
+GRAY_WIDE_EXPORT_BATCH = 8
+GRAY_WIDE_BATCH = 128
+GRAY_WIDE_EPOCH_STEPS = 8
+GRAY_WIDE_TIMED_BATCHES = (128, 1024)
+# mnist's training values without the augmentation: the phase's model is
+# no preset's
+GRAY_WIDE_VALUES = {**GRAY_TRAIN, "augment": None}
+
+
+def gray_wide_kernels(tag, device):
+    """K6, K7 and K8 against their plain versions (``gray_case``: K8 twice,
+    bit for bit) at GRAY_WIDE_SHAPES (GRAY_WIDE_BATCHES) and
+    GRAY_WIDE_LARGE, which go wide, and at GRAY_FIRST_SHAPES, which stay
+    on the first scheme, on both presets' layers with fields that straddle
+    eps; the scheme each launch took, counted.  Returns the worst errors,
+    keyed by the scheme's row (the first scheme's under "K6"-"K8")."""
+    rng = np.random.default_rng(SEED + 80)
+    gen = torch.Generator(device=device).manual_seed(SEED + 80)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    errs = {key: 0.0 for key in ("K6", "K7", "K6w", "K7w")}
+    errs.update(K8=(0.0, 0.0), K8w=(0.0, 0.0))
+    cases = ([(shape, GRAY_WIDE_BATCHES) for shape in GRAY_WIDE_SHAPES]
+             + [GRAY_WIDE_LARGE]
+             + [(shape, GRAY_FIRST_BATCHES) for shape in GRAY_FIRST_SHAPES])
+    for shape, batches in cases:
+        wide = max(shape) > 64
+        keys = ("K6w", "K7w", "K8w") if wide else ("K6", "K7", "K8")
+        for preset in GRAY_LAYERS:
+            f = gray_fields(rng, device, preset, straddle=True, shape=shape)
+            kw = gray_kwargs(preset, device)
+            for B in batches:
+                plans = [choose_gray_scheme(B, *shape, sms, backward=b)
+                         for b in (False, True)]
+                if any(isinstance(p, GrayWidePlan) != wide for p in plans):
+                    raise AssertionError(f"{tag} {shape} B={B}: schemes "
+                                         f"{plans}")
+                log(f"[{tag}] {preset} {shape} B={B}: K6/K7 {plans[0]}, K8 "
+                    f"{plans[1]}")
+                e = [0.0, 0.0, 0.0, 0.0]
+                reset_counts()
+                gray_case(e, f"{preset} {shape}", f, kw,
+                          torch.rand((B, *shape), device=device,
+                                     generator=gen), gen)
+                want = only(K6=1, K7=1, K8=2, **(
+                    {"K6w": 1, "K7w": 1, "K8w": 2} if wide else {}))
+                if counts() != want:
+                    raise AssertionError(f"{tag} {shape} B={B}: launches "
+                                         f"{counts()}, expected {want}")
+                errs[keys[0]] = max(errs[keys[0]], e[0])
+                errs[keys[1]] = max(errs[keys[1]], e[1])
+                errs[keys[2]] = (max(errs[keys[2]][0], e[2]),
+                                 max(errs[keys[2]][1], e[3]))
+    return errs
+
+
+def gray_wide_model(device, fused_inference=False, fused=False,
+                    fields_seed=SEED + 81):
+    """GrayscaleDiffusion(GRAY_WIDE) on the mnist layer's settings (10
+    Strang steps at dt 1e-3, init 2.0), a flatten and one Linear to 10
+    classes: seeded trained-looking fields (``gray_fields``) and a seeded
+    Linear (U(±1/√fan_in), as torch's default)."""
+    dt, steps, init = GRAY_LAYERS["mnist"]
+    n = GRAY_WIDE * GRAY_WIDE
+    model = torch.nn.Sequential(
+        GrayscaleDiffusion(GRAY_WIDE, dt=dt, num_steps=steps,
+                           init_value=init, fused_inference=fused_inference,
+                           fused=fused, device=device),
+        torch.nn.Flatten(), torch.nn.Linear(n, 10, device=device))
+    USED_DEVICES.add(next(model.parameters()).device)
+    rng = np.random.default_rng(fields_seed)
+    with torch.no_grad():
+        for key, value in gray_fields(rng, device, "mnist",
+                                      shape=(GRAY_WIDE, GRAY_WIDE)).items():
+            getattr(model[0], key).copy_(value)
+        for p in model[2].parameters():
+            p.copy_(torch.from_numpy(rng.uniform(
+                -n ** -0.5, n ** -0.5, tuple(p.shape)).astype(np.float32)))
+    return model
+
+
+def gray_wide_serving(tag, device):
+    """The 96-pixel grayscale model with ``fused_inference=True``: its eager
+    predict at GRAY_WIDE_SERVE (1 wide K6 a forward) against the per-sweep
+    model on the plain versions (logits within LOGIT_TOL, labels equal);
+    ``make_predict_fn`` against eager (``captured_case``: bit for bit,
+    images/s of both); ``export_model`` loaded in this process
+    (``load_exported``) against the eager predict (1 wide K6 a call)."""
+    rng = np.random.default_rng(SEED + 82)
+    shape = (1, GRAY_WIDE, GRAY_WIDE)
+    eager = make_eager_predict_fn(gray_wide_model(device,
+                                                  fused_inference=True))
+    xs = {B: seeded_batch(rng, B, shape, device) for B in GRAY_WIDE_SERVE}
+    reset_counts()
+    logits = {B: eager(x) for B, x in xs.items()}
+    torch.cuda.synchronize()
+    got = counts()
+    n = len(GRAY_WIDE_SERVE)
+    log(f"[{tag}] 96 grayscale fused eager: launches {got} over {n} "
+        "forwards")
+    if got != only(K6=n, K6w=n):
+        raise AssertionError(f"{tag}: expected 1 wide K6 a forward, got "
+                             f"{got}")
+    with kernels.plain_versions():
+        per_sweep = make_eager_predict_fn(gray_wide_model(device))
+        plain = {B: per_sweep(x) for B, x in xs.items()}
+    for B in GRAY_WIDE_SERVE:
+        if logits[B].shape != (B, 10) or not torch.isfinite(logits[B]).all():
+            raise AssertionError(f"{tag} B={B}: bad logits")
+        check(f"96 grayscale fused B={B} logits vs the per-sweep plain "
+              "versions", max_err(logits[B], plain[B]), LOGIT_TOL)
+        if not torch.equal(logits[B].argmax(-1), plain[B].argmax(-1)):
+            raise AssertionError(f"{tag} B={B}: labels differ")
+    captured = captured_case(
+        tag, "96 grayscale fused",
+        lambda: gray_wide_model(device, fused_inference=True), shape,
+        {"K6": 1, "K6w": 1}, rng, device, rate_batches=GRAY_WIDE_SERVE,
+        buckets=GRAY_WIDE_SERVE, requests=GRAY_WIDE_REQUESTS)
+    model = gray_wide_model(device, fused_inference=True)
+    x = seeded_batch(rng, GRAY_WIDE_EXPORT_BATCH, shape, device)
+    t0 = time.perf_counter()
+    blob = export_model(model, x)
+    export_s = time.perf_counter() - t0
+    loaded = load_exported(blob)
+    reset_counts()
+    y = loaded(x)
+    torch.cuda.synchronize()
+    loaded_launches = counts()
+    want = make_eager_predict_fn(model)(x)
+    bitwise = bool(torch.equal(y, want))
+    err = check_rel(f"96 grayscale fused export ({len(blob)} bytes in "
+                    f"{export_s:.2f} s) loaded vs the eager predict, B="
+                    f"{GRAY_WIDE_EXPORT_BATCH}"
+                    f"{', bit for bit' if bitwise else ''}",
+                    rel_err(y, want), EXPORT_TOL)
+    if loaded_launches != only(K6=1, K6w=1):
+        raise AssertionError(f"{tag}: the loaded program launched "
+                             f"{loaded_launches}, expected 1 wide K6")
+    return {"eager_launches": got, "captured": captured,
+            "export": {"bytes": len(blob), "export_s": export_s, "err": err,
+                       "bitwise": bitwise, "launches": loaded_launches}}
+
+
+def gray_wide_basis(tag, device):
+    """``linearize_pde_layers`` of the 96-pixel grayscale layer (D = 9,216,
+    so ``max_dim`` = D): the basis evolved by one wide K6 at B = D, its
+    matrix within BASIS_TOL of its largest entry against the basis that
+    the per-sweep layer builds on the card (30 K1 on lines of 96)."""
+    rng = np.random.default_rng(SEED + 83)
+    D = GRAY_WIDE * GRAY_WIDE
+    x = seeded_batch(rng, 1, (1, GRAY_WIDE, GRAY_WIDE), device)
+    mats, got = {}, {}
+    for label, fused in (("fused", True), ("per-sweep", False)):
+        model = gray_wide_model(device, fused_inference=fused)
+        reset_counts()
+        t0 = time.perf_counter()
+        n = linearize_pde_layers(model, x, max_dim=D)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        got[label] = counts()
+        (mats[label],) = linear_caches(model)
+        log(f"[{tag}] 96 grayscale {label}: {n} layer linearized in "
+            f"{build_s:.2f} s, basis launches {got[label]}")
+    if got["fused"] != only(K6=1, K6w=1) or got["per-sweep"] != only(K1=30):
+        raise AssertionError(f"{tag}: basis launches {got}, expected 1 wide "
+                             "K6 and 30 K1")
+    err = check_rel(f"96 grayscale ({D}, {D}) matrix: the K6w basis vs the "
+                    "per-sweep (K1) basis", rel_err(mats["fused"],
+                                                    mats["per-sweep"]),
+                    BASIS_TOL)
+    return {"basis_launches": got["fused"], "matrix_err": err}
+
+
+def gray_wide_dataset(B, steps, seed):
+    """Seeded 96 x 96 grayscale images and labels for the captured epoch:
+    ``steps`` batches of B to train on and 1.5·B + 3 to evaluate."""
+    rng = np.random.default_rng(seed)
+    n, n_test = steps * B, B + B // 2 + 3
+
+    def images(k):
+        return rng.random((k, 1, GRAY_WIDE, GRAY_WIDE), dtype=np.float32)
+    return ArrayDataset(images(n), rng.integers(0, 10, n), images(n_test),
+                        rng.integers(0, 10, n_test), num_classes=10)
+
+
+def gray_wide_training(tag, device):
+    """The 96-pixel grayscale model with ``fused=True``: one
+    ``make_train_step`` step at GRAY_WIDE_BATCH (1 wide K7 + 1 wide K8,
+    mnist's values without augmentation); the loss and every gradient
+    against the per-sweep step on the plain versions
+    (``floor_held_grads``); then the device epoch against the eager Trainer
+    over GRAY_WIDE_EPOCH_STEPS steps, timed."""
+    rng = np.random.default_rng(SEED + 84)
+
+    def inputs(B):
+        return (torch.from_numpy(rng.random(
+            (B, 1, GRAY_WIDE, GRAY_WIDE)).astype(np.float32)).to(device),
+            torch.from_numpy(rng.integers(0, 10, B)).to(device))
+
+    step = make_train_step(gray_wide_model(device, fused=True),
+                           GRAY_WIDE_VALUES, 1,
+                           torch.Generator(device).manual_seed(SEED))
+    x, y = inputs(GRAY_WIDE_BATCH)
+    step(x, y)
+    sync(device)
+    reset_counts()
+    loss, _ = step(x, y)
+    sync(device)
+    got = counts()
+    log(f"[{tag}] 96 grayscale fused: launches in one train step at "
+        f"B={GRAY_WIDE_BATCH}: {got}")
+    if got != only(K7=1, K8=1, K7w=1, K8w=1) or not torch.isfinite(loss):
+        raise AssertionError(f"{tag}: expected 1 wide K7 + 1 wide K8 and a "
+                             f"finite loss, got {got}, {loss}")
+    xs, ys = inputs(GRAY_WIDE_BATCH)
+    runs = []
+    for path in ("kernels", "float32 plain", "float64 plain"):
+        with (contextlib.nullcontext() if path == "kernels"
+              else kernels.plain_versions()):
+            model = gray_wide_model(device, fused=path == "kernels")
+            x = xs
+            if path == "float64 plain":
+                model, x = model.double(), xs.double()
+            runs.append(train_grads(model, x, ys,
+                                    GRAY_WIDE_VALUES["label_smoothing"]))
+    sync(device)
+    label = f"96 grayscale fused B={GRAY_WIDE_BATCH}"
+    check_rel(f"{label} loss vs the per-sweep plain versions",
+              rel_err(runs[0][0], runs[1][0]), GRAD_TOL)
+    floored = floor_held_grads(label, *(r[1] for r in runs))
+    epoch = _epoch_case(tag, "96 grayscale fused",
+                        lambda: gray_wide_model(device, fused=True),
+                        GRAY_WIDE_VALUES,
+                        gray_wide_dataset(GRAY_WIDE_BATCH,
+                                          GRAY_WIDE_EPOCH_STEPS, SEED + 85),
+                        GRAY_WIDE_BATCH, ("K7", "K8", "K7w", "K8w"), 1,
+                        device, steps=GRAY_WIDE_EPOCH_STEPS,
+                        timed_runs=("graph",))
+    return {"launches_per_train_step": got, "floor_held": floored,
+            "device_epoch": epoch}
+
+
+def phase_gray_wide(device, peak_bytes, peak_flops):
+    """The fused grayscale layer past 64 pixels a side (the wide scheme,
+    csrc/fused_grayscale_wide.cu): K6, K7 and K8 against their plain
+    versions (``gray_wide_kernels``); the 96-pixel grayscale model served
+    (``gray_wide_serving``), linearized (``gray_wide_basis``) and trained
+    (``gray_wide_training``) by the wide scheme; its raw-launch times at
+    (96, 96), B = 128 and 1,024, on the mnist layer beside their bounds
+    (``times_grayscale``)."""
+    tag = "gray wide"
+    errs = timed("wide grayscale kernels", gray_wide_kernels, tag, device)
+    serve = timed("96 grayscale serving", gray_wide_serving, tag, device)
+    basis = timed("96 grayscale linearize basis", gray_wide_basis, tag,
+                  device)
+    train = timed("96 grayscale training", gray_wide_training, tag, device)
+    times = timed("wide grayscale kernel times", times_grayscale, device,
+                  peak_bytes, peak_flops, (GRAY_WIDE, GRAY_WIDE),
+                  GRAY_WIDE_TIMED_BATCHES, ("mnist",))
+    return {"kernels": errs, "serve": serve, "basis": basis, "train": train,
+            "times": {f"{k}w": v for k, v in times.items()}}
+
+
 def phase_times(device, peak_bytes, peak_flops):
     result = times_fused(device, peak_bytes, peak_flops)
     result.update(times_thomas(device, peak_bytes, peak_flops))
@@ -6293,75 +6595,98 @@ def times_thomas(device, peak_bytes, peak_flops):
 
 def raw_gray(args, kw, u, g, res, y):
     """K6, K7 and K8 as callables that launch straight through their C entry
-    points on outputs and scratch (the factor table, K8's partials)
-    allocated once, with the arguments and the launch plan the wrappers
-    pass: K6 and K7 on u, K8 on the cotangent g, K7's residuals res and
-    output y.  As ``raw_thomas``: for ``graph_ms``, on the stream current
-    when they are made."""
+    points on outputs and scratch (the factor table, K8's partials, the
+    wide scheme's workspace) allocated once, with the arguments and the
+    launch plan the wrappers pass (``choose_gray_scheme``: the first scheme
+    or the wide one): K6 and K7 on u, K8 on the cotangent g, K7's residuals
+    res and output y.  As ``raw_thomas``: for ``graph_ms``, on the stream
+    current when they are made."""
     B, H, W = u.shape
     S = kw["ts"].shape[0]
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     dtf = _dt_factors(kw["dt"], kw["dx"], kw["dy"], "strang")
     tail = (*dtf, kw["eps"], kernels.stream_handle(u.device))
     ptrs = [t.data_ptr() for t in (*args, kw["ts"])]
-    fplan = plan_grayscale(B, H, W, sms)
-    bplan = plan_grayscale(B, H, W, sms, backward=True)
-    fwd = bind_gray("fused_grayscale", "fused_grayscale_diffusion",
-                    GRAY_ARGTYPES, "fused_grayscale_layout", (H, W), fplan)
-    bwd = bind_gray("fused_grayscale_vjp", "fused_grayscale_diffusion_bwd",
-                    GRAY_BWD_ARGTYPES, "fused_grayscale_bwd_layout", (H, W),
-                    bplan)
+    fplan = choose_gray_scheme(B, H, W, sms)
+    bplan = choose_gray_scheme(B, H, W, sms, backward=True)
+    # held here, not only by address (see raw_fused): the factor tables and
+    # the wide scheme's workspaces
+    ftable = factor_table(fplan, S, u.device)
+    btable = factor_table(bplan, S, u.device)
+
+    def layout(plan):
+        if isinstance(plan, GrayWidePlan):
+            return (torch.empty(plan.grid * plan.workspace, device=u.device),
+                    B, H, W, plan.grid)
+        return (B, H, W, plan.grid)
+    flayout, blayout = layout(fplan), layout(bplan)
+    if isinstance(fplan, GrayWidePlan):
+        fwd = bind_gray("fused_grayscale_wide", "fused_grayscale_wide_forward",
+                        GRAY_WIDE_ARGTYPES, "fused_grayscale_wide_layout",
+                        (H, W), fplan)
+    else:
+        fwd = bind_gray("fused_grayscale", "fused_grayscale_diffusion",
+                        GRAY_ARGTYPES, "fused_grayscale_layout", (H, W), fplan)
+    if isinstance(bplan, GrayWidePlan):
+        bwd = bind_gray("fused_grayscale_wide",
+                        "fused_grayscale_wide_backward",
+                        GRAY_WIDE_BWD_ARGTYPES, "fused_grayscale_wide_layout",
+                        (H, W), bplan)
+    else:
+        bwd = bind_gray("fused_grayscale_vjp", "fused_grayscale_diffusion_bwd",
+                        GRAY_BWD_ARGTYPES, "fused_grayscale_bwd_layout",
+                        (H, W), bplan)
     out, res_out, gu = (torch.empty_like(u), torch.empty_like(res),
                         torch.empty_like(u))
     grads = [torch.empty_like(a) for a in args]
-    # held here, not only by address (see raw_fused)
-    ftable = factor_table(fplan, S, u.device)
-    btable = factor_table(bplan, S, u.device)
     partials = torch.empty((bplan.grid, 4 * H * W), device=u.device)
 
     def launch(name, fn, *ptr_args):
-        kernels.raise_on_error(name, fn(*ptr_args))
+        kernels.raise_on_error(name, fn(*(
+            a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in ptr_args)))
 
     def k6():
         launch("K6", fwd, u.data_ptr(), out.data_ptr(), *ptrs, None,
-               ftable.data_ptr(), B, H, W, fplan.grid, S, *tail)
+               ftable.data_ptr(), *flayout, S, *tail)
         return out
 
     def k7():
         launch("K7", fwd, u.data_ptr(), out.data_ptr(), *ptrs,
-               res_out.data_ptr(), ftable.data_ptr(), B, H, W, fplan.grid,
-               S, *tail)
+               res_out.data_ptr(), ftable.data_ptr(), *flayout, S, *tail)
         return out, res_out
 
     def k8():
         launch("K8", bwd, g.data_ptr(), res.data_ptr(), y.data_ptr(), *ptrs,
                gu.data_ptr(), *(t.data_ptr() for t in grads),
-               btable.data_ptr(), partials.data_ptr(), B, H, W, bplan.grid,
-               S, *tail)
+               btable.data_ptr(), partials.data_ptr(), *blayout, S, *tail)
         return (gu, *grads)
     return k6, k7, k8
 
 
-def times_grayscale(device, peak_bytes, peak_flops):
-    """K6 at B = 1, 128 and 1024 and K7 and K8 at B = 128 and 1024 on the
-    mnist layer (10 Strang steps, 28 x 28), and K6 on the fashion_mnist
-    layer (4 steps) at B = 1, 128 and 1024: device time by raw launches back
-    to back in a CUDA graph (``graph_ms``; each launch's outputs held
-    against the wrapper's), CUDA events around wrapper calls (host
-    included), the plain version and the bound.  Returns each kernel's
-    mnist B = 1024 figures, with the others under ``at_B1``, ``at_B128``
-    and ``fashion_mnist_at_B<B>``."""
+def times_grayscale(device, peak_bytes, peak_flops, shape=(28, 28),
+                    batches=(1, 128, 1024),
+                    presets=("mnist", "fashion_mnist")):
+    """K6 at ``batches`` and K7 and K8 at those above 1 on the mnist layer
+    (10 Strang steps) at ``shape`` (the presets' 28 x 28), and K6 on the
+    fashion_mnist layer (4 steps) at ``batches`` where ``presets`` names it:
+    device time by raw launches back to back in a CUDA graph
+    (``graph_ms``; each launch's outputs held against the wrapper's), CUDA
+    events around wrapper calls (host included), the plain version and the
+    bound.  Returns each kernel's mnist figures at the largest batch, with
+    the others under ``at_B<B>`` and ``fashion_mnist_at_B<B>``."""
     rng = np.random.default_rng(SEED + 10)
     out = {}
-    for preset in ("mnist", "fashion_mnist"):
-        f = gray_fields(rng, device, preset)
+    H, W = shape
+    for preset in presets:
+        f = gray_fields(rng, device, preset, shape=shape)
         args = [f[k] for k in GRAY_KEYS]
         kw = gray_kwargs(preset, device)
         S = kw["ts"].shape[0]
-        field = 28 * 28
-        for B in (1, 128, 1024):
+        field = H * W
+        for B in batches:
             elems = B * field
-            u = torch.rand((B, 28, 28), device=device)
+            u = torch.rand((B, H, W), device=device)
             g = torch.randn_like(u)
             y, res = fused_grayscale_fwd_res(u, *args, **kw)
             raw = raw_gray(args, kw, u, g, res, y)
@@ -6414,7 +6739,7 @@ def times_grayscale(device, peak_bytes, peak_flops):
                      lambda: fused_grayscale_bwd_plain(g, res, y, *args,
                                                        **kw),
                      k8_bound, 5)]
-            at = f"{preset} layer, {S} steps, B={B} (28,28)"
+            at = f"{preset} layer, {S} steps, B={B} {shape}"
             for name, i, call, plain, (b_ms, b_by), plain_groups in rows:
                 entry = dict(
                     at=at,
@@ -6432,7 +6757,7 @@ def times_grayscale(device, peak_bytes, peak_flops):
                     "PyTorch call computes the layer)")
                 if preset == "fashion_mnist":
                     out.setdefault(name, {})[f"fashion_mnist_at_B{B}"] = entry
-                elif B == 1024:
+                elif B == max(batches):
                     out.setdefault(name, {}).update(entry)
                 else:
                     out.setdefault(name, {})[f"at_B{B}"] = entry
@@ -6469,6 +6794,15 @@ KERNELS = [
     ("K5w", "fused_channel_bwd, wide scheme",
      "cnn_pde_tpu_torch/csrc/fused_channel_wide.cu",
      "cnn_pde_tpu/ops/pallas_fused_channel_vjp.py:233"),
+    ("K6w", "fused_grayscale_diffusion_fwd, wide scheme",
+     "cnn_pde_tpu_torch/csrc/fused_grayscale_wide.cu",
+     "cnn_pde_tpu/ops/pallas_fused_adi.py:119"),
+    ("K7w", "fused_grayscale_fwd_res, wide scheme",
+     "cnn_pde_tpu_torch/csrc/fused_grayscale_wide.cu",
+     "cnn_pde_tpu/ops/pallas_fused_adi_vjp.py:196"),
+    ("K8w", "fused_grayscale_bwd, wide scheme",
+     "cnn_pde_tpu_torch/csrc/fused_grayscale_wide.cu",
+     "cnn_pde_tpu/ops/pallas_fused_adi_vjp.py:228"),
 ]
 
 
@@ -6477,7 +6811,8 @@ KERNELS = [
 OPS = {"K1": "cnn_pde_tpu_torch::thomas_solve",
        "K2": "cnn_pde_tpu_torch::fused_channel_fwd",
        "K2w": "cnn_pde_tpu_torch::fused_channel_fwd",
-       "K6": "cnn_pde_tpu_torch::fused_grayscale_fwd"}
+       "K6": "cnn_pde_tpu_torch::fused_grayscale_fwd",
+       "K6w": "cnn_pde_tpu_torch::fused_grayscale_fwd"}
 
 
 def timed(label, fn, *args):
@@ -6536,10 +6871,19 @@ def main():
     for key in ("K2", "K4"):
         errs[key] = max(errs[key], wide_errs.pop(key))
     errs.update(wide_errs)
+    gray_wide = timed("grayscale past 64 pixels", phase_gray_wide, device,
+                      peak_bytes, peak_flops)
+    gray_wide_errs = gray_wide.pop("kernels")
+    for key in ("K6", "K7"):
+        errs[key] = max(errs[key], gray_wide_errs.pop(key))
+    errs["K8"] = tuple(max(a, b) for a, b in zip(errs["K8"],
+                                                 gray_wide_errs.pop("K8")))
+    errs.update(gray_wide_errs)
     times = timed("kernel times", phase_times, device, peak_bytes,
                   peak_flops)
     wide_fused["first_scheme_vs_perf_md"] = first_scheme_against_perf(times)
     times.update(wide_fused.pop("times"))
+    times.update(gray_wide.pop("times"))
     times.update(timed("grayscale kernel times", times_grayscale, device,
                        peak_bytes, peak_flops))
     trainer = timed("CLIs and trainer", phase_clis)
@@ -6559,7 +6903,10 @@ def main():
                 "K8": gray_train["fused"]["K8"],
                 "K2w": wide_fused["serve"]["eager_launches"]["K2w"],
                 "K4w": wide_fused["train"]["launches_per_train_step"]["K4w"],
-                "K5w": wide_fused["train"]["launches_per_train_step"]["K5w"]}
+                "K5w": wide_fused["train"]["launches_per_train_step"]["K5w"],
+                "K6w": gray_wide["serve"]["eager_launches"]["K6w"],
+                "K7w": gray_wide["train"]["launches_per_train_step"]["K7w"],
+                "K8w": gray_wide["train"]["launches_per_train_step"]["K8w"]}
     per = {"K1": {"launches_per_forward": 51,
                   "launches_per_train_step": train_launches["per_sweep"]["K1"],
                   "mnist_launches_per_forward": 30,
@@ -6606,10 +6953,23 @@ def main():
                "wide_flagship_captured_serve_launches": wide_fused["serve"][
                    "captured"]["launches_at_capture"]["K2w"]},
            "K4w": {"wide_flagship_launches_per_train_step": 3},
-           "K5w": {"wide_flagship_launches_per_train_step": 3}}
+           "K5w": {"wide_flagship_launches_per_train_step": 3},
+           "K6w": {"gray96_launches_per_forward": gray_wide["serve"][
+               "eager_launches"]["K6w"] // len(GRAY_WIDE_SERVE),
+               "gray96_captured_serve_launches": gray_wide["serve"][
+                   "captured"]["launches_at_capture"]["K6w"],
+               "gray96_exported_launches_per_call": gray_wide["serve"][
+                   "export"]["launches"]["K6w"],
+               "gray96_linearize_basis_launches": gray_wide["basis"][
+                   "basis_launches"]["K6w"]},
+           "K7w": {"gray96_launches_per_train_step": 1},
+           "K8w": {"gray96_launches_per_train_step": 1}}
     for key in ("K4w", "K5w"):
         per[key]["wide_flagship_device_epoch_launches_at_capture"] = \
             wide_fused["train"]["device_epoch"]["launches_at_capture"][key]
+    for key in ("K7w", "K8w"):
+        per[key]["gray96_device_epoch_launches_at_capture"] = gray_wide[
+            "train"]["device_epoch"]["launches_at_capture"][key]
     # this slice's paths: a captured predict's launches at warm-up and
     # capture (three forwards a bucket, three buckets), and the
     # linearize basis (each layer's forward once at B = D)
@@ -6738,6 +7098,7 @@ def main():
               "closing": closing,
               "long_lines": {k: v for k, v in wide.items() if k != "kernels"},
               "wide_fused": wide_fused,
+              "gray_wide": gray_wide,
               "amp_gemm_route": gemm_route(torch.bfloat16, device),
               "amp": {key: {grade: value[1]
                             for grade, value in amp[key].items()}

@@ -18,6 +18,22 @@ in the middle.  ``gray_factors`` and ``gray_solve`` are the plain mirror of
 that arithmetic, which the CPU tests hold against the TPU kernel's sweeps;
 ``plan_grayscale`` spreads the batch over the blocks.
 
+Two schemes, chosen by shape at launch (``choose_gray_scheme``): the first
+(``csrc/fused_grayscale.cu``, ``fused_grayscale_vjp.cu``) keeps a tile of
+whole images and a ring of factor buffers in one block's shared memory
+(H, W ≤ SHARED_MAX_N = 64, which every such shape fits); the wide scheme
+(``csrc/fused_grayscale_wide.cu``, a ``GrayWidePlan``) takes every other
+shape up to H, W ≤ MAX_N (K1/K3's 1,440).  It keeps the same factor table,
+whole, in device memory (3·S·``slab_floats(H, W)`` floats: 3.35 MB at
+96 × 96 and 10 steps, about 0.75 GB at 1,440 × 1,440; the wrapper checks it
+with the workspace against the card's free memory and raises, naming the
+bytes, where they do not fit), built by a factor kernel that reads the
+clamped fields from device memory, two threads a line across as many
+blocks as the lines need; a block then walks its tile's images one at a
+time with the state in device memory, two threads a line, staging each
+sweep's factors and x-line state in shared memory a strip of lines at a
+time (``strip_lines``).
+
 K6 is registered as the op ``cnn_pde_tpu_torch::fused_grayscale_fwd``
 (``fused_grayscale_fwd_op``, with a fake implementation), so that
 ``torch.export`` traces an eval forward that reaches it; the wrapper calls
@@ -32,15 +48,20 @@ from typing import NamedTuple
 import torch
 
 from . import kernels
-from .fused_channel import _abc_nosmooth, _dt_factors
+from .fused_channel import (WIDE_BLOCKS_PER_SM, WIDE_WORKSPACE_BUDGET,
+                            _abc_nosmooth, _dt_factors, check_limits,
+                            check_workspace)
 from .smoothing import smooth3
+from .tridiag import MAX_N as TRIDIAG_MAX_N
 from .tridiag import _sms, tridiag_solve_pcr
 
 __all__ = ["fused_grayscale_diffusion_fwd", "fused_grayscale_diffusion_plain",
-           "fused_grayscale_fwd_op",
-           "GrayPlan", "plan_grayscale", "gray_factors", "gray_solve"]
+           "fused_grayscale_fwd_op", "choose_gray_scheme",
+           "GrayPlan", "plan_grayscale", "GrayWidePlan", "gray_wide_plan",
+           "gray_factors", "gray_solve"]
 
-MAX_N = 64              # rows a line: a whole image in a block
+SHARED_MAX_N = 64       # the first scheme's rows a line: an image a block
+MAX_N = TRIDIAG_MAX_N   # the wide scheme's, and so the wrappers': 1,440
 MAX_SMEM = 232_448      # bytes a block may use on Hopper
 # csrc/grayscale_lines.cuh: threads a block of a main kernel
 MIN_THREADS, MAX_THREADS = 256, 512
@@ -52,8 +73,14 @@ MAX_TILE = 4
 FWD_BUFFERS, BWD_BUFFERS = 2, 5
 # factor buffers a block (csrc/fused_grayscale.cu::kRing; K8 two)
 FWD_RING, BWD_RING = 4, 2
+# the wide scheme (csrc/fused_grayscale_wide.cu::kMaxThreads, kMinThreads,
+# kSmemBudget: two blocks an SM)
+WIDE_MAX_THREADS, WIDE_MIN_THREADS = 512, 64
+WIDE_SMEM_BUDGET = 113 * 1024
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 _layout_checked: set = set()  # (source, shape, plan) held against the C side
 
 
@@ -98,7 +125,8 @@ def fused_grayscale_diffusion_plain(u, alpha_base, alpha_tc, beta_base,
 
 
 def check_layer_args(name, u, alpha_base, alpha_tc, beta_base, beta_tc, ts):
-    """Raise on anything the grayscale kernels (K6, K7, K8) do not take."""
+    """Raise on anything the grayscale kernels (K6, K7, K8) take in neither
+    scheme; past MAX_N a ``ValueError`` that names it."""
     if u.ndim != 3:
         raise ValueError(f"{name}: u must be (B, H, W), got "
                          f"{tuple(u.shape)}")
@@ -114,9 +142,7 @@ def check_layer_args(name, u, alpha_base, alpha_tc, beta_base, beta_tc, ts):
     kernels.check_float32(name, u.device, u=u, alpha_base=alpha_base,
                           alpha_tc=alpha_tc, beta_base=beta_base,
                           beta_tc=beta_tc, ts=ts)
-    if not (1 <= H <= MAX_N and 1 <= W <= MAX_N):
-        raise ValueError(f"{name}: H, W in [1, {MAX_N}] required, got "
-                         f"H={H}, W={W}")
+    check_limits(name, 1, H, W)
 
 
 def gray_factors(field, dtfac, eps):
@@ -220,16 +246,18 @@ class GrayPlan(NamedTuple):
 
 
 def plan_grayscale(B, H, W, sms, backward=False):
-    """The launch plan of K6/K7 (or, ``backward``, K8) over B >= 1 images of
-    (H, W): at least ``sms`` blocks where the batch allows it (one image a
-    block at B <= sms), more where the images would pass the shared memory
-    a block may use or 4 images a block; whole images, as evenly as they
-    split.  A block holds four factor buffers of two slots (K8 two, and its
-    (4, H, W) partials and an (H, W) fold) beside its images' buffers, and
-    2P threads a line of the longer sweep (P the smallest power of two not
-    below the tile: two a line and image, a line's images in one warp),
-    whole warps, between 256 and 512.  ``bind`` holds the plan against the
-    C side's count.  Raises if one image does not fit."""
+    """The first scheme's launch plan of K6/K7 (or, ``backward``, K8) over
+    B >= 1 images of (H, W): at least ``sms`` blocks where the batch allows
+    it (one image a block at B <= sms), more where the images would pass the
+    shared memory a block may use or 4 images a block; whole images, as
+    evenly as they split.  A block holds four factor buffers of two slots
+    (K8 two, and its (4, H, W) partials and an (H, W) fold) beside its
+    images' buffers, and 2P threads a line of the longer sweep (P the
+    smallest power of two not below the tile: two a line and image, a
+    line's images in one warp), whole warps, between 256 and 512.  ``bind``
+    holds the plan against the C side's count.  Raises if one image does
+    not fit (past SHARED_MAX_N; ``choose_gray_scheme`` sends such a shape
+    to the wide scheme)."""
     slot = slab_floats(H, W) // 3
     image = H * (W | 1)
     per_image = 4 * image * (BWD_BUFFERS if backward else FWD_BUFFERS)
@@ -247,26 +275,107 @@ def plan_grayscale(B, H, W, sms, backward=False):
                     slab_floats(H, W))
 
 
+class GrayWidePlan(NamedTuple):
+    """A wide-scheme launch (csrc/fused_grayscale_wide.cu): ``grid`` blocks
+    of ``threads``, each a tile of at most ``tile`` whole images, ``smem``
+    bytes of shared memory and ``workspace`` floats of device memory a
+    block, ``slab`` floats a sweep in the factor table; ``backward``: K8's
+    (else K6/K7's)."""
+    grid: int
+    tile: int
+    threads: int
+    smem: int
+    workspace: int
+    slab: int
+    backward: bool
+
+
+def partial_floats(H, W):
+    """Floats of K8's partial row a block: the four (H, W) field
+    gradients."""
+    return 4 * H * W
+
+
+def strip_lines(H, W, threads):
+    """Lines of a sweep the wide scheme stages in a block's shared memory at
+    once (csrc/fused_grayscale_wide.cu::strip_lines): one a pair of
+    threads, at most the longer sweep's lines, no more than fit
+    WIDE_SMEM_BUDGET with two factor slots of the longer line and an
+    x-line's state each."""
+    n = max(H, W)
+    per_line = 2 * (n | 1) + (W | 1)
+    return min(threads // 2, n, WIDE_SMEM_BUDGET // (4 * per_line))
+
+
+def gray_wide_plan(B, H, W, sms, backward=False):
+    """The wide scheme's launch over B >= 1 images of (H, W): two threads a
+    line of the longer sweep (whole warps, between WIDE_MIN_THREADS and
+    WIDE_MAX_THREADS; more lines loop); at most WIDE_BLOCKS_PER_SM blocks
+    an SM, one a tile of whole images, and no more than keep the workspace
+    (and K8's partial rows) under WIDE_WORKSPACE_BUDGET bytes, but at least
+    one block.  Shared memory a block: a strip's factors and x-line state
+    (``strip_lines``).  Workspace a block: two images, the sweeps' ping
+    and pong (K6/K7); x1, x2, the cotangent's second buffer and the fold
+    (K8)."""
+    hw = H * W
+    threads = min(WIDE_MAX_THREADS,
+                  max(WIDE_MIN_THREADS, -(-2 * max(H, W) // 32) * 32))
+    smem = 4 * strip_lines(H, W, threads) * (2 * (max(H, W) | 1) + (W | 1))
+    workspace = (4 if backward else 2) * hw
+    per_block = 4 * (workspace + (partial_floats(H, W) if backward else 0))
+    grid = max(1, min(B, WIDE_BLOCKS_PER_SM * sms,
+                      WIDE_WORKSPACE_BUDGET // per_block))
+    return GrayWidePlan(grid, -(-B // grid), threads, smem, workspace,
+                        slab_floats(H, W), backward)
+
+
+def choose_gray_scheme(B, H, W, sms, backward=False):
+    """The launch of K6/K7 (or, with ``backward``, K8) over B images of
+    (H, W): the first scheme's ``GrayPlan`` (``plan_grayscale``) where
+    H, W ≤ SHARED_MAX_N (one image with its factors fits MAX_SMEM at every
+    such shape: (64, 64) in K8 takes 231,680 bytes), else a
+    ``GrayWidePlan``.  Raises ``ValueError`` past MAX_N."""
+    check_limits("choose_gray_scheme", 1, H, W)
+    if H <= SHARED_MAX_N and W <= SHARED_MAX_N:
+        return plan_grayscale(B, H, W, sms, backward)
+    return gray_wide_plan(B, H, W, sms, backward)
+
+
 def bind(name, symbol, argtypes, layout_symbol, shape, plan):
     """The C entry point ``symbol`` of csrc/<name>.cu.  The first time a
     plan is launched for an (H, W) ``shape``, raise unless
-    ``layout_symbol`` reports for it the threads a block, the bytes of
-    shared memory a block and the floats a sweep in the table that the
-    wrapper planned with."""
+    ``layout_symbol`` reports for it the launch the wrapper planned: the
+    threads a block, the bytes of shared memory a block and the floats a
+    sweep in the table, and (a ``GrayWidePlan``) the floats of workspace a
+    block."""
     key = (name, tuple(shape), plan)
     if key not in _layout_checked:
-        got = [ctypes.c_int() for _ in range(3)]
-        kernels.function(name, layout_symbol,
-                         [ctypes.c_int] * 3
-                         + [ctypes.POINTER(ctypes.c_int)] * 3)(
-            *shape, plan.tile, *(ctypes.byref(v) for v in got))
-        got = tuple(v.value for v in got)
-        want = (plan.threads, plan.smem, plan.slab)
+        threads, smem, slab = (ctypes.c_int() for _ in range(3))
+        if isinstance(plan, GrayWidePlan):
+            workspace = ctypes.c_longlong()
+            kernels.function(name, layout_symbol,
+                             [ctypes.c_int] * 3
+                             + [ctypes.POINTER(ctypes.c_int)] * 2
+                             + [ctypes.POINTER(ctypes.c_longlong),
+                                ctypes.POINTER(ctypes.c_int)])(
+                *shape, int(plan.backward), ctypes.byref(threads),
+                ctypes.byref(smem), ctypes.byref(workspace),
+                ctypes.byref(slab))
+            got = (threads.value, smem.value, slab.value, workspace.value)
+            want = (plan.threads, plan.smem, plan.slab, plan.workspace)
+        else:
+            kernels.function(name, layout_symbol,
+                             [ctypes.c_int] * 3
+                             + [ctypes.POINTER(ctypes.c_int)] * 3)(
+                *shape, plan.tile, ctypes.byref(threads), ctypes.byref(smem),
+                ctypes.byref(slab))
+            got = (threads.value, smem.value, slab.value)
+            want = (plan.threads, plan.smem, plan.slab)
         if got != want:
             raise RuntimeError(
                 f"{name}.cu reports {layout_symbol} = {got} (threads, "
-                f"bytes, table floats a sweep) for {plan} of "
-                f"{tuple(shape)}; the wrapper plans {want}")
+                f"bytes, table floats a sweep[, floats of workspace]) for "
+                f"{plan} of {tuple(shape)}; the wrapper plans {want}")
         _layout_checked.add(key)
     return kernels.function(name, symbol, argtypes)
 
@@ -277,30 +386,54 @@ def factor_table(plan, num_steps, device):
                        device=device)
 
 
+def wide_bytes(plan, H, W, num_steps):
+    """Bytes of device memory a wide launch of (H, W) images allocates: the
+    factor table, the blocks' workspace and (K8) their partial rows."""
+    row = partial_floats(H, W) if plan.backward else 0
+    return 4 * (3 * num_steps * plan.slab + plan.grid * (plan.workspace + row))
+
+
 def launch_forward(u, alpha_base, alpha_tc, beta_base, beta_tc, *, dt, dx,
                    dy, ts, eps, res=None):
-    """Launch csrc/fused_grayscale.cu on checked CUDA tensors: K6, or K7
-    when ``res`` is a (num_steps, B, H, W) tensor to hold the residuals."""
+    """Launch K6, or K7 when ``res`` is a (num_steps, B, H, W) tensor to
+    hold the residuals, on checked CUDA tensors, by the scheme
+    ``choose_gray_scheme`` picks: csrc/fused_grayscale.cu, or
+    csrc/fused_grayscale_wide.cu with a workspace allocated here.  Returns
+    (out, the plan launched; None for an empty batch)."""
     B, H, W = u.shape
-    plan = plan_grayscale(max(B, 1), H, W, _sms(u.device))
     out = torch.empty_like(u)
     if B == 0:
-        return out
+        return out, None
+    S = ts.shape[0]
+    plan = choose_gray_scheme(B, H, W, _sms(u.device))
+    wide = isinstance(plan, GrayWidePlan)
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, "strang")
-    fn = bind("fused_grayscale", "fused_grayscale_diffusion", _ARGTYPES,
-              "fused_grayscale_layout", (H, W), plan)
-    table = factor_table(plan, ts.shape[0], u.device)
-    with torch.cuda.device(u.device):
-        code = fn(u.data_ptr(), out.data_ptr(), alpha_base.data_ptr(),
-                  alpha_tc.data_ptr(), beta_base.data_ptr(),
-                  beta_tc.data_ptr(), ts.data_ptr(),
-                  None if res is None else res.data_ptr(), table.data_ptr(),
-                  B, H, W, plan.grid, ts.shape[0], dtf_x, dtf_y, eps,
-                  kernels.stream_handle(u.device))
+    if wide:
+        check_workspace("fused_grayscale_wide_forward",
+                        wide_bytes(plan, H, W, S), u.device)
+    table = factor_table(plan, S, u.device)
+    ptrs = (u.data_ptr(), out.data_ptr(), alpha_base.data_ptr(),
+            alpha_tc.data_ptr(), beta_base.data_ptr(), beta_tc.data_ptr(),
+            ts.data_ptr(), None if res is None else res.data_ptr(),
+            table.data_ptr())
+    tail = (dtf_x, dtf_y, eps, kernels.stream_handle(u.device))
+    if wide:
+        ws = torch.empty(plan.grid * plan.workspace, dtype=u.dtype,
+                         device=u.device)
+        fn = bind("fused_grayscale_wide", "fused_grayscale_wide_forward",
+                  _WIDE_ARGTYPES, "fused_grayscale_wide_layout", (H, W),
+                  plan)
+        with torch.cuda.device(u.device):
+            code = fn(*ptrs, ws.data_ptr(), B, H, W, plan.grid, S, *tail)
+    else:
+        fn = bind("fused_grayscale", "fused_grayscale_diffusion", _ARGTYPES,
+                  "fused_grayscale_layout", (H, W), plan)
+        with torch.cuda.device(u.device):
+            code = fn(*ptrs, B, H, W, plan.grid, S, *tail)
     kernels.raise_on_error(
-        "fused_grayscale_diffusion" + ("_fwd" if res is None else "_res"),
-        code)
-    return out
+        "fused_grayscale_diffusion" + ("_fwd" if res is None else "_res")
+        + ("_wide" if wide else ""), code)
+    return out, plan
 
 
 torch.library.define(
@@ -323,8 +456,10 @@ def _fused_grayscale_fwd_impl(u, alpha_base, alpha_tc, beta_base, beta_tc,
     if not kernels.use_kernel(u):
         return fused_grayscale_diffusion_plain(u, *fields, **kw).contiguous()
     check_layer_args("fused_grayscale_diffusion_fwd", u, *fields, ts)
-    out = launch_forward(u, *fields, **kw)
+    out, plan = launch_forward(u, *fields, **kw)
     fused_grayscale_diffusion_fwd.launches += 1
+    fused_grayscale_diffusion_fwd.wide_launches += isinstance(plan,
+                                                             GrayWidePlan)
     return out
 
 
@@ -354,4 +489,5 @@ def fused_grayscale_diffusion_fwd(u, alpha_base, alpha_tc, beta_base,
                                   float(dy), float(eps))
 
 
-fused_grayscale_diffusion_fwd.launches = 0
+fused_grayscale_diffusion_fwd.launches = 0       # either scheme
+fused_grayscale_diffusion_fwd.wide_launches = 0  # the wide scheme's

@@ -20,7 +20,12 @@ fused_grayscale_diffusion``.  ``fused_grayscale_diffusion`` is a
   their field gradients over all steps and write them once as partials,
   which a last kernel of the same call sums over the tiles in a fixed
   order; ``fused_grayscale_bwd_tiled`` is the plain mirror of that
-  structure.
+  structure.  Past 64 pixels a side, K7 and K8 take the wide scheme
+  (``csrc/fused_grayscale_wide.cu``, ``fused_grayscale.choose_gray_scheme``):
+  a block walks its tile's images one at a time and adds each adjoint's
+  smoothed, gated field gradients of each image to its partial row as it
+  goes, summed over the blocks in the same fixed order;
+  ``fused_grayscale_bwd_tiled(per_image=True)`` is its plain mirror.
 
 The clamp gate is applied as a mask, never as autograd through
 ``clamp_min``, whose gradient passes 1 at the bound.
@@ -35,10 +40,12 @@ import torch
 from . import kernels
 from .fused_channel import _dt_factors
 from .fused_channel_vjp import _grad_r, _sum_tile_partials, _tile_bounds
-from .fused_grayscale import (_abc_smooth, _coeff, _sweep_smooth,
-                              _sweep_y_smooth, bind, check_layer_args,
-                              factor_table, fused_grayscale_diffusion_plain,
-                              launch_forward, plan_grayscale)
+from .fused_grayscale import (GrayWidePlan, _abc_smooth, _coeff,
+                              _sweep_smooth, _sweep_y_smooth, bind,
+                              check_layer_args, check_workspace,
+                              choose_gray_scheme, factor_table,
+                              fused_grayscale_diffusion_plain, launch_forward,
+                              partial_floats, wide_bytes)
 from .tridiag import _sms, _transpose_system, tridiag_solve_pcr
 
 __all__ = ["fused_grayscale_diffusion", "fused_grayscale_fwd_res",
@@ -47,6 +54,8 @@ __all__ = ["fused_grayscale_diffusion", "fused_grayscale_fwd_res",
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_WIDE_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
 def _sweepT_smooth(lines, field, dtfac, eps):
@@ -91,22 +100,27 @@ def fused_grayscale_fwd_res(u, alpha_base, alpha_tc, beta_base, beta_tc, *,
     check_layer_args("fused_grayscale_fwd_res", u, *fields, ts)
     res = torch.empty((ts.shape[0], *u.shape), dtype=u.dtype,
                       device=u.device)
-    out = launch_forward(u, *fields, res=res, **kw)
+    out, plan = launch_forward(u, *fields, res=res, **kw)
     fused_grayscale_fwd_res.launches += 1
+    fused_grayscale_fwd_res.wide_launches += isinstance(plan, GrayWidePlan)
     return out, res
 
 
-fused_grayscale_fwd_res.launches = 0
+fused_grayscale_fwd_res.launches = 0       # either scheme
+fused_grayscale_fwd_res.wide_launches = 0  # the wide scheme's
 
 
 def fused_grayscale_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
-                              beta_tc, *, dt, dx, dy, ts, eps=1e-6):
+                              beta_tc, *, dt, dx, dy, ts, eps=1e-6, acc=None):
     """Plain PyTorch version of K8, step by step as the JAX backward kernel
     (``_make_bwd_kernel``): (grad_u, grad_alpha_base, grad_alpha_tc,
-    grad_beta_base, grad_beta_tc)."""
+    grad_beta_base, grad_beta_tc).  With ``acc`` (four tensors of the
+    fields' shape) the field gradients are added to those, in place, each
+    adjoint as it comes, and returned."""
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, "strang")
-    grads = {k: torch.zeros_like(alpha_base) for k in ("ab", "atc", "bb",
-                                                        "btc")}
+    if acc is None:
+        acc = [torch.zeros_like(alpha_base) for _ in range(4)]
+    grads = dict(zip(("ab", "atc", "bb", "btc"), acc))
 
     def gate(base, tc, t, gfield, kb, kt):
         mask = ((base + tc * t) > eps).to(gfield.dtype)
@@ -144,22 +158,32 @@ def fused_grayscale_bwd_plain(g, res, out, alpha_base, alpha_tc, beta_base,
 
 def fused_grayscale_bwd_tiled(g, res, out, alpha_base, alpha_tc,
                               beta_base, beta_tc, *, grid, dt, dx, dy, ts,
-                              eps=1e-6):
+                              eps=1e-6, per_image=False):
     """Plain mirror of K8's reduction structure: the images split over
     ``grid`` tiles as K8's blocks take them; each tile's field gradients
     accumulated over all steps (the plain backward on its images) into one
     partial row (4·H·W); the rows summed over tiles in K8's fixed order
-    (``fused_channel_vjp._sum_tile_partials``).  The same five gradients as
+    (``fused_channel_vjp._sum_tile_partials``).  With ``per_image``, the
+    wide K8's order (csrc/fused_grayscale_wide.cu): each tile walks its
+    images one at a time, adding each adjoint's smoothed, gated gradients
+    of one image to its row as they come.  The same five gradients as
     ``fused_grayscale_bwd_plain``."""
     fields = (alpha_base, alpha_tc, beta_base, beta_tc)
     kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
     gus, rows = [], []
     for first, last in _tile_bounds(g.shape[0], grid):
-        gu, *grads = fused_grayscale_bwd_plain(
-            g[first:last], res[:, first:last], out[first:last], *fields,
-            **kw)
-        gus.append(gu)
-        rows.append(torch.cat([t.reshape(-1) for t in grads]))
+        if per_image:
+            acc = [torch.zeros_like(alpha_base) for _ in fields]
+            for b in range(first, last):
+                gus.append(fused_grayscale_bwd_plain(
+                    g[b:b + 1], res[:, b:b + 1], out[b:b + 1], *fields,
+                    acc=acc, **kw)[0])
+        else:
+            gu, *acc = fused_grayscale_bwd_plain(
+                g[first:last], res[:, first:last], out[first:last], *fields,
+                **kw)
+            gus.append(gu)
+        rows.append(torch.cat([t.reshape(-1) for t in acc]))
     total = _sum_tile_partials(torch.stack(rows))
     return (torch.cat(gus),
             *total.view(4, *alpha_base.shape).unbind(0))
@@ -168,9 +192,9 @@ def fused_grayscale_bwd_tiled(g, res, out, alpha_base, alpha_tc,
 def fused_grayscale_bwd(g, res, out, alpha_base, alpha_tc, beta_base,
                         beta_tc, *, dt, dx, dy, ts, eps=1e-6):
     """The five gradients: K8 on a CUDA tensor, the plain version on a CPU
-    tensor.  K8's one C call makes the factor table, writes each block's
-    partial field gradients into a scratch and sums them over blocks in a
-    fixed order."""
+    tensor.  K8's one C call, by the scheme ``choose_gray_scheme`` picks,
+    makes the factor table, writes each block's partial field gradients
+    into a scratch and sums them over blocks in a fixed order."""
     fields = (alpha_base, alpha_tc, beta_base, beta_tc)
     kw = dict(dt=dt, dx=dx, dy=dy, ts=ts, eps=eps)
     if not kernels.use_kernel(g):
@@ -183,30 +207,46 @@ def fused_grayscale_bwd(g, res, out, alpha_base, alpha_tc, beta_base,
                          f"and output {tuple(out.shape)} do not match g "
                          f"{tuple(g.shape)} over {S} steps")
     kernels.check_float32("fused_grayscale_bwd", g.device, res=res, out=out)
-    plan = plan_grayscale(max(B, 1), H, W, _sms(g.device), backward=True)
     gu = torch.empty_like(g)
     grads = [torch.empty_like(f) for f in fields]
     if B == 0:
         return (gu, *(t.zero_() for t in grads))
+    plan = choose_gray_scheme(B, H, W, _sms(g.device), backward=True)
+    wide = isinstance(plan, GrayWidePlan)
+    if wide:
+        check_workspace("fused_grayscale_wide_backward",
+                        wide_bytes(plan, H, W, S), g.device)
     table = factor_table(plan, S, g.device)
-    partials = torch.empty((plan.grid, 4 * H * W), dtype=g.dtype,
+    partials = torch.empty((plan.grid, partial_floats(H, W)), dtype=g.dtype,
                            device=g.device)
     dtf_x, dtf_y = _dt_factors(dt, dx, dy, "strang")
-    fn = bind("fused_grayscale_vjp", "fused_grayscale_diffusion_bwd",
-              _BWD_ARGTYPES, "fused_grayscale_bwd_layout", (H, W), plan)
-    with torch.cuda.device(g.device):
-        code = fn(g.data_ptr(), res.data_ptr(), out.data_ptr(),
-                  *(f.data_ptr() for f in fields), ts.data_ptr(),
-                  gu.data_ptr(), *(t.data_ptr() for t in grads),
-                  table.data_ptr(), partials.data_ptr(),
-                  B, H, W, plan.grid, S, dtf_x, dtf_y, eps,
-                  kernels.stream_handle(g.device))
-    kernels.raise_on_error("fused_grayscale_bwd", code)
+    ptrs = (g.data_ptr(), res.data_ptr(), out.data_ptr(),
+            *(f.data_ptr() for f in fields), ts.data_ptr(), gu.data_ptr(),
+            *(t.data_ptr() for t in grads), table.data_ptr(),
+            partials.data_ptr())
+    tail = (dtf_x, dtf_y, eps, kernels.stream_handle(g.device))
+    if wide:
+        ws = torch.empty(plan.grid * plan.workspace, dtype=g.dtype,
+                         device=g.device)
+        fn = bind("fused_grayscale_wide", "fused_grayscale_wide_backward",
+                  _WIDE_BWD_ARGTYPES, "fused_grayscale_wide_layout", (H, W),
+                  plan)
+        with torch.cuda.device(g.device):
+            code = fn(*ptrs, ws.data_ptr(), B, H, W, plan.grid, S, *tail)
+    else:
+        fn = bind("fused_grayscale_vjp", "fused_grayscale_diffusion_bwd",
+                  _BWD_ARGTYPES, "fused_grayscale_bwd_layout", (H, W), plan)
+        with torch.cuda.device(g.device):
+            code = fn(*ptrs, B, H, W, plan.grid, S, *tail)
+    kernels.raise_on_error("fused_grayscale_bwd" + ("_wide" if wide else ""),
+                           code)
     fused_grayscale_bwd.launches += 1
+    fused_grayscale_bwd.wide_launches += wide
     return (gu, *grads)
 
 
-fused_grayscale_bwd.launches = 0
+fused_grayscale_bwd.launches = 0       # either scheme
+fused_grayscale_bwd.wide_launches = 0  # the wide scheme's
 
 
 class _FusedGrayscaleDiffusion(torch.autograd.Function):

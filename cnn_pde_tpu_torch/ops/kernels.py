@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("thomas", "fused_channel", "fused_channel_vjp",
                   "fused_channel_wide", "fused_grayscale",
-                  "fused_grayscale_vjp")
+                  "fused_grayscale_vjp", "fused_grayscale_wide")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -383,18 +383,28 @@ def test_workspace_check_names_the_bytes(monkeypatch):
 
 
 def test_grayscale_kernels_keep_their_own_limits():
-    """K6-K8 hold a whole image in a block: their wrappers keep H, W ≤ 64
-    and the shared memory of a block as their own constants, whatever the
-    channel kernels take."""
-    assert (fused_grayscale.MAX_N, fused_grayscale.MAX_SMEM) == (64, MAX_SMEM)
-    assert fused_channel.MAX_N > fused_grayscale.MAX_N
+    """K6-K8's first scheme holds a whole image in a block: it keeps
+    H, W ≤ 64 (``SHARED_MAX_N``) and the shared memory of a block as its
+    own constants; past 64 pixels the wrappers choose the grayscale wide
+    scheme, up to the channel kernels' MAX_N (K1/K3's 1,440), and raise
+    past it, naming it."""
+    assert (fused_grayscale.SHARED_MAX_N, fused_grayscale.MAX_SMEM) == \
+        (64, MAX_SMEM)
+    assert fused_grayscale.MAX_N == fused_channel.MAX_N == MAX_N
     f = torch.zeros((64, 64))
     ts = torch.zeros((2, 3))
     fused_grayscale.check_layer_args("k", torch.zeros((1, 64, 64)), f, f, f,
                                      f, ts)
+    assert isinstance(fused_grayscale.choose_gray_scheme(7, 64, 64, 132),
+                      fused_grayscale.GrayPlan)
     f = torch.zeros((65, 64))
-    with pytest.raises(ValueError, match=r"H, W in \[1, 64\]"):
-        fused_grayscale.check_layer_args("k", torch.zeros((1, 65, 64)), f,
-                                         f, f, f, ts)
+    fused_grayscale.check_layer_args("k", torch.zeros((1, 65, 64)), f, f, f,
+                                     f, ts)
+    assert isinstance(fused_grayscale.choose_gray_scheme(7, 65, 64, 132),
+                      fused_grayscale.GrayWidePlan)
+    f = torch.zeros((MAX_N + 1, 64))
+    with pytest.raises(ValueError, match=f"H={MAX_N + 1}.*MAX_N"):
+        fused_grayscale.check_layer_args(
+            "k", torch.zeros((1, MAX_N + 1, 64)), f, f, f, f, ts)
     assert (FWD_BUFFERS, BWD_BUFFERS) == (1, 3)
     assert bwd_extra_floats(3, 32, 32) == (THREADS - 96) // 32 * 9

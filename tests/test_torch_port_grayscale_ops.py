@@ -267,8 +267,9 @@ def test_k6_refuses_gradients():
 
 def test_layer_argument_checks_and_block_budget():
     """What the kernels take: (B, H, W) float32 contiguous input, (H, W)
-    fields, (S, 3) times, H and W up to 64; and each block's threads and
-    shared memory, checked against the card's limits."""
+    fields, (S, 3) times, H and W up to MAX_N (1,440: the first scheme up
+    to 64, the wide scheme past it); and each block's threads and shared
+    memory, checked against the card's limits."""
     fields, u, _, ts = _case(12, 2, 0.3)
     f = _tensors(fields)
     tts = torch.tensor(ts, dtype=torch.float32)
@@ -278,10 +279,12 @@ def test_layer_argument_checks_and_block_budget():
             ((torch.from_numpy(u), f[0][:5], *f[1:], tts), "alpha_base"),
             ((torch.from_numpy(u), *f, tts[:, :2]), "ts must be"),
             ((torch.from_numpy(u).double(), *f, tts), "float32"),
-            ((torch.zeros(2, 65, 65), *(torch.zeros(65, 65),) * 4, tts),
-             "H, W in")):
+            ((torch.zeros(2, 1441, 8), *(torch.zeros(1441, 8),) * 4, tts),
+             "H=1441 outside \\[1, 1440\\] \\(MAX_N")):
         with pytest.raises((ValueError, TypeError), match=match):
             check_layer_args("k", *bad)
+    check_layer_args("k", torch.zeros(2, 65, 65),
+                     *(torch.zeros(65, 65),) * 4, tts)
     # mnist's layer at B = 1024 on an H100's 132 SMs: 256 blocks of 4
     # images, two threads a line and image of 28 rows in groups of 8 lanes
     # a line (224 threads, 256 at least); a block's bytes: factor buffers of
